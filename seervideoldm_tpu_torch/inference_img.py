@@ -1,0 +1,81 @@
+"""Single image + prompt -> predicted video clip, on the GPU (port of the
+root ``inference_img.py``).
+
+    python -m seervideoldm_tpu_torch.inference_img --config <yaml> \\
+        --image_path img.png --input_text_prompts "push the cup left"
+
+Takes the JAX entry point's YAML keys, ``model_overrides`` included.  The
+image is replicated to ``cond_frames``, VAE-encoded, and DDIM predicts the
+remaining frames with classifier-free guidance; the cond frames and the
+prediction are written as ``<output_dir>/sample-0.gif``.  Runs on CUDA;
+``--device cpu`` runs the plain PyTorch path instead.
+
+``generate_video`` is the same path as a Python API (a config dict or
+``Config``, a numpy image), with no GIF written.
+"""
+from __future__ import annotations
+
+import sys
+from typing import Optional, Union
+
+import torch
+
+from .config import Config, config_from_dict, parse_args
+from .data.transforms import image_to_model_input
+from .pipelines.loading import load_models
+from .pipelines.text_video import SeerPipeline
+from .utils.device import resolve_device, set_numerics
+from .utils.viz import save_visualization_onegif
+
+
+def build_pipeline(cfg: Union[Config, dict], device=None):
+    """``(SeerPipeline, tokenizer, cfg)`` for a config on ``device``."""
+    if isinstance(cfg, dict):
+        cfg = config_from_dict(cfg)
+    dev = resolve_device(device)
+    set_numerics()
+    models, tokenizer = load_models(cfg, dev)
+    return SeerPipeline(models, vae_scale=float(cfg.vae_scale)), tokenizer, cfg
+
+
+def generate_video(pipe: SeerPipeline, tokenizer, cfg: Config, image,
+                   prompt: str):
+    """``image``: a PIL image or (h, w, 3) uint8 array.  Returns (samples
+    (1, num_frames - cond_frames, res, res, 3) in [0, 1], cond frames
+    (1, cond_frames, res, res, 3) in [-1, 1])."""
+    frame = torch.from_numpy(image_to_model_input(image, int(cfg.resolution)))
+    cond = frame[None, None].repeat(1, int(cfg.cond_frames), 1, 1, 1)
+    tok, tok_uc = tokenizer([prompt or ""]), tokenizer([""])
+    gen = torch.Generator(device=pipe.device).manual_seed(int(cfg.seed))
+    samples = pipe.generate(
+        cond, tok["input_ids"], tok["attention_mask"], tok_uc["input_ids"],
+        tok_uc["attention_mask"], num_frames=int(cfg.num_frames),
+        generator=gen, ddim_steps=int(cfg.ddim_steps),
+        guidance_scale=float(cfg.scale))
+    return samples, cond
+
+
+def main(argv: Optional[list[str]] = None, device=None) -> str:
+    """Command-line entry; returns the GIF's path."""
+    cfg = parse_args("Seer single-image inference (PyTorch / CUDA port)",
+                     extra_flags={"image_path": None,
+                                  "input_text_prompts": None,
+                                  "device": None}, argv=argv)
+    if not cfg.image_path:
+        raise SystemExit("error: --image_path (or the image_path config key) "
+                         "is required")
+    pipe, tokenizer, cfg = build_pipeline(cfg, device or cfg.get("device"))
+    from PIL import Image
+
+    with Image.open(cfg.image_path) as img:
+        samples, cond = generate_video(pipe, tokenizer, cfg, img,
+                                       cfg.input_text_prompts or "")
+    path = save_visualization_onegif(samples.cpu().numpy(),
+                                     ((cond + 1.0) / 2.0).numpy(),
+                                     cfg.output_dir, 0)
+    print(f"wrote {path}")
+    return path
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

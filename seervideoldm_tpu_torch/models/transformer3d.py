@@ -1,0 +1,194 @@
+"""Spatial, temporal and text transformer blocks of the SeerUNet (port of
+``seervideoldm_tpu/models/transformer3d.py``; PAB and ToMe left out).
+
+- ``FeedForward``: GEGLU(dim -> 4 dim) -> Linear(4 dim -> dim), names
+  ``ff.net.0.proj`` / ``ff.net.2``; the fused GEGLU kernel (K5) where the
+  JAX site gate admits the shape;
+- ``ln_ff_residual``: ``x + ff(norm3(x))`` with the LN-fused kernel (K3) at
+  c <= 320;
+- ``BasicTextTransformerBlock3D``: per-frame spatial self-attention (flash
+  kernel K2 at seq >= 512) + per-frame cross-attention to that frame's
+  FSText sub-instruction;
+- ``BasicTransformerBlock3D`` (temporal): SWAT windowed causal attention
+  (K1), then the FF, whose residual skips the first ``cond_frame`` frames;
+- ``SpatialTransformer3D``: fp32 GroupNorm -> 1x1 proj_in -> block ->
+  zero-initialised 1x1 proj_out + residual; at the last temporal block with
+  ``cond_frame == 0`` and c <= 320 the whole tail runs as one kernel (K4).
+
+Layout ``(b, f, h, w, c)``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import CrossAttention, WindowTemporalAttention
+from ..ops.conv import InflatedConv
+from ..ops.kernels.geglu_ff import (geglu_ff, geglu_ff_supported, ln_geglu_ff,
+                                    ln_geglu_ff_preferred, ln_geglu_ff_proj)
+from ..ops.norms import GroupNorm, LayerNorm
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)  # rows [hidden | gate]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hidden, gate = self.proj(x).chunk(2, dim=-1)
+        return hidden * F.gelu(gate, approximate="none")
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        # reference net = [GEGLU, Dropout, Linear]
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
+                                  nn.Linear(inner, dim)])
+
+    def weights(self):
+        """(w1, b1, w2, b2) in torch Linear layout, as the kernels take."""
+        return (self.net[0].proj.weight, self.net[0].proj.bias,
+                self.net[2].weight, self.net[2].bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, c = x.shape[:-1], x.shape[-1]
+        n = x.numel() // c
+        inner = self.net[2].in_features
+        if geglu_ff_supported(n, c, inner, x):
+            return geglu_ff(x.reshape(n, c), *self.weights()).reshape(*lead, c)
+        return self.net[2](self.net[0](x))
+
+
+def ln_ff_residual(norm: LayerNorm, ff: FeedForward,
+                   x: torch.Tensor) -> torch.Tensor:
+    """``x + ff(norm(x))``; LN prologue and residual epilogue fused into the
+    GEGLU kernel where the JAX gate prefers it."""
+    lead, c = x.shape[:-1], x.shape[-1]
+    n = x.numel() // c
+    if ln_geglu_ff_preferred(n, c, ff.net[2].in_features, x):
+        out = ln_geglu_ff(x.reshape(n, c), norm.weight, norm.bias, *ff.weights())
+        return out.reshape(*lead, c)
+    return ff(norm(x)) + x
+
+
+def ln_ff_proj_residual(norm: LayerNorm, ff: FeedForward, x: torch.Tensor,
+                        proj_out: InflatedConv, res: torch.Tensor) -> torch.Tensor:
+    """``res + proj_out(x + ff(norm(x)))`` as one kernel (the caller has
+    checked the gate); x and res token-flattened (b, n, c)."""
+    lead, c = x.shape[:-1], x.shape[-1]
+    n = x.numel() // c
+    w3 = proj_out.weight.reshape(proj_out.out_channels, c)
+    out = ln_geglu_ff_proj(x.reshape(n, c), norm.weight, norm.bias,
+                           *ff.weights(), w3, proj_out.bias, res.reshape(n, c))
+    return out.reshape(*lead, c)
+
+
+class BasicTextTransformerBlock3D(nn.Module):
+    """Per-frame self-attention + per-frame cross-attention to the FSText
+    sub-instructions + FF."""
+
+    def __init__(self, dim: int, n_heads: int, d_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, heads=n_heads, dim_head=d_head)
+        self.attn2 = CrossAttention(dim, context_dim, heads=n_heads,
+                                    dim_head=d_head)
+        self.ff = FeedForward(dim)
+        self.norm1 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.norm3 = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (b, f, h, w, c); context (b, f, l, d)."""
+        b, f, h, w, c = x.shape
+        x = x.reshape(b * f, h * w, c)
+        x = self.attn1(self.norm1(x)) + x
+        if context is not None:
+            ctx = context.reshape(b * f, -1, context.shape[-1])
+            x = self.attn2(self.norm2(x), context=ctx) + x
+        x = ln_ff_residual(self.norm3, self.ff, x)
+        return x.reshape(b, f, h, w, c)
+
+
+class BasicTransformerBlock3D(nn.Module):
+    """Temporal block: SWAT windowed causal attention, then the FF skipping
+    the first ``cond_frame`` frames' residual."""
+
+    def __init__(self, dim: int, n_heads: int, d_head: int, causal: bool = True,
+                 cond_frame: int = 0):
+        super().__init__()
+        self.cond_frame = cond_frame
+        self.attn1 = WindowTemporalAttention(dim, heads=n_heads, dim_head=d_head,
+                                             causal=causal)
+        self.ff = FeedForward(dim)
+        self.norm1 = LayerNorm(dim)
+        self.norm3 = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor, fuse_out=None) -> torch.Tensor:
+        """``fuse_out = (proj_out, res)``: run the site tail in the FF
+        kernel; the return value is then the site's final output."""
+        b, f, h, w, c = x.shape
+        x = self.attn1(self.norm1(x)).reshape(b, f * h * w, c) + x.reshape(
+            b, f * h * w, c)
+        cf = self.cond_frame * h * w
+        if cf > 0:
+            # cond-frame tokens bypass the FF residual (reference
+            # attention.py:241-246)
+            x = torch.cat([x[:, :cf], ln_ff_residual(self.norm3, self.ff,
+                                                     x[:, cf:])], dim=1)
+        elif fuse_out is not None:
+            proj_out, res = fuse_out
+            x = ln_ff_proj_residual(self.norm3, self.ff, x, proj_out,
+                                    res.reshape(b, f * h * w, c))
+        else:
+            x = ln_ff_residual(self.norm3, self.ff, x)
+        return x.reshape(b, f, h, w, c)
+
+
+class SpatialTransformer3D(nn.Module):
+    """GroupNorm -> 1x1 proj_in -> transformer block -> zero-init 1x1
+    proj_out + residual."""
+
+    def __init__(self, in_channels: int, n_heads: int, d_head: int,
+                 context_dim: Optional[int] = None, temporal: bool = False,
+                 text_frame_condition: bool = False, causal: bool = False,
+                 cond_frame: int = 0, norm_num_groups: int = 32):
+        super().__init__()
+        inner = n_heads * d_head
+        self.temporal, self.cond_frame = temporal, cond_frame
+        self.text_frame_condition = text_frame_condition
+        self.norm = GroupNorm(norm_num_groups, in_channels, eps=1e-6)
+        self.proj_in = InflatedConv(in_channels, inner, 1)
+        if text_frame_condition:
+            block = BasicTextTransformerBlock3D(inner, n_heads, d_head,
+                                                context_dim)
+        elif temporal:
+            block = BasicTransformerBlock3D(inner, n_heads, d_head, causal,
+                                            cond_frame)
+        else:
+            raise ValueError("the live SeerUNet builds text or temporal sites")
+        self.transformer_blocks = nn.ModuleList([block])
+        self.proj_out = InflatedConv(inner, in_channels, 1)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, f, h, w, c = x.shape
+        x_in = x
+        x = self.proj_in(self.norm(x))
+        block = self.transformer_blocks[0]
+        if self.text_frame_condition:
+            x = block(x, context=context)
+        else:
+            inner = x.shape[-1]
+            if (self.cond_frame == 0 and c == inner
+                    and ln_geglu_ff_preferred(b * f * h * w, inner, inner * 4, x)):
+                # proj_out + the outer residual ride the FF kernel (K4)
+                return block(x, fuse_out=(self.proj_out, x_in))
+            x = block(x)
+        return self.proj_out(x) + x_in

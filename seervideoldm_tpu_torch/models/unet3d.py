@@ -1,0 +1,125 @@
+"""SeerUNet: the SD-1.5 UNet inflated to video with causal temporal
+attention (port of ``seervideoldm_tpu/models/unet3d.py``).
+
+down = 3 x CrossAttnDownBlock3D + DownBlock3D, mid =
+UNetMidBlock3DCrossAttn, up = UpBlock3D + 3 x CrossAttnUpBlock3D;
+timestep -> sinusoidal (flip_sin_to_cos) -> MLP; conv_in -> down -> mid ->
+up -> fp32 GroupNorm + SiLU + conv_out.  ``sample`` is ``(b, f, h, w, 4)``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv import InflatedConv
+from ..ops.norms import GroupNorm
+from .embeddings import TimestepEmbedding, timestep_embedding
+from .unet_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D, DownBlock3D,
+                          UNetMidBlock3DCrossAttn, UpBlock3D)
+
+
+@dataclass(frozen=True)
+class SeerUNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    center_input_sample: bool = False
+    flip_sin_to_cos: bool = True
+    freq_shift: float = 0.0
+    block_out_channels: Sequence[int] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    downsample_padding: int = 1
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    cross_attention_dim: int = 768
+    attention_head_dim: int = 8
+
+
+class SeerUNet(nn.Module):
+    def __init__(self, config: SeerUNetConfig = SeerUNetConfig(),
+                 cond_frame: int = 0):
+        super().__init__()
+        cfg = self.config = config
+        boc = tuple(cfg.block_out_channels)
+        temb = boc[0] * 4
+        n = len(boc)
+        self.conv_in = InflatedConv(cfg.in_channels, boc[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(boc[0], temb)
+        common = dict(resnet_eps=cfg.norm_eps, resnet_groups=cfg.norm_num_groups)
+        attn = dict(attn_num_head_channels=cfg.attention_head_dim,
+                    cross_attention_dim=cfg.cross_attention_dim, causal=True,
+                    cond_frame=cond_frame)
+
+        self.down_blocks = nn.ModuleList()
+        out_ch = boc[0]
+        for i in range(n):
+            in_ch, out_ch = out_ch, boc[i]
+            if i < n - 1:
+                self.down_blocks.append(CrossAttnDownBlock3D(
+                    in_ch, out_ch, temb, cfg.layers_per_block,
+                    downsample_padding=cfg.downsample_padding, **common, **attn))
+            else:
+                self.down_blocks.append(DownBlock3D(
+                    in_ch, out_ch, temb, cfg.layers_per_block,
+                    downsample_padding=cfg.downsample_padding,
+                    add_downsample=False, **common))
+
+        self.mid_block = UNetMidBlock3DCrossAttn(boc[-1], temb, **common, **attn)
+
+        self.up_blocks = nn.ModuleList()
+        rev = list(reversed(boc))
+        out_ch = rev[0]
+        for i in range(n):
+            prev, out_ch = out_ch, rev[i]
+            in_ch = rev[min(i + 1, n - 1)]
+            kw = dict(num_layers=cfg.layers_per_block + 1,
+                      add_upsample=i < n - 1, **common)
+            if i == 0:
+                self.up_blocks.append(UpBlock3D(in_ch, prev, out_ch, temb, **kw))
+            else:
+                self.up_blocks.append(CrossAttnUpBlock3D(in_ch, out_ch, prev,
+                                                         temb, **kw, **attn))
+
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
+        self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        """sample (b, f, h, w, 4); timesteps (b,) or scalar; context
+        (b, f, l, d) FSText embeddings."""
+        cfg = self.config
+        dtype = self.conv_in.weight.dtype
+        if cfg.center_input_sample:
+            sample = 2 * sample - 1.0
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                   cfg.flip_sin_to_cos, cfg.freq_shift)
+        emb = self.time_embedding(t_emb.to(dtype))
+        sample = self.conv_in(sample.to(dtype))
+        context = context.to(dtype)
+
+        res_states = (sample,)
+        for block in self.down_blocks:
+            if isinstance(block, CrossAttnDownBlock3D):
+                sample, states = block(sample, emb, context)
+            else:
+                sample, states = block(sample, emb)
+            res_states += states
+
+        sample = self.mid_block(sample, emb, context)
+
+        for block in self.up_blocks:
+            k = len(block.resnets)
+            states, res_states = res_states[-k:], res_states[:-k]
+            if isinstance(block, CrossAttnUpBlock3D):
+                sample = block(sample, states, emb, context)
+            else:
+                sample = block(sample, states, emb)
+
+        sample = F.silu(self.conv_norm_out(sample))
+        return self.conv_out(sample)

@@ -1,0 +1,182 @@
+"""Down / mid / up blocks of the SeerUNet (port of
+``seervideoldm_tpu/models/unet_blocks.py``; FreeU left out).
+
+Each cross-attention layer runs ResnetBlock3D -> SpatialTransformer3D
+(per-frame spatial + text cross-attention) -> SpatialTransformer3D
+(temporal, causal).  Skip connections concatenate on the channel axis
+(last here).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .resnet3d import Downsample3D, ResnetBlock3D, Upsample3D
+from .transformer3d import SpatialTransformer3D
+
+
+def _site_pair(ch: int, heads: int, cross_dim: int, groups: int,
+               causal: bool, cond_frame: int):
+    text = SpatialTransformer3D(ch, heads, ch // heads, context_dim=cross_dim,
+                                text_frame_condition=True,
+                                norm_num_groups=groups)
+    temporal = SpatialTransformer3D(ch, heads, ch // heads, temporal=True,
+                                    causal=causal, cond_frame=cond_frame,
+                                    norm_num_groups=groups)
+    return text, temporal
+
+
+class CrossAttnDownBlock3D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
+                 num_layers: int = 2, resnet_eps: float = 1e-6,
+                 resnet_groups: int = 32, attn_num_head_channels: int = 8,
+                 cross_attention_dim: int = 768, downsample_padding: int = 1,
+                 add_downsample: bool = True, causal: bool = True,
+                 cond_frame: int = 0):
+        super().__init__()
+        self.resnets = nn.ModuleList()
+        self.attentions = nn.ModuleList()
+        self.temporal_attentions = nn.ModuleList()
+        for i in range(num_layers):
+            self.resnets.append(ResnetBlock3D(
+                in_channels if i == 0 else out_channels, out_channels,
+                temb_channels, resnet_groups, resnet_eps))
+            text, temporal = _site_pair(out_channels, attn_num_head_channels,
+                                        cross_attention_dim, resnet_groups,
+                                        causal, cond_frame)
+            self.attentions.append(text)
+            self.temporal_attentions.append(temporal)
+        self.downsamplers = nn.ModuleList(
+            [Downsample3D(out_channels, out_channels, downsample_padding)]
+            if add_downsample else [])
+
+    def forward(self, x, temb=None, encoder_hidden_states=None):
+        states = ()
+        for resnet, text, temporal in zip(self.resnets, self.attentions,
+                                          self.temporal_attentions):
+            x = resnet(x, temb)
+            x = text(x, context=encoder_hidden_states)
+            x = temporal(x)
+            states += (x,)
+        for down in self.downsamplers:
+            x = down(x)
+            states += (x,)
+        return x, states
+
+
+class DownBlock3D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
+                 num_layers: int = 2, resnet_eps: float = 1e-6,
+                 resnet_groups: int = 32, downsample_padding: int = 1,
+                 add_downsample: bool = True):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock3D(in_channels if i == 0 else out_channels, out_channels,
+                          temb_channels, resnet_groups, resnet_eps)
+            for i in range(num_layers)])
+        self.downsamplers = nn.ModuleList(
+            [Downsample3D(out_channels, out_channels, downsample_padding)]
+            if add_downsample else [])
+
+    def forward(self, x, temb=None):
+        states = ()
+        for resnet in self.resnets:
+            x = resnet(x, temb)
+            states += (x,)
+        for down in self.downsamplers:
+            x = down(x)
+            states += (x,)
+        return x, states
+
+
+class UNetMidBlock3DCrossAttn(nn.Module):
+    def __init__(self, in_channels: int, temb_channels: int, num_layers: int = 1,
+                 resnet_eps: float = 1e-6, resnet_groups: int = 32,
+                 attn_num_head_channels: int = 8, cross_attention_dim: int = 768,
+                 causal: bool = True, cond_frame: int = 0):
+        super().__init__()
+        res = lambda: ResnetBlock3D(in_channels, in_channels, temb_channels,  # noqa: E731
+                                    resnet_groups, resnet_eps)
+        self.resnets = nn.ModuleList([res() for _ in range(num_layers + 1)])
+        self.attentions = nn.ModuleList()
+        self.temporal_attentions = nn.ModuleList()
+        for _ in range(num_layers):
+            text, temporal = _site_pair(in_channels, attn_num_head_channels,
+                                        cross_attention_dim, resnet_groups,
+                                        causal, cond_frame)
+            self.attentions.append(text)
+            self.temporal_attentions.append(temporal)
+
+    def forward(self, x, temb=None, encoder_hidden_states=None):
+        x = self.resnets[0](x, temb)
+        for text, temporal, resnet in zip(self.attentions,
+                                          self.temporal_attentions,
+                                          self.resnets[1:]):
+            x = text(x, context=encoder_hidden_states)
+            x = temporal(x)
+            x = resnet(x, temb)
+        return x
+
+
+class CrossAttnUpBlock3D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 prev_output_channel: int, temb_channels: int,
+                 num_layers: int = 3, resnet_eps: float = 1e-6,
+                 resnet_groups: int = 32, attn_num_head_channels: int = 8,
+                 cross_attention_dim: int = 768, add_upsample: bool = True,
+                 causal: bool = True, cond_frame: int = 0):
+        super().__init__()
+        self.resnets = nn.ModuleList()
+        self.attentions = nn.ModuleList()
+        self.temporal_attentions = nn.ModuleList()
+        for i in range(num_layers):
+            skip = in_channels if i == num_layers - 1 else out_channels
+            res_in = prev_output_channel if i == 0 else out_channels
+            self.resnets.append(ResnetBlock3D(res_in + skip, out_channels,
+                                              temb_channels, resnet_groups,
+                                              resnet_eps))
+            text, temporal = _site_pair(out_channels, attn_num_head_channels,
+                                        cross_attention_dim, resnet_groups,
+                                        causal, cond_frame)
+            self.attentions.append(text)
+            self.temporal_attentions.append(temporal)
+        self.upsamplers = nn.ModuleList(
+            [Upsample3D(out_channels, out_channels)] if add_upsample else [])
+
+    def forward(self, x, res_states, temb=None, encoder_hidden_states=None):
+        for resnet, text, temporal in zip(self.resnets, self.attentions,
+                                          self.temporal_attentions):
+            x = torch.cat([x, res_states[-1]], dim=-1)
+            res_states = res_states[:-1]
+            x = resnet(x, temb)
+            x = text(x, context=encoder_hidden_states)
+            x = temporal(x)
+        for up in self.upsamplers:
+            x = up(x)
+        return x
+
+
+class UpBlock3D(nn.Module):
+    def __init__(self, in_channels: int, prev_output_channel: int,
+                 out_channels: int, temb_channels: int, num_layers: int = 3,
+                 resnet_eps: float = 1e-6, resnet_groups: int = 32,
+                 add_upsample: bool = True):
+        super().__init__()
+        self.resnets = nn.ModuleList()
+        for i in range(num_layers):
+            skip = in_channels if i == num_layers - 1 else out_channels
+            res_in = prev_output_channel if i == 0 else out_channels
+            self.resnets.append(ResnetBlock3D(res_in + skip, out_channels,
+                                              temb_channels, resnet_groups,
+                                              resnet_eps))
+        self.upsamplers = nn.ModuleList(
+            [Upsample3D(out_channels, out_channels)] if add_upsample else [])
+
+    def forward(self, x, res_states, temb=None):
+        for resnet in self.resnets:
+            x = torch.cat([x, res_states[-1]], dim=-1)
+            res_states = res_states[:-1]
+            x = resnet(x, temb)
+        for up in self.upsamplers:
+            x = up(x)
+        return x

@@ -1,0 +1,109 @@
+"""The port's import boundary and device default.
+
+- every module of ``seervideoldm_tpu_torch`` and the root ``chip_smoke.py``
+  import in a fresh interpreter where ``jax``, ``flax`` and
+  ``seervideoldm_tpu`` cannot be imported;
+- no source file of the port names them in an import;
+- on a host without CUDA, the entry points called without ``device="cpu"``
+  raise instead of running on the CPU; models for the GPU are bf16.
+"""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "seervideoldm_tpu_torch")
+BLOCKED = ("jax", "flax", "seervideoldm_tpu")
+
+
+def _port_modules():
+    names = ["seervideoldm_tpu_torch"]
+    for info in pkgutil.walk_packages([PKG], "seervideoldm_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_imports_with_jax_blocked():
+    code = "\n".join([
+        "import importlib, runpy, sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        f"for mod in {_port_modules()!r}:",
+        "    importlib.import_module(mod)",
+        f"runpy.run_path({os.path.join(ROOT, 'chip_smoke.py')!r}, "
+        "run_name='chip_smoke_import')",
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r} and sys.modules[m] is not None]",
+        "assert not leaked, leaked",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|seervideoldm_tpu)\b",
+                     re.MULTILINE)
+    offenders = [p for p in _sources() if pat.search(open(p).read())]
+    assert not offenders
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid here")
+    from seervideoldm_tpu_torch.inference_img import build_pipeline
+    from seervideoldm_tpu_torch.pipelines.text_video import SeerModels
+    from seervideoldm_tpu_torch.utils.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_pipeline({"resolution": 32})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SeerModels.initialize()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_gpu_models_refuse_fp32(monkeypatch):
+    """The CUDA kernels compute in bf16: models for the GPU built in fp32
+    are refused before anything is built, not failed deep in a kernel."""
+    from seervideoldm_tpu_torch.pipelines import text_video
+
+    monkeypatch.setattr(text_video, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    with pytest.raises(ValueError, match="compute in bf16"):
+        text_video.SeerModels.initialize(dtype=torch.float32)
+
+
+def test_numpy_image_input_matches_pil_path():
+    """``image_to_model_input`` on a numpy image (hosts without Pillow)
+    against the PIL path: identical at the target size, within two 8-bit
+    levels when resizing."""
+    from PIL import Image
+
+    from seervideoldm_tpu_torch.data.transforms import image_to_model_input
+
+    img = np.random.RandomState(0).randint(0, 255, (32, 32, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(image_to_model_input(img, 32),
+                                  image_to_model_input(Image.fromarray(img), 32))
+    smooth = np.linspace(0, 255, 48 * 64 * 3).reshape(48, 64, 3).astype(np.uint8)
+    a = image_to_model_input(smooth, 32)
+    b = image_to_model_input(Image.fromarray(smooth), 32)
+    assert a.shape == b.shape == (32, 32, 3)
+    np.testing.assert_allclose(a, b, atol=4 / 255 * 2)
