@@ -12,26 +12,48 @@ no result line):
    and power limit as nvidia-smi reports them;
 2. build: compiles the three CUDA sources under ``seervideoldm_tpu_torch/
    csrc`` with nvcc for sm_90a, all at once, and prints the build time;
-3. kernel checks: each of K1-K5 at the main-path shapes (256 px) and at the
-   512 px shapes (d = 40 and d = 80), bf16 inputs from a seeded generator,
-   against its plain PyTorch version; times the kernel, the plain version
-   and one library call computing the same function;
+3. kernel checks: each of K1-K5 (forward) and K7, K8 (backward) at the
+   shapes both main paths give it at 256 px -- sampling (CFG batch 2, under
+   ``no_grad``) and training (batch 1, called under ``enable_grad`` on
+   inputs that require a gradient, so the forward is the log-sum-exp
+   writing launch of the ``autograd.Function``) -- and at the 512 px shapes
+   (d = 40 and d = 80), bf16 inputs from a seeded generator, against its
+   plain PyTorch version (for a backward kernel dq, dk and dv each); the
+   forward kernels' log-sum-exp against ``logsumexp`` of the plain scores;
+   times the kernel, the plain version and one library call computing the
+   same function;
 4. reference: one SeerUNet call at narrow widths (64/128) and the main
    path's 256 px / 12 frame / CFG-batch-2 shapes, bf16 with the kernels on
    the card against the port's plain path in fp32 on the CPU, same weights
    and inputs (relative L2 error <= 5e-2);
-5. end to end: the port's image + prompt -> video pipeline at full SD-1.5
+5. train reference: the same narrow SeerUNet, every ``proj_out`` non-zero,
+   one training forward + backward (``cond_frame`` 2, eps-MSE on the future
+   frames): loss and per-tensor gradients of the temporal attentions, bf16
+   through the kernels on the card against the plain path in fp32 on the
+   CPU;
+6. end to end: the port's image + prompt -> video pipeline at full SD-1.5
    width (CLIP ViT-L/14 text, FSText, SD-1.5 VAE, SeerUNet 320/640/1280/
    1280), 256 px, 12 frames, 2 cond frames, CFG 7.5, random weights from a
    seed, 30 DDIM steps (the shipped config's count); launch counts are
    zeroed just before and read just after, and every kernel must have run
    its count per step x steps;
    checks the frames (finite, (1, 10, 256, 256, 3), in [0, 1]);
-6. prints the ``kernels`` line, the card line and the result line.
+7. training: the port's ``train`` entry at the same full width on a
+   synthetic Something-Something-v2 tree written from a numpy seed to a
+   temporary directory: 256 px, 12 frames, 2 cond frames, batch 1,
+   accumulation 2 (the shipped ``configs/train.yaml`` values) with
+   ``text_loss`` on, 4 optimizer steps; launch counts zeroed just before and read just after, each
+   kernel must have run its count per micro-step; losses finite; read back
+   from the checkpoint it wrote, every trainable fp32 master moved and
+   every frozen SeerUNet / FSText weight equals its seeded initial value;
+   the checkpoint is loaded and sampled for a few DDIM steps;
+8. prints the ``kernels`` line, the card line and the result line.
 
-``--profile PATH`` adds where one full-width DDIM step's time goes: one
-SeerUNet call's CUDA kernel time by category and the device busy share (a
-``profile`` JSON line); the full torch.profiler table is written to PATH.
+``--profile PATH`` adds where one full-width DDIM step's time goes (one
+SeerUNet call's CUDA kernel time by category and the device busy share, a
+``profile`` JSON line) and the same for one training forward + backward (a
+``profile_train`` line); the torch.profiler tables are written to PATH and
+PATH.train.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -40,14 +62,31 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 ATOL, RTOL = 2e-2, 2e-2    # bf16 outputs, kernel vs plain version
 REF_RTOL = 5e-2            # relative L2, bf16 UNet on the card vs fp32 CPU
+# Backward kernels vs plain backward, dq, dk, dv each: the forward's
+# elementwise bound (bf16 outputs: one ulp at |x| in [4, 8) is 0.03, and the
+# kernel rounds p and dS to bf16 as tensor-core operands where the plain
+# version keeps fp32, so an entry that is a cancelling sum of up to 4096
+# products of size ~1 carries ~1e-2 of absolute error), and a relative L2
+# bound over the whole tensor, which the rounding noise averages out of.
+BWD_REL_L2 = 1e-2
+LSE_ATOL = 1e-3            # natural-log lse of bf16 scores, fp32 both sides
+# Training gradients, bf16 through the kernels on the card vs fp32 on the
+# CPU (narrow SeerUNet): relative L2 over all trainable gradients, and the
+# loosest single tensor (small bias / LayerNorm tensors carry the most
+# bf16 noise relative to their own size)
+TRAIN_REF_RTOL, TRAIN_REF_TENSOR_RTOL = 5e-2, 2.5e-1
+TRAIN_OPT_STEPS, TRAIN_ACCUM = 4, 2
+TRAIN_SAMPLE_STEPS = 5     # DDIM steps sampled from the trained checkpoint
 E2E_STEPS = 30             # DDIM steps of the end-to-end run (the shipped
                            # configs/inference_base.yaml value)
 SEED = 0
@@ -56,7 +95,17 @@ SEED = 0
 # attention, K3/K4 at the c = 320 text FF / temporal site tails, K5 at the
 # c = 640 FF sites
 PER_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
-            "ln_geglu_ff": 5, "ln_geglu_ff_proj": 5, "geglu_ff": 10}
+            "ln_geglu_ff": 5, "ln_geglu_ff_proj": 5, "geglu_ff": 10,
+            "swat_attention_tables_bwd": 0, "flash_attention_bwd": 0}
+# launches per training micro-step (batch 1, 12 frames, cond_frame 2, no
+# remat): with cond_frame > 0 the temporal tails run K3 on the non-cond
+# tokens, never K4, so K3 serves the 5 text and the 5 temporal c = 320
+# sites; every K1 has its K7.  The first spatial site sees only frozen
+# layers upstream, so autograd asks it for no gradient: 4 of the 5 K2
+# launches have a K8.
+PER_MICRO_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
+                  "ln_geglu_ff": 10, "ln_geglu_ff_proj": 0, "geglu_ff": 10,
+                  "swat_attention_tables_bwd": 5, "flash_attention_bwd": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -83,7 +132,9 @@ def wrappers() -> dict:
     return {"swat_attention_tables": sw.swat_attention_tables,
             "flash_attention": fa.flash_attention,
             "ln_geglu_ff": gg.ln_geglu_ff,
-            "ln_geglu_ff_proj": gg.ln_geglu_ff_proj, "geglu_ff": gg.geglu_ff}
+            "ln_geglu_ff_proj": gg.ln_geglu_ff_proj, "geglu_ff": gg.geglu_ff,
+            "swat_attention_tables_bwd": sw.swat_attention_tables_bwd,
+            "flash_attention_bwd": fa.flash_attention_bwd}
 
 
 def reset_launches() -> None:
@@ -127,7 +178,40 @@ def _randn(shape, gen, dtype, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def case_flash(gen, batch, n, d, causal=False):
+def _as_path_calls(case: dict, inputs, grad: bool) -> dict:
+    """The case's forward calls made the way a main path makes them.
+    Sampling (``grad`` false): under ``no_grad``.  Training: the wrapper is
+    called under ``enable_grad`` on ``inputs`` that require a gradient, so
+    it goes through its ``autograd.Function`` (for the attentions the
+    log-sum-exp writing launch) and its result must carry a ``grad_fn``;
+    the plain version and the library call stay forward-only."""
+    import torch
+
+    for t in inputs:
+        t.requires_grad_(grad)
+    wrapper = case["kernel"]
+
+    def kernel():
+        with torch.set_grad_enabled(grad):
+            out = wrapper()
+        require(not grad or out.grad_fn is not None,
+                f"{case['name']}: no grad_fn on a result that needs a gradient")
+        return out.detach()
+
+    def forward_only(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+
+    case.update(kernel=kernel, plain=forward_only(case["plain"]),
+                library=forward_only(case["library"]))
+    if grad:
+        case["shape"] += ", autograd forward"
+    return case
+
+
+def case_flash(gen, batch, n, d, causal=False, grad=False):
     import torch
     import torch.nn.functional as F
 
@@ -137,16 +221,19 @@ def case_flash(gen, batch, n, d, causal=False):
     q, k, v = (_randn((batch, n, d), gen, bf) for _ in range(3))
     scale = d ** -0.5
     pairs = n * (n + 1) // 2 if causal else n * n
-    return dict(
+    return _as_path_calls(dict(
         name="flash_attention", kernel=lambda: K.flash_attention(q, k, v, scale, causal),
         plain=lambda: K.flash_attention_plain(q, k, v, scale, causal),
         library=lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale, is_causal=causal),
-        flops=4.0 * batch * pairs * d, nbytes=4.0 * batch * n * d * 2,
-        shape=f"({batch}, {n}, {d}){' causal' if causal else ''}")
+        flops=4.0 * batch * pairs * d,
+        # q, k, v read, o written (bf16); the autograd forward also writes lse
+        nbytes=4.0 * batch * n * d * 2 + (4.0 * batch * n if grad else 0.0),
+        shape=f"({batch}, {n}, {d}){' causal' if causal else ''}"),
+        (q, k, v), grad)
 
 
-def case_swat(gen, batch, f, h, d):
+def case_swat(gen, batch, f, h, d, grad=False):
     import torch
     import torch.nn.functional as F
 
@@ -161,18 +248,118 @@ def case_swat(gen, batch, f, h, d):
     qw, kw, vw = (window_partition(t, ws) for t in (q, k, v))
     tokens = f * ws * ws
     windows = batch * (h // ws) ** 2
-    return dict(
+    return _as_path_calls(dict(
         name="swat_attention_tables",
         kernel=lambda: K.swat_attention_tables(q, k, v, cos, sin, scale, True, ws),
         plain=lambda: K.swat_attention_tables_plain(q, k, v, cos, sin, scale, True, ws),
         library=lambda: F.scaled_dot_product_attention(
             qw, kw, vw, scale=scale, is_causal=True),
         flops=4.0 * windows * d * tokens * (tokens + 1) / 2,
-        nbytes=4.0 * q.numel() * 2 + 2.0 * cos.numel() * 4,
+        nbytes=(4.0 * q.numel() * 2 + 2.0 * cos.numel() * 4
+                + (4.0 * batch * f * h * h if grad else 0.0)),
+        shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal"), (q, k, v), grad)
+
+
+def case_flash_bwd(gen, batch, n, d, causal=False, m=None):
+    """K8 against the explicit plain backward; the forward kernel's lse
+    against logsumexp of the plain scores.  Library yardstick: autograd
+    through SDPA, forward + backward."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
+
+    bf, m = torch.bfloat16, m or n
+    q, g = (_randn((batch, n, d), gen, bf) for _ in range(2))
+    k, v = (_randn((batch, m, d), gen, bf) for _ in range(2))
+    scale = d ** -0.5
+    out, lse = K._launch_fwd(q, k, v, scale, causal, want_lse=True)
+
+    def lse_err():
+        sub = slice(0, min(batch, 4))
+        logits = torch.matmul(q[sub].float(), k[sub].float().transpose(1, 2)) * scale
+        if causal:
+            keep = torch.ones(n, m, dtype=torch.bool, device="cuda").tril()
+            logits = logits.masked_fill(~keep, float("-inf"))
+        want = torch.logsumexp(logits, dim=-1)
+        return float((lse[sub] * math.log(2.0) - want).abs().max())
+
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def library():
+        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale,
+                                           is_causal=causal)
+        return torch.autograd.grad(o, (ql, kl, vl), g)
+
+    pairs = n * (n + 1) // 2 if causal else n * m
+    return dict(
+        name="flash_attention_bwd",
+        kernel=lambda: K.flash_attention_bwd(q, k, v, out, lse, g, scale, causal),
+        plain=lambda: K.flash_attention_bwd_plain(q, k, v, g, scale, causal),
+        library=library, lse_err=lse_err, backward=True,
+        flops=10.0 * batch * pairs * d,
+        # q, k, v, o, g read, dq, dk, dv written (bf16); lse read (fp32)
+        nbytes=2.0 * batch * d * (4 * n + 4 * m) + 4.0 * batch * n,
+        shape=f"({batch}, {n}{'' if m == n else f' x {m}'}, {d})"
+              f"{' causal' if causal else ''}")
+
+
+def case_swat_bwd(gen, batch, f, h, d):
+    """K7 against the explicit plain backward.  Library yardstick: autograd
+    through SDPA (forward + backward) on window-partitioned inputs, no
+    rotary."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
+    from seervideoldm_tpu_torch.ops.rotary import rotary_tables
+    from seervideoldm_tpu_torch.ops.windows import window_partition
+
+    bf, ws = torch.bfloat16, 8
+    q, k, v, g = (_randn((batch, f, h, h, d), gen, bf) for _ in range(4))
+    cos, sin = rotary_tables(f, h, h, d, min(32, d), device="cuda")
+    scale = d ** -0.5
+    out, lse = K._launch_fwd(q, k, v, cos, sin, scale, True, ws, want_lse=True)
+    tokens = f * ws * ws
+    windows = batch * (h // ws) ** 2
+
+    def lse_err():
+        qr, kr = (K.rotate_tables(t[:1], cos, sin) for t in (q, k))
+        qw, kw = window_partition(qr, ws), window_partition(kr, ws)
+        logits = torch.matmul(qw.float(), kw.float().transpose(1, 2)) * scale
+        keep = torch.ones(tokens, tokens, dtype=torch.bool, device="cuda").tril()
+        want = torch.logsumexp(logits.masked_fill(~keep, float("-inf")), dim=-1)
+        got = window_partition(lse[:1, ..., None], ws)[..., 0] * math.log(2.0)
+        return float((got - want).abs().max())
+
+    ql, kl, vl = (window_partition(t, ws).clone().requires_grad_()
+                  for t in (q, k, v))
+    gl = window_partition(g, ws)
+
+    def library():
+        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale,
+                                           is_causal=True)
+        return torch.autograd.grad(o, (ql, kl, vl), gl)
+
+    return dict(
+        name="swat_attention_tables_bwd",
+        kernel=lambda: K.swat_attention_tables_bwd(q, k, v, cos, sin, out, lse,
+                                                   g, scale, True, ws),
+        plain=lambda: K.swat_attention_tables_bwd_plain(q, k, v, cos, sin, g,
+                                                        scale, True, ws),
+        library=library, lse_err=lse_err, backward=True,
+        # 5 products x 2 * tokens^2 * d per window, times (f + 1) / (2 f):
+        # the share of 64 x 64 tiles on or below the causal diagonal
+        flops=10.0 * windows * tokens * tokens * d * (f + 1) / (2.0 * f),
+        nbytes=8.0 * q.numel() * 2 + 2.0 * cos.numel() * 4 + 4.0 * lse.numel(),
         shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal")
 
 
-def case_geglu(gen, mode, n, c):
+def case_geglu(gen, mode, n, c, grad=False):
     import torch
     import torch.nn.functional as F
 
@@ -198,18 +385,20 @@ def case_geglu(gen, mode, n, c):
         return F.linear(a, w2, b2)
 
     if mode == 0:
-        return dict(name="geglu_ff", kernel=lambda: K.geglu_ff(x, w1, b1, w2, b2),
+        case = dict(name="geglu_ff", kernel=lambda: K.geglu_ff(x, w1, b1, w2, b2),
                     plain=lambda: K.geglu_ff_plain(x, w1, b1, w2, b2),
                     library=lambda: chain(x), flops=flops, nbytes=nbytes,
                     shape=f"({n}, {c}) inner {inner}")
+        return _as_path_calls(case, (x,), grad)
     ln = lambda: F.layer_norm(x.float(), (c,), gamma, beta, K.LN_EPS).to(bf)  # noqa: E731
     if mode == 1:
-        return dict(name="ln_geglu_ff",
+        case = dict(name="ln_geglu_ff",
                     kernel=lambda: K.ln_geglu_ff(x, gamma, beta, w1, b1, w2, b2),
                     plain=lambda: K.ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2),
                     library=lambda: chain(ln()) + x, flops=flops, nbytes=nbytes,
                     shape=f"({n}, {c}) inner {inner}")
-    return dict(name="ln_geglu_ff_proj",
+        return _as_path_calls(case, (x,), grad)
+    case = dict(name="ln_geglu_ff_proj",
                 kernel=lambda: K.ln_geglu_ff_proj(x, gamma, beta, w1, b1, w2, b2,
                                                   w3, b3, res),
                 plain=lambda: K.ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2,
@@ -217,6 +406,7 @@ def case_geglu(gen, mode, n, c):
                 library=lambda: F.linear(chain(ln()) + x, w3, b3) + res,
                 flops=flops + 2.0 * n * c * c,
                 nbytes=nbytes + 2.0 * (n * c + c * c), shape=f"({n}, {c}) inner {inner}")
+    return _as_path_calls(case, (x, res), grad)
 
 
 KERNEL_META = {
@@ -232,45 +422,95 @@ KERNEL_META = {
                          "seervideoldm_tpu/ops/pallas/geglu_ff.py:388"),
     "geglu_ff": ("seervideoldm_tpu_torch/csrc/geglu_ff.cu",
                  "seervideoldm_tpu/ops/pallas/geglu_ff.py:217"),
+    "swat_attention_tables_bwd": (
+        "seervideoldm_tpu_torch/csrc/swat_attention.cu",
+        "seervideoldm_tpu/ops/pallas/swat_attention.py:502"),
+    "flash_attention_bwd": (
+        "seervideoldm_tpu_torch/csrc/flash_attention.cu",
+        "seervideoldm_tpu/ops/pallas/flash_attention.py:331"),
 }
 
 
+# (main path that gives the kernel this shape, or None; function that makes
+# the case; its arguments after the generator).  The first case of a kernel
+# on a main path gives the numbers of its entry in the `kernels` line.
+KERNEL_CASES = (
+    ("sampling", case_swat, (16, 12, 32, 40)),
+    ("sampling", case_flash, (192, 1024, 40)),
+    ("sampling", case_geglu, (1, 24576, 320)),
+    ("sampling", case_geglu, (2, 24576, 320)),
+    ("sampling", case_geglu, (0, 6144, 640)),
+    ("training", case_swat_bwd, (8, 12, 32, 40)),
+    ("training", case_flash_bwd, (96, 1024, 40)),
+    (None, case_swat, (16, 12, 64, 40)),
+    (None, case_swat, (16, 12, 32, 80)),
+    (None, case_flash, (192, 4096, 40)),
+    (None, case_flash, (192, 1024, 80)),
+    (None, case_flash, (16, 1024, 40, True)),
+    (None, case_flash, (8, 8192, 40)),
+    (None, case_geglu, (1, 98304, 320)),
+    (None, case_geglu, (2, 98304, 320)),
+    (None, case_geglu, (0, 24576, 640)),
+    (None, case_swat_bwd, (8, 12, 64, 40)),
+    (None, case_swat_bwd, (8, 12, 32, 80)),
+    (None, case_flash_bwd, (96, 4096, 40)),
+    (None, case_flash_bwd, (96, 1024, 80)),
+    (None, case_flash_bwd, (16, 1024, 40, True)),
+    (None, case_flash_bwd, (12, 1000, 40, False, 712)),
+    # the forward kernels as the training path calls them (appended, so the
+    # cases above keep their draws from the shared generator)
+    ("training", case_swat, (8, 12, 32, 40, True)),
+    ("training", case_flash, (96, 1024, 40, False, True)),
+    ("training", case_geglu, (1, 12288, 320, True)),
+    ("training", case_geglu, (1, 10240, 320, True)),
+    ("training", case_geglu, (0, 3072, 640, True)),
+    ("training", case_geglu, (0, 2560, 640, True)),
+)
+
+
 def kernel_cases(gen):
-    """(main_path, case) pairs: the 256 px main-path shapes first (CFG
-    batch 2, 12 frames, 8 heads), then the 512 px shapes (attention at
-    d = 40 at L0 and d = 80 at L1, the c = 320 LN forms at L0, the c = 640
-    FF at L1), a causal flash case and the streamed kv > 4096 flash form."""
-    return [
-        (True, case_swat(gen, 16, 12, 32, 40)),
-        (True, case_flash(gen, 192, 1024, 40)),
-        (True, case_geglu(gen, 1, 24576, 320)),
-        (True, case_geglu(gen, 2, 24576, 320)),
-        (True, case_geglu(gen, 0, 6144, 640)),
-        (False, case_swat(gen, 16, 12, 64, 40)),
-        (False, case_swat(gen, 16, 12, 32, 80)),
-        (False, case_flash(gen, 192, 4096, 40)),
-        (False, case_flash(gen, 192, 1024, 80)),
-        (False, case_flash(gen, 16, 1024, 40, causal=True)),
-        (False, case_flash(gen, 8, 8192, 40)),
-        (False, case_geglu(gen, 1, 98304, 320)),
-        (False, case_geglu(gen, 2, 98304, 320)),
-        (False, case_geglu(gen, 0, 24576, 640)),
-    ]
+    """(path, case) pairs, each case built when it is reached: the 256 px
+    main-path shapes first (sampling: CFG batch 2, 12 frames, 8 heads; the
+    backward kernels: training, batch 1), then the 512 px shapes (attention
+    at d = 40 at L0 and d = 80 at L1, the c = 320 LN forms at L0, the
+    c = 640 FF at L1), a causal flash case and the streamed kv > 4096 flash
+    form; for the backward also a causal n = m case and a non-causal n != m
+    case with ragged tiles; last the forward kernels at the training path's
+    shapes (batch 1; the c = 320 LN form sees the 12288 tokens of a text
+    site and the 10240 non-cond tokens of a temporal site, the c = 640 FF
+    3072 and 2560)."""
+    for path, build, args in KERNEL_CASES:
+        yield path, build(gen, *args)
 
 
 def check_case(case: dict) -> dict:
     import torch
 
+    backward = case.get("backward", False)
     got = case["kernel"]()
     want = case["plain"]()
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    max_abs = float(err.max())
-    worst = float((err - (ATOL + RTOL * want.float().abs())).max())
-    finite = bool(torch.isfinite(got).all())
-    row = dict(name=case["name"], shape=case["shape"], max_abs_err=max_abs,
-               tol=f"{ATOL} abs + {RTOL} rel", ok=finite and worst <= 0.0)
-    del got, want, err
+    if not backward:
+        got, want = (got,), (want,)
+    max_abs, rel_l2, ok = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        g32, w32 = g.float(), w.float()
+        err = (g32 - w32).abs()
+        max_abs = max(max_abs, float(err.max()))
+        rel_l2 = max(rel_l2, float((g32 - w32).norm() / w32.norm()))
+        ok = (ok and bool(torch.isfinite(g).all())
+              and bool((err <= ATOL + RTOL * w32.abs()).all()))
+    tol = f"{ATOL} abs + {RTOL} rel"
+    row = dict(name=case["name"], shape=case["shape"], max_abs_err=max_abs)
+    if backward:
+        tol += f", relative L2 <= {BWD_REL_L2}, dq dk dv each"
+        row["rel_l2_err"] = rel_l2
+        ok = ok and rel_l2 <= BWD_REL_L2
+    row.update(tol=tol, ok=ok)
+    if "lse_err" in case:
+        row["lse_max_abs_err"] = case["lse_err"]()
+        row["ok"] = row["ok"] and row["lse_max_abs_err"] <= LSE_ATOL
+    del got, want
     row["ms"] = time_ms(case["kernel"])
     row["plain_ms"] = time_ms(case["plain"], iters=5, warmup=1)
     row["library_ms"] = time_ms(case["library"])
@@ -279,18 +519,23 @@ def check_case(case: dict) -> dict:
 
 
 def phase_kernels() -> dict:
+    """Every case checked and timed; returns, for each kernel, the rows of
+    its main-path shapes in the order of ``KERNEL_CASES``."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     main_rows, failures = {}, []
-    for main_path, case in kernel_cases(gen):
+    for path, case in kernel_cases(gen):
         row = check_case(case)
+        row["path"] = path
         print(json.dumps({"kernel_check": row}), flush=True)
         if not row["ok"]:
             failures.append(f"{row['name']} {row['shape']}: max_abs_err "
-                            f"{row['max_abs_err']}")
-        if main_path:
-            main_rows[row["name"]] = row
+                            f"{row['max_abs_err']}, lse "
+                            f"{row.get('lse_max_abs_err')}")
+        if path:
+            main_rows.setdefault(row["name"], []).append(row)
+        del case
         torch.cuda.empty_cache()
     require(not failures, "kernel disagrees with its plain version: "
             + "; ".join(failures))
@@ -371,6 +616,86 @@ def phase_reference() -> None:
         require(launches[name] > 0, f"reference: {name} was not launched")
 
 
+def phase_train_reference() -> None:
+    """Narrow SeerUNet (64/128), one training forward + backward at the
+    main path's 256 px / 12 frame / batch 1 shapes with ``cond_frame`` 2:
+    bf16 through the kernels (forward and backward) on the card vs the
+    port's plain path in fp32 on the CPU, same weights and inputs.  The
+    default init keeps every ``proj_out`` non-zero: zero-initialised, it
+    would make every gradient upstream of it inside a temporal site exactly
+    zero and hide K7."""
+    import copy
+
+    import torch
+
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet, SeerUNetConfig
+    from seervideoldm_tpu_torch.utils.device import cast_for_compute
+
+    cfg = SeerUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
+                         norm_num_groups=8, cross_attention_dim=64,
+                         attention_head_dim=2)
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(SEED + 1)
+        unet = SeerUNet(cfg).eval()
+    ref = copy.deepcopy(unet).cpu().float()
+    cast_for_compute(unet, torch.bfloat16)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    x = torch.randn(1, 12, 32, 32, 4, generator=gen)
+    noise = torch.randn(1, 10, 32, 32, 4, generator=gen)
+    ctx = torch.randn(1, 12, 77, 64, generator=gen)
+    ts = torch.tensor([517], dtype=torch.int32)
+
+    def loss_and_grads(model, dev, dtype):
+        names, params = zip(*((n, p) for n, p in model.named_parameters()
+                              if "temporal_attentions" in n))
+        for p in model.parameters():
+            p.requires_grad_(False)
+        for p in params:
+            p.requires_grad_(True)
+        pred = model(x.to(dev, dtype), ts.to(dev), ctx.to(dev, dtype),
+                     cond_frame=2)[:, 2:]
+        loss = ((pred.float() - noise.to(dev)) ** 2).mean()
+        grads = torch.autograd.grad(loss, params)
+        return float(loss.detach()), {n: g.float().cpu()
+                                      for n, g in zip(names, grads)}
+
+    reset_launches()
+    got_loss, got = loss_and_grads(unet, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want_loss, want = loss_and_grads(ref, "cpu", torch.float32)
+
+    num = sum(float((got[n] - want[n]).pow(2).sum()) for n in want)
+    den = sum(float(want[n].pow(2).sum()) for n in want)
+    rel_all = (num / den) ** 0.5
+    per = {n: float((got[n] - want[n]).norm() / want[n].norm()) for n in want}
+    worst = max(per, key=per.get)
+    dead = [n for n in want if float(want[n].abs().max()) == 0.0]
+    print(json.dumps({"train_reference": {
+        "what": "SeerUNet 64/128, (1, 12, 32, 32, 4), cond_frame 2, eps-MSE: "
+                "bf16 kernels fwd+bwd on the card vs fp32 plain on the CPU",
+        "loss": got_loss, "loss_ref": want_loss, "tensors": len(want),
+        "grad_rel_l2": rel_all, "tol": TRAIN_REF_RTOL,
+        "worst_tensor": worst, "worst_tensor_rel_l2": per[worst],
+        "tensor_tol": TRAIN_REF_TENSOR_RTOL, "launches": launches}}),
+          flush=True)
+    require(all(torch.isfinite(g).all() for g in got.values()),
+            "train reference: non-finite gradient")
+    require(not dead, f"train reference: zero reference gradient in {dead[:3]}")
+    require(abs(got_loss - want_loss) <= REF_RTOL * abs(want_loss),
+            f"train reference: loss {got_loss} vs {want_loss}")
+    require(rel_all <= TRAIN_REF_RTOL,
+            f"train reference: gradient relative L2 {rel_all} > {TRAIN_REF_RTOL}")
+    require(per[worst] <= TRAIN_REF_TENSOR_RTOL,
+            f"train reference: {worst} relative L2 {per[worst]} > "
+            f"{TRAIN_REF_TENSOR_RTOL}")
+    for name in ("swat_attention_tables", "flash_attention", "ln_geglu_ff",
+                 "swat_attention_tables_bwd", "flash_attention_bwd"):
+        require(launches[name] > 0, f"train reference: {name} was not launched")
+    require(launches["ln_geglu_ff_proj"] == 0,
+            "train reference: K4 ran although cond_frame > 0")
+
+
 def phase_end_to_end(card: str, profile: str | None) -> dict:
     import dataclasses
 
@@ -426,10 +751,193 @@ def phase_end_to_end(card: str, profile: str | None) -> dict:
     return launches
 
 
+def write_synthetic_sthv2(root: str, clips: int, frames: int, res: int) -> None:
+    """A Something-Something-v2 tree (annotations/train.json + rawframes/
+    <id>/*.jpg) of seeded smooth random clips: a moving bright square on a
+    low-frequency background, so the JPEGs are small."""
+    import numpy as np
+    from PIL import Image
+
+    ann = os.path.join(root, "annotations")
+    os.makedirs(ann, exist_ok=True)
+    entries = [{"id": str(i), "label": f"pushing thing {i} from left to right"}
+               for i in range(clips)]
+    for name in ("train", "validation"):
+        with open(os.path.join(ann, f"{name}.json"), "w") as f:
+            json.dump(entries, f)
+    rng = np.random.RandomState(SEED)
+    for e in entries:
+        d = os.path.join(root, "rawframes", e["id"])
+        os.makedirs(d, exist_ok=True)
+        coarse = rng.randint(0, 160, (8, 8, 3)).astype(np.uint8)
+        base = np.asarray(Image.fromarray(coarse).resize((res, res),
+                                                         Image.BILINEAR))
+        y0 = rng.randint(0, res // 2)
+        for j in range(frames):
+            frame = base.copy()
+            x0 = (res // 8) + j * (res // 24)
+            frame[y0:y0 + res // 4, x0:x0 + res // 4] = 235
+            Image.fromarray(frame).save(os.path.join(d, f"{j:04d}.jpg"),
+                                        quality=90)
+
+
+def phase_training(card: str, profile: str | None) -> dict:
+    """The port's ``train`` entry at full SD-1.5 width on a synthetic
+    Sthv2 tree, then sampling from the checkpoint it wrote."""
+    import numpy as np
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.inference_img import build_pipeline, generate_video
+    from seervideoldm_tpu_torch.io.checkpoint import (FSTEXT_FILE, STATE_FILE,
+                                                      UNET_FILE,
+                                                      export_state_dicts)
+    from seervideoldm_tpu_torch.pipelines.loading import load_models
+    from seervideoldm_tpu_torch.train import train
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        write_synthetic_sthv2(os.path.join(tmp, "data"), clips=4, frames=14,
+                              res=256)
+        micro_steps = TRAIN_OPT_STEPS * TRAIN_ACCUM
+        raw = dict(
+            output_dir=os.path.join(tmp, "out"),
+            data_dir=os.path.join(tmp, "data"), dataset="sthv2",
+            resolution=256, num_frames=12, cond_frames=2, train_batch_size=1,
+            gradient_accumulation_steps=TRAIN_ACCUM, learning_rate=1.28e-5,
+            scale_lr=True, lr_scheduler="cosine", lr_warmup_steps=1,
+            max_train_steps=TRAIN_OPT_STEPS, save_steps=TRAIN_OPT_STEPS,
+            max_grad_norm=0.3, num_workers=4, seed=SEED,
+            mixed_precision="bf16", compute_dtype="bfloat16", remat=False,
+            # From random weights every proj_out is zero, the frozen text
+            # sites' included, so the eps loss alone sends FSText no
+            # gradient at all; the FSText init objective does.  The
+            # temporal sites open up by themselves: their own proj_out
+            # trains first (step 2; step 1 has lr(0) = 0 under a 1-step
+            # warmup), then everything upstream of it.
+            text_loss=True)
+        cfg = config_from_dict(dict(raw))
+
+        # the seeded initial weights, built once more to compare against
+        init, _ = load_models(cfg, "cuda", trainable_scope=cfg.trainable_scope)
+        masters0 = {n: t.detach().cpu().clone() for n, t in init.masters.items()}
+        weights0 = export_state_dicts(init)
+        n_trainable = sum(t.numel() for t in masters0.values())
+        del init
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = train(config_from_dict(dict(raw)))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_launches()
+
+        require(summary["global_step"] == TRAIN_OPT_STEPS
+                and summary["micro_steps"] == micro_steps,
+                f"training: took {summary['global_step']} optimizer steps / "
+                f"{summary['micro_steps']} micro-steps")
+        require(all(np.isfinite(summary["losses"])) and summary["losses"],
+                f"training: losses {summary['losses']}")
+        # what training changed, read back from the checkpoint it wrote
+        ckpt = summary["checkpoint"]
+        masters = torch.load(os.path.join(ckpt, STATE_FILE),
+                             map_location="cpu")["masters"]
+        require(set(masters) == set(masters0),
+                "training: the checkpoint's trainable set differs")
+        still = [n for n, t in masters.items() if torch.equal(t, masters0[n])]
+        groups = {"fstext": 0, "temporal_attentions": 0}
+        for n in masters:
+            groups["fstext" if n.startswith("fstext.")
+                   else "temporal_attentions"] += 1
+        require(not still, f"training: {len(still)} trainable masters did not "
+                f"move, e.g. {still[:3]}")
+        require(all(groups.values()), f"training: trainable groups {groups}")
+        changed, n_frozen = [], 0
+        for model, file in (("unet", UNET_FILE), ("fstext", FSTEXT_FILE)):
+            saved = torch.load(os.path.join(ckpt, file), map_location="cpu")
+            require(set(saved) == set(weights0[model]),
+                    f"training: {file} holds other names than the model")
+            for key, t in saved.items():
+                if f"{model}.{key}" in masters:
+                    continue
+                n_frozen += 1
+                if not torch.equal(t, weights0[model][key]):
+                    changed.append(f"{model}.{key}")
+        require(n_frozen > 0 and not changed,
+                f"training: {len(changed)} of {n_frozen} frozen weights "
+                f"changed, e.g. {changed[:3]}")
+        del weights0
+        for name, per in PER_MICRO_STEP.items():
+            require(launches[name] == per * micro_steps,
+                    f"training: {name} launched {launches[name]} times, "
+                    f"expected {per} x {micro_steps} micro-steps")
+        # measured by the entry per optimizer step (CUDA events around its
+        # micro-steps, data loading included, the save excluded); the first
+        # carries cuBLAS/cuDNN set-up, so report the rest
+        steady = summary["step_seconds"][1:]
+        s_step = sum(steady) / len(steady)
+        print(json.dumps({"train": {
+            "card": card, "optimizer_steps": TRAIN_OPT_STEPS,
+            "micro_steps": micro_steps, "accumulation": TRAIN_ACCUM,
+            "remat": bool(cfg.remat), "trainable_params": n_trainable,
+            "trainable_tensors": groups, "frozen_tensors_unchanged": n_frozen,
+            "losses": summary["losses"],
+            "s_per_optimizer_step": s_step,
+            "optimizer_step_seconds": summary["step_seconds"],
+            # not measured apart: the step's time over its micro-steps
+            "s_per_micro_step": s_step / TRAIN_ACCUM,
+            "train_entry_seconds": elapsed,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "launches_per_micro_step": PER_MICRO_STEP}}), flush=True)
+        if profile:
+            models, _ = load_models(cfg, "cuda",
+                                    trainable_scope=cfg.trainable_scope)
+            profile_train_step(models, profile + ".train")
+            del models
+        torch.cuda.empty_cache()
+
+        pipe, tok, scfg = build_pipeline(dict(
+            resolution=256, cond_frames=2, num_frames=12,
+            ddim_steps=TRAIN_SAMPLE_STEPS, scale=7.5, seed=SEED,
+            mixed_precision="bf16", compute_dtype="bfloat16",
+            learned_unet_ckpt=ckpt))
+        trained = torch.load(os.path.join(ckpt, "pytorch_model_1.bin"))
+        loaded = pipe.m.fstext.state_dict()
+        require(all(torch.equal(loaded[k].cpu(), v.to(loaded[k].dtype))
+                    for k, v in trained.items()),
+                "training: the sampling pipeline did not load the checkpoint")
+        image = np.random.RandomState(SEED).randint(0, 256, (256, 256, 3),
+                                                    dtype=np.uint8)
+        samples, _ = generate_video(pipe, tok, scfg, image,
+                                    "pushing thing 0 from left to right")
+        torch.cuda.synchronize()
+        require(tuple(samples.shape) == (1, 10, 256, 256, 3),
+                f"training: sampled frames shaped {tuple(samples.shape)}")
+        require(bool(torch.isfinite(samples).all()),
+                "training: non-finite frames from the trained checkpoint")
+        print(json.dumps({"train_sample": {
+            "checkpoint_files": sorted(os.listdir(ckpt)),
+            "ddim_steps": TRAIN_SAMPLE_STEPS,
+            "frames": list(samples.shape)}}), flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # kernel-name fragments -> category of the step breakdown (first match wins)
 KERNEL_CATEGORIES = (
     ("port: flash_attention (K2)", ("flash_fwd_kernel",)),
     ("port: swat_attention_tables (K1)", ("swat_tab_fwd_kernel",)),
+    ("port: flash_attention_bwd (K8)", ("flash_bwd_",)),
+    ("port: swat_attention_tables_bwd (K7)", ("swat_bwd_",)),
+    # the rowsum(g * o) prologue is one kernel that K7 and K8 both launch
+    ("port: delta prologue (K7 + K8)", ("delta_kernel",)),
     ("port: geglu_ff (K3/K4/K5)", ("geglu_ff_kernel",)),
     ("convolution (cuDNN)", ("cudnn", "fprop", "implicit_gemm", "winograd",
                              "conv2d", "nchwtonhwc", "nhwctonchw")),
@@ -440,33 +948,22 @@ KERNEL_CATEGORIES = (
 )
 
 
-def profile_step(pipe, path: str) -> None:
-    """Where one full-width DDIM step goes: one CFG-batched SeerUNet call
-    at the main path's shapes, its CUDA kernel time by category, against
-    the call's un-profiled host-clock time (device busy share).  The full
-    kernel table is written to ``path``."""
+def _profile_call(call, path: str, label: str, what: str) -> None:
+    """Profile ``call`` (which ends in a synchronize): its CUDA kernel time
+    by category against its un-profiled host-clock time (device busy
+    share).  The full kernel table is written to ``path``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn(2, 12, 32, 32, 4, generator=gen, device="cuda").bfloat16()
-    ctx = torch.randn(2, 12, 77, 768, generator=gen, device="cuda").bfloat16()
-    ts = torch.full((2,), 500, dtype=torch.int32, device="cuda")
-
-    def call():
-        pipe.m.unet(x, ts, ctx)
-        torch.cuda.synchronize()
-
-    with torch.no_grad():
+    call()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
         call()
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            call()
-            walls.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            call()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
     wall_ms = 1e3 * sum(walls) / len(walls)
     by_cat, busy_ms = {}, 0.0
     for evt in prof.key_averages():
@@ -484,20 +981,66 @@ def profile_step(pipe, path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)
-    print(json.dumps({"profile": {
-        "what": "one SeerUNet call, (2, 12, 32, 32, 4) bf16, full width",
-        "unet_call_ms": wall_ms, "kernel_ms": busy_ms,
+    print(json.dumps({label: {
+        "what": what, "call_ms": wall_ms, "kernel_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms if busy_ms else None,
         "kernel_ms_by_category": dict(sorted(by_cat.items(),
                                              key=lambda kv: -kv[1]))}}),
           flush=True)
 
 
+def profile_step(pipe, path: str) -> None:
+    """Where one full-width DDIM step goes: one CFG-batched SeerUNet call
+    at the main path's shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(2, 12, 32, 32, 4, generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn(2, 12, 77, 768, generator=gen, device="cuda").bfloat16()
+    ts = torch.full((2,), 500, dtype=torch.int32, device="cuda")
+
+    def call():
+        pipe.m.unet(x, ts, ctx)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        _profile_call(call, path, "profile",
+                      "one SeerUNet call, (2, 12, 32, 32, 4) bf16, full width")
+
+
+def profile_train_step(models, path: str) -> None:
+    """Where one full-width training micro-step goes: FSText + SeerUNet
+    forward and backward (batch 1, 12 frames, cond_frame 2), without the
+    frozen encoders and the optimizer update."""
+    import torch
+
+    from seervideoldm_tpu_torch.training.trainer import make_train_step
+
+    step = make_train_step(models, cond_frames=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    batch = {"latents_x0": rn(1, 2, 32, 32, 4).bfloat16(),
+             "latents": rn(1, 10, 32, 32, 4).bfloat16(),
+             "clip_emb": rn(1, 77, 768).bfloat16()}
+    noise = rn(1, 10, 32, 32, 4).bfloat16()
+    ts = torch.tensor([500], device="cuda")
+    names = list(models.masters)
+
+    def call():
+        step.loss_and_grads(names, batch, noise, ts)
+        torch.cuda.synchronize()
+
+    _profile_call(call, path, "profile_train",
+                  "one training forward + backward, FSText + SeerUNet, "
+                  "(1, 12, 32, 32, 4) bf16, cond_frame 2, full width, no remat")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH", default=None,
-                        help="also profile one full-width DDIM step and "
-                             "write the kernel table to PATH")
+                        help="also profile one full-width DDIM step and one "
+                             "training forward + backward; kernel tables go "
+                             "to PATH and PATH.train")
     args = parser.parse_args()
     try:
         import torch
@@ -519,19 +1062,30 @@ def main() -> int:
         phase_build()
         rows = phase_kernels()
         phase_reference()
+        phase_train_reference()
         launches = phase_end_to_end(card, args.profile)
+        train_launches = phase_training(card, args.profile)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
-        row = rows[name]
+        row, shapes = rows[name][0], rows[name]
+        # each path is driven with the counts zeroed just before and read
+        # just after; `launches` is the sum over the two paths
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=row["max_abs_err"],
+            launches=launches[name] + train_launches[name],
+            sampling_launches=launches[name],
+            training_launches=train_launches[name],
+            max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=row["shape"], tol=row["tol"], ok=row["ok"]))
+            shape=row["shape"], tol=row["tol"], ok=row["ok"],
+            main_path_shapes=[
+                {key: r[key] for key in ("path", "shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")} for r in shapes]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

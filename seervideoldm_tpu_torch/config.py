@@ -1,5 +1,5 @@
 """YAML configuration, key-compatible with the JAX package's configs (the
-port's own copy, cut to the keys the image + prompt -> video path reads).
+port's own copy, cut to the keys the sampling and training paths read).
 
 Unknown keys are kept in ``extras`` so a config written for the JAX package
 loads unchanged.  PyYAML is imported only when a file is read.
@@ -18,7 +18,45 @@ class Config:
     fstext_init_ckpt: Optional[str] = None
     tokenizer_path: Optional[str] = None
     learned_unet_ckpt: Optional[str] = None
+    saved_global_step: Optional[int] = None
     output_dir: str = "outputs/run"
+    # --- data ---
+    dataset: str = "sthv2"
+    dataset_path: Optional[str] = None  # or the reference's `data_dir` key
+    center_crop: bool = True
+    dataloader_num_workers: int = 4     # or the reference's `num_workers`
+    # --- training (the keys of configs/train.yaml) ---
+    train_batch_size: int = 1
+    gradient_accumulation_steps: int = 2
+    learning_rate: float = 1.28e-5
+    scale_lr: bool = True
+    lr_scheduler: str = "cosine"
+    lr_warmup_steps: int = 10000
+    max_train_steps: int = 200000
+    num_train_epochs: int = 10000
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 0.3
+    vae_sample_posterior: bool = True   # False: encode the posterior mean
+    ema_decay: float = 0.0              # 0 disables the EMA
+    snr_gamma: float = 0.0              # min-SNR-gamma; 0 disables
+    text_loss: bool = False
+    trainable_scope: str = "reference"  # or "all"
+    save_steps: int = 1000
+    max_to_keep: Optional[int] = None
+    logging_dir: str = "logs"
+    remat: Any = False                  # False | True | "block"
+    gradient_checkpointing: bool = False  # the reference's key for remat
+    param_dtype: str = "float32"
+    # refused until ported (see _NOT_YET)
+    use_8bit_adam: bool = False
+    lora_rank: int = 0
+    zero1: bool = False
+    fsdp: bool = False
+    mesh_shape: Optional[dict] = None
+    push_to_hub: bool = False
     resolution: int = 256
     cond_frames: int = 2
     num_frames: int = 12
@@ -59,18 +97,54 @@ _NOT_YET = {
     "guidance_interval": (None,), "guidance_rescale": (0.0, 0),
     "pab": (False,), "tome_ratio": (0.0, 0), "freeu": (None,),
     "total_frames": (None,),
+    "use_8bit_adam": (False,), "lora_rank": (0,), "zero1": (False,),
+    "fsdp": (False,), "remat": (False, True, "block"),
+    "param_dtype": ("float32", "fp32"),
 }
 
 
+def parse_remat(value: Any) -> Any:
+    """YAML ``remat``: bool, or a string ("true" / "block" / "false")."""
+    if isinstance(value, str):
+        low = value.lower()
+        if low in ("false", "no", "none", ""):
+            return False
+        return True if low in ("true", "yes") else low
+    return bool(value)
+
+
 def validate(cfg: Config) -> Config:
+    cfg.remat = parse_remat(cfg.remat)
     for key, allowed in _NOT_YET.items():
         if getattr(cfg, key) not in allowed:
             raise ValueError(f"{key}={getattr(cfg, key)!r} is not supported by "
                              f"the PyTorch port yet (supported: {allowed})")
-    if cfg.pretrained_model_name_or_path or cfg.learned_unet_ckpt \
-            or cfg.fstext_init_ckpt:
-        raise ValueError("the PyTorch port runs random weights from a seed; "
-                         "checkpoint loading is not ported yet")
+    if cfg.pretrained_model_name_or_path or cfg.fstext_init_ckpt:
+        raise ValueError("the PyTorch port starts from random weights made "
+                         "from a seed, or from a checkpoint its own trainer "
+                         "wrote (learned_unet_ckpt / saved_global_step); "
+                         "loading pretrained SD-1.5 / FSText weights is not "
+                         "ported yet")
+    mesh = cfg.mesh_shape
+    if mesh is not None:
+        size = 1
+        for v in dict(mesh).values():
+            size *= int(v)
+        if size != 1:
+            raise ValueError(f"mesh_shape={mesh!r} is not supported by the "
+                             "PyTorch port yet (one device; null or a "
+                             "1-device mesh)")
+    if cfg.push_to_hub:
+        raise ValueError("push_to_hub is not supported: there is no network "
+                         "access; upload the checkpoint directory manually")
+    if cfg.center_crop is False:
+        raise ValueError("center_crop: false is not supported: the data path "
+                         "always applies Resize -> CenterCrop")
+    if cfg.trainable_scope not in ("reference", "all"):
+        raise ValueError(f"trainable_scope must be 'reference' or 'all', got "
+                         f"{cfg.trainable_scope!r}")
+    if float(cfg.snr_gamma) < 0.0:
+        raise ValueError(f"snr_gamma must be >= 0, got {cfg.snr_gamma!r}")
     if not float(cfg.vae_scale) > 0.0:
         raise ValueError(f"vae_scale must be > 0, got {cfg.vae_scale!r}")
     return cfg

@@ -1,6 +1,7 @@
 // Online-softmax attention over one key tile, per warp, with mma.sync.
 //
-// Shared by flash_attention.cu (K2) and swat_attention.cu (K1).  A CTA of
+// Shared by flash_attention.cu (K2) and swat_attention.cu (K1); the
+// backward kernels (K8, K7) are in attn_bwd_core.cuh.  A CTA of
 // four warps owns a 64-row query tile (16 rows per warp, Q held in
 // registers as A fragments); key/value tiles of 64 tokens stream through
 // shared memory: K as rows (n-major, the B layout of q.k^T) and V
@@ -130,22 +131,30 @@ __device__ __forceinline__ void attn_tile(AttnState<DP>& st, const bf16* ks,
 }
 
 // Normalise and store this warp's 16 rows: out(row, c) for c < d, rows
-// < n_rows; `row_ptr(row)` gives the output row's base pointer.
-template <int DP, typename RowPtr>
+// < n_rows; `row_ptr(row)` gives the output row's base pointer.  When
+// `lse_ptr(row)` is not null it receives the row's log-sum-exp in the log2
+// domain, m + log2(l) (-inf for a row with no visible key), which the
+// backward kernels read.
+template <int DP, typename RowPtr, typename LsePtr>
 __device__ __forceinline__ void attn_store(AttnState<DP>& st, int row0,
                                            int n_rows, int d, RowPtr row_ptr,
-                                           int lane) {
+                                           LsePtr lse_ptr, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  float inv[2];
+  float inv[2], lse[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = quad_sum(st.l[r]);
     inv[r] = 1.f / (l == 0.f ? 1.f : l);
+    lse[r] = l == 0.f ? -INFINITY : st.m[r] + log2f(l);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= n_rows) continue;
+    if (t == 0) {
+      float* lp = lse_ptr(row);
+      if (lp != nullptr) *lp = lse[r];
+    }
     bf16* out = row_ptr(row);
 #pragma unroll
     for (int nt = 0; nt < DP / 8; ++nt) {

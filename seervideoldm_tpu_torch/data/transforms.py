@@ -1,11 +1,16 @@
-"""Image preprocessing (the port's copy of
-``seervideoldm_tpu/data/transforms.py::image_to_model_input``).
+"""Frame loading and video preprocessing (the port's copy of
+``seervideoldm_tpu/data/transforms.py``).
 
-Resize the shorter side to ``resolution`` (bilinear), center-crop, scale to
-[-1, 1].  A PIL image goes through PIL exactly as in the JAX package; a
-numpy ``(h, w, 3)`` uint8 array (the path for hosts without Pillow) is
-resized with PyTorch's antialiased bilinear filter, which approximates
-PIL's, and is used as it is when it already has the target size.
+``image_to_model_input``: resize the shorter side to ``resolution``
+(bilinear), center-crop, scale to [-1, 1].  A PIL image goes through PIL
+exactly as in the JAX package; a numpy ``(h, w, 3)`` uint8 array (the path
+for hosts without Pillow) is resized with PyTorch's antialiased bilinear
+filter, which approximates PIL's, and is used as it is when it already has
+the target size.
+
+``cast_num_frames``: trilinear temporal resample (align_corners=False) when
+the clip is longer than ``num_frames``, zero-pad when shorter, as the
+reference data path does.
 """
 from __future__ import annotations
 
@@ -42,3 +47,41 @@ def image_to_model_input(img, resolution: int) -> np.ndarray:
     img = img.resize((new_w, new_h), Image.BILINEAR)
     img = img.crop((left, top, left + resolution, top + resolution))
     return np.asarray(img, dtype=np.float32) / 255.0 * 2.0 - 1.0
+
+
+def load_frame(path: str, resolution: int) -> np.ndarray:
+    """Load one frame -> (h, w, 3) float32 in [-1, 1]."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return image_to_model_input(img, resolution)
+
+
+def _linear_resample(video: np.ndarray, frames: int) -> np.ndarray:
+    """Temporal linear interpolation with torch trilinear
+    align_corners=False semantics, (f, h, w, c) -> (frames, h, w, c)."""
+    f = video.shape[0]
+    # source coordinate of output i: (i + 0.5) * f / frames - 0.5, clamped
+    src = (np.arange(frames, dtype=np.float64) + 0.5) * (f / frames) - 0.5
+    src = np.clip(src, 0.0, f - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, f - 1)
+    w_hi = (src - lo).astype(np.float32).reshape(-1, 1, 1, 1)
+    return video[lo] * (1.0 - w_hi) + video[hi] * w_hi
+
+
+def resample_frames(video: np.ndarray, frames: int) -> np.ndarray:
+    """Temporal linear resample in both directions (interpolates when
+    growing, where ``cast_num_frames`` zero-pads)."""
+    return _linear_resample(video, frames) if video.shape[0] != frames else video
+
+
+def cast_num_frames(video: np.ndarray, frames: int) -> np.ndarray:
+    """(f, h, w, c) -> (frames, h, w, c): trilinear shrink or zero-pad."""
+    f = video.shape[0]
+    if f == frames:
+        return video
+    if f > frames:
+        return _linear_resample(video, frames)
+    pad = np.zeros((frames - f, *video.shape[1:]), dtype=video.dtype)
+    return np.concatenate([video, pad], axis=0)

@@ -1,9 +1,10 @@
-"""Noise schedule and DDIM tables (the port's copy of the sampling part of
-``seervideoldm_tpu/diffusion/schedules.py``).
+"""Noise schedules and DDIM tables (the port's copy of
+``seervideoldm_tpu/diffusion/schedules.py`` without the zero-SNR rescale).
 
 The reference's quirks are kept: "linear" is sqrt-space linear, the
 sampler's schedule is linear_start 1e-4 -> linear_end 2e-2 over 1000 steps,
-and the uniform DDIM grid carries the +1 offset.  Tables are computed in
+the training noise uses SD-1.5's own 0.00085 -> 0.012 (so the two differ,
+as in the reference), and the uniform DDIM grid carries the +1 offset.  Tables are computed in
 float64 numpy and exposed as float32.
 """
 from __future__ import annotations
@@ -14,6 +15,8 @@ import numpy as np
 
 DEFAULT_LINEAR_START = 1e-4
 DEFAULT_LINEAR_END = 2e-2
+SD15_BETA_START = 0.00085
+SD15_BETA_END = 0.012
 
 
 def make_beta_schedule(n_timestep: int,
@@ -66,6 +69,17 @@ class DiffusionSchedule:
         alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
         return DiffusionSchedule(betas=betas.astype(np.float32),
                                  alphas_cumprod=alphas_cumprod.astype(np.float32))
+
+    @staticmethod
+    def sd15_train_schedule(num_timesteps: int = 1000) -> "DiffusionSchedule":
+        """The SD-1.5 DDPMScheduler schedule used for the training noise
+        (scaled_linear 0.00085 -> 0.012)."""
+        return DiffusionSchedule.create(num_timesteps, SD15_BETA_START,
+                                        SD15_BETA_END)
+
+    @property
+    def num_timesteps(self) -> int:
+        return int(self.betas.shape[0])
 
     def ddim_tables(self, num_steps: int, eta: float = 0.0) -> DDIMTables:
         ts = make_ddim_timesteps(num_steps, self.betas.shape[0])

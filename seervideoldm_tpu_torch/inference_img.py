@@ -22,7 +22,8 @@ import torch
 
 from .config import Config, config_from_dict, parse_args
 from .data.transforms import image_to_model_input
-from .pipelines.loading import load_models
+from .pipelines.loading import (load_finetuned, load_models,
+                                resolve_finetuned_dir)
 from .pipelines.text_video import SeerPipeline
 from .utils.device import resolve_device, set_numerics
 from .utils.viz import save_visualization_onegif
@@ -35,6 +36,9 @@ def build_pipeline(cfg: Union[Config, dict], device=None):
     dev = resolve_device(device)
     set_numerics()
     models, tokenizer = load_models(cfg, dev)
+    ckpt_dir = resolve_finetuned_dir(cfg)
+    if ckpt_dir:
+        load_finetuned(models, ckpt_dir)
     return SeerPipeline(models, vae_scale=float(cfg.vae_scale)), tokenizer, cfg
 
 

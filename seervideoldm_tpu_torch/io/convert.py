@@ -19,6 +19,12 @@ The port keeps the reference torch names, so the module's own
 
 Loading is strict both ways: every torch key must find a leaf of the
 right shape and every JAX leaf must be used.
+
+``jax_train_state_to_torch`` carries a JAX trainer's state across the same
+way: the trainable subtree, the optax AdamW moments and the EMA tree (numpy
+trees over ``{"unet": ..., "fstext": ...}``, each holding the trainable
+leaves only) become the port's masters, moments and EMA, named
+``"<model>.<parameter>"``.
 """
 from __future__ import annotations
 
@@ -95,10 +101,9 @@ def _candidates(dirs: list[str], leaf: str):
         yield dirs + [leaf], np.asarray
 
 
-def jax_to_state_dict(params: Mapping[str, Any], model: nn.Module
-                      ) -> dict[str, torch.Tensor]:
-    """The ``state_dict`` of ``model`` filled from the JAX tree
-    ``params``, each tensor in the dtype of the model's own."""
+def _map_tree(params: Mapping[str, Any], model: nn.Module):
+    """(found ``{torch key: tensor}``, torch keys without a leaf, unused
+    JAX paths) for ``params`` against ``model``'s ``state_dict``."""
     renames = RENAMES.get(type(model).__name__, [])
     out: dict[str, torch.Tensor] = {}
     missing, used = [], set()
@@ -125,11 +130,57 @@ def jax_to_state_dict(params: Mapping[str, Any], model: nn.Module
         else:
             missing.append(name)
     unused = ["/".join(p) for p in _flat_paths(params) if p not in used]
+    return out, missing, unused
+
+
+def jax_to_state_dict(params: Mapping[str, Any], model: nn.Module
+                      ) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``model`` filled from the JAX tree
+    ``params``, each tensor in the dtype of the model's own."""
+    out, missing, unused = _map_tree(params, model)
     if missing or unused:
         raise ValueError(f"{type(model).__name__}: {len(missing)} torch keys "
                          f"without a JAX leaf (e.g. {missing[:4]}), "
                          f"{len(unused)} JAX leaves unused (e.g. {unused[:4]})")
     return out
+
+
+def jax_subtree_to_named(tree: Mapping[str, Any],
+                         modules: Mapping[str, nn.Module]
+                         ) -> dict[str, torch.Tensor]:
+    """A partial JAX tree over ``{"unet": ..., "fstext": ...}`` (the
+    trainable subtree, or moments shaped like it) as ``{"<model>.<parameter
+    name>": fp32 tensor}``.  Every leaf must map to a parameter."""
+    out = {}
+    for key, sub in tree.items():
+        module = modules[key]
+        params = {n for n, _ in module.named_parameters()}
+        found, _, unused = _map_tree(sub, module)
+        if unused:
+            raise ValueError(f"{key}: {len(unused)} JAX leaves map to no "
+                             f"parameter, e.g. {unused[:4]}")
+        out.update({f"{key}.{n}": t.float() for n, t in found.items()
+                    if n in params})
+    return out
+
+
+def jax_train_state_to_torch(modules: Mapping[str, nn.Module],
+                             params: Mapping[str, Any], mu=None, nu=None,
+                             ema=None, acc=None, count: int = 0,
+                             mini_step: int = 0, step: int = 0) -> dict:
+    """A JAX ``TrainState`` (trainable subtree ``params``, optax AdamW
+    moments ``mu`` / ``nu``, MultiSteps accumulator ``acc`` and counters,
+    EMA tree; numpy) as the port's ``train_state.pt`` content: ``masters``,
+    ``optimizer`` (what ``Optimizer.load_state_dict`` takes), ``ema``,
+    ``step``."""
+    named = lambda t: (None if t is None  # noqa: E731
+                       else jax_subtree_to_named(t, modules))
+    masters = named(params)
+    zeros = {n: torch.zeros_like(t) for n, t in masters.items()}
+    return {"step": int(step), "masters": masters, "ema": named(ema),
+            "optimizer": {"count": int(count), "mini_step": int(mini_step),
+                          "mu": named(mu) or zeros, "nu": named(nu) or zeros,
+                          "acc": named(acc)}}
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:

@@ -15,6 +15,10 @@
   zero-initialised 1x1 proj_out + residual; at the last temporal block with
   ``cond_frame == 0`` and c <= 320 the whole tail runs as one kernel (K4).
 
+``cond_frame`` is an argument of each ``forward`` (training calls with the
+number of conditioning frames, sampling with 0, on the same weights); the
+constructor value is only the default for a call that passes none.
+
 Layout ``(b, f, h, w, c)``.
 """
 from __future__ import annotations
@@ -130,13 +134,16 @@ class BasicTransformerBlock3D(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
 
-    def forward(self, x: torch.Tensor, fuse_out=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fuse_out=None,
+                cond_frame: Optional[int] = None) -> torch.Tensor:
         """``fuse_out = (proj_out, res)``: run the site tail in the FF
         kernel; the return value is then the site's final output."""
         b, f, h, w, c = x.shape
         x = self.attn1(self.norm1(x)).reshape(b, f * h * w, c) + x.reshape(
             b, f * h * w, c)
-        cf = self.cond_frame * h * w
+        if cond_frame is None:
+            cond_frame = self.cond_frame
+        cf = cond_frame * h * w
         if cf > 0:
             # cond-frame tokens bypass the FF residual (reference
             # attention.py:241-246)
@@ -177,7 +184,8 @@ class SpatialTransformer3D(nn.Module):
         self.proj_out = InflatedConv(inner, in_channels, 1)
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                cond_frame: Optional[int] = None) -> torch.Tensor:
         b, f, h, w, c = x.shape
         x_in = x
         x = self.proj_in(self.norm(x))
@@ -185,10 +193,12 @@ class SpatialTransformer3D(nn.Module):
         if self.text_frame_condition:
             x = block(x, context=context)
         else:
+            if cond_frame is None:
+                cond_frame = self.cond_frame
             inner = x.shape[-1]
-            if (self.cond_frame == 0 and c == inner
+            if (cond_frame == 0 and c == inner
                     and ln_geglu_ff_preferred(b * f * h * w, inner, inner * 4, x)):
                 # proj_out + the outer residual ride the FF kernel (K4)
-                return block(x, fuse_out=(self.proj_out, x_in))
-            x = block(x)
+                return block(x, fuse_out=(self.proj_out, x_in), cond_frame=0)
+            x = block(x, cond_frame=cond_frame)
         return self.proj_out(x) + x_in

@@ -5,15 +5,22 @@ down = 3 x CrossAttnDownBlock3D + DownBlock3D, mid =
 UNetMidBlock3DCrossAttn, up = UpBlock3D + 3 x CrossAttnUpBlock3D;
 timestep -> sinusoidal (flip_sin_to_cos) -> MLP; conv_in -> down -> mid ->
 up -> fp32 GroupNorm + SiLU + conv_out.  ``sample`` is ``(b, f, h, w, 4)``.
+
+``cond_frame`` is an argument of ``forward``: training calls with the number
+of conditioning frames, sampling with 0, on the same weights.  ``remat``
+(``False``, or ``True`` / ``"block"``) recomputes each top-level block in
+the backward instead of keeping its activations
+(``torch.utils.checkpoint``, non-reentrant), as the JAX ``SeerUNet.remat``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import InflatedConv
 from ..ops.norms import GroupNorm
@@ -40,9 +47,13 @@ class SeerUNetConfig:
 
 class SeerUNet(nn.Module):
     def __init__(self, config: SeerUNetConfig = SeerUNetConfig(),
-                 cond_frame: int = 0):
+                 cond_frame: int = 0, remat: Union[bool, str] = False):
         super().__init__()
+        if remat not in (False, True, "block"):
+            raise ValueError(f"remat must be False, True or 'block', got "
+                             f"{remat!r}")
         cfg = self.config = config
+        self.cond_frame, self.remat = cond_frame, remat
         boc = tuple(cfg.block_out_channels)
         temb = boc[0] * 4
         n = len(boc)
@@ -50,8 +61,7 @@ class SeerUNet(nn.Module):
         self.time_embedding = TimestepEmbedding(boc[0], temb)
         common = dict(resnet_eps=cfg.norm_eps, resnet_groups=cfg.norm_num_groups)
         attn = dict(attn_num_head_channels=cfg.attention_head_dim,
-                    cross_attention_dim=cfg.cross_attention_dim, causal=True,
-                    cond_frame=cond_frame)
+                    cross_attention_dim=cfg.cross_attention_dim, causal=True)
 
         self.down_blocks = nn.ModuleList()
         out_ch = boc[0]
@@ -86,11 +96,21 @@ class SeerUNet(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
         self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
 
+    def _block(self, block, *args, **kwargs):
+        """One top-level block; under ``remat`` with gradients on, its
+        activations are recomputed in the backward."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+                context: torch.Tensor,
+                cond_frame: Optional[int] = None) -> torch.Tensor:
         """sample (b, f, h, w, 4); timesteps (b,) or scalar; context
-        (b, f, l, d) FSText embeddings."""
+        (b, f, l, d) FSText embeddings; ``cond_frame``: the first frames
+        whose temporal FF residual is skipped (None: the constructor's)."""
         cfg = self.config
+        cf = self.cond_frame if cond_frame is None else int(cond_frame)
         dtype = self.conv_in.weight.dtype
         if cfg.center_input_sample:
             sample = 2 * sample - 1.0
@@ -106,20 +126,23 @@ class SeerUNet(nn.Module):
         res_states = (sample,)
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock3D):
-                sample, states = block(sample, emb, context)
+                sample, states = self._block(block, sample, emb, context,
+                                             cond_frame=cf)
             else:
-                sample, states = block(sample, emb)
+                sample, states = self._block(block, sample, emb)
             res_states += states
 
-        sample = self.mid_block(sample, emb, context)
+        sample = self._block(self.mid_block, sample, emb, context,
+                             cond_frame=cf)
 
         for block in self.up_blocks:
             k = len(block.resnets)
             states, res_states = res_states[-k:], res_states[:-k]
             if isinstance(block, CrossAttnUpBlock3D):
-                sample = block(sample, states, emb, context)
+                sample = self._block(block, sample, states, emb, context,
+                                     cond_frame=cf)
             else:
-                sample = block(sample, states, emb)
+                sample = self._block(block, sample, states, emb)
 
         sample = F.silu(self.conv_norm_out(sample))
         return self.conv_out(sample)

@@ -4,7 +4,8 @@
 Each cross-attention layer runs ResnetBlock3D -> SpatialTransformer3D
 (per-frame spatial + text cross-attention) -> SpatialTransformer3D
 (temporal, causal).  Skip connections concatenate on the channel axis
-(last here).
+(last here).  ``cond_frame`` is an argument of each attention block's
+``forward``, handed down to its temporal sites.
 """
 from __future__ import annotations
 
@@ -16,13 +17,12 @@ from .transformer3d import SpatialTransformer3D
 
 
 def _site_pair(ch: int, heads: int, cross_dim: int, groups: int,
-               causal: bool, cond_frame: int):
+               causal: bool):
     text = SpatialTransformer3D(ch, heads, ch // heads, context_dim=cross_dim,
                                 text_frame_condition=True,
                                 norm_num_groups=groups)
     temporal = SpatialTransformer3D(ch, heads, ch // heads, temporal=True,
-                                    causal=causal, cond_frame=cond_frame,
-                                    norm_num_groups=groups)
+                                    causal=causal, norm_num_groups=groups)
     return text, temporal
 
 
@@ -31,8 +31,7 @@ class CrossAttnDownBlock3D(nn.Module):
                  num_layers: int = 2, resnet_eps: float = 1e-6,
                  resnet_groups: int = 32, attn_num_head_channels: int = 8,
                  cross_attention_dim: int = 768, downsample_padding: int = 1,
-                 add_downsample: bool = True, causal: bool = True,
-                 cond_frame: int = 0):
+                 add_downsample: bool = True, causal: bool = True):
         super().__init__()
         self.resnets = nn.ModuleList()
         self.attentions = nn.ModuleList()
@@ -43,20 +42,21 @@ class CrossAttnDownBlock3D(nn.Module):
                 temb_channels, resnet_groups, resnet_eps))
             text, temporal = _site_pair(out_channels, attn_num_head_channels,
                                         cross_attention_dim, resnet_groups,
-                                        causal, cond_frame)
+                                        causal)
             self.attentions.append(text)
             self.temporal_attentions.append(temporal)
         self.downsamplers = nn.ModuleList(
             [Downsample3D(out_channels, out_channels, downsample_padding)]
             if add_downsample else [])
 
-    def forward(self, x, temb=None, encoder_hidden_states=None):
+    def forward(self, x, temb=None, encoder_hidden_states=None,
+                cond_frame: int = 0):
         states = ()
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
             x = resnet(x, temb)
             x = text(x, context=encoder_hidden_states)
-            x = temporal(x)
+            x = temporal(x, cond_frame=cond_frame)
             states += (x,)
         for down in self.downsamplers:
             x = down(x)
@@ -93,7 +93,7 @@ class UNetMidBlock3DCrossAttn(nn.Module):
     def __init__(self, in_channels: int, temb_channels: int, num_layers: int = 1,
                  resnet_eps: float = 1e-6, resnet_groups: int = 32,
                  attn_num_head_channels: int = 8, cross_attention_dim: int = 768,
-                 causal: bool = True, cond_frame: int = 0):
+                 causal: bool = True):
         super().__init__()
         res = lambda: ResnetBlock3D(in_channels, in_channels, temb_channels,  # noqa: E731
                                     resnet_groups, resnet_eps)
@@ -103,17 +103,18 @@ class UNetMidBlock3DCrossAttn(nn.Module):
         for _ in range(num_layers):
             text, temporal = _site_pair(in_channels, attn_num_head_channels,
                                         cross_attention_dim, resnet_groups,
-                                        causal, cond_frame)
+                                        causal)
             self.attentions.append(text)
             self.temporal_attentions.append(temporal)
 
-    def forward(self, x, temb=None, encoder_hidden_states=None):
+    def forward(self, x, temb=None, encoder_hidden_states=None,
+                cond_frame: int = 0):
         x = self.resnets[0](x, temb)
         for text, temporal, resnet in zip(self.attentions,
                                           self.temporal_attentions,
                                           self.resnets[1:]):
             x = text(x, context=encoder_hidden_states)
-            x = temporal(x)
+            x = temporal(x, cond_frame=cond_frame)
             x = resnet(x, temb)
         return x
 
@@ -124,7 +125,7 @@ class CrossAttnUpBlock3D(nn.Module):
                  num_layers: int = 3, resnet_eps: float = 1e-6,
                  resnet_groups: int = 32, attn_num_head_channels: int = 8,
                  cross_attention_dim: int = 768, add_upsample: bool = True,
-                 causal: bool = True, cond_frame: int = 0):
+                 causal: bool = True):
         super().__init__()
         self.resnets = nn.ModuleList()
         self.attentions = nn.ModuleList()
@@ -137,20 +138,21 @@ class CrossAttnUpBlock3D(nn.Module):
                                               resnet_eps))
             text, temporal = _site_pair(out_channels, attn_num_head_channels,
                                         cross_attention_dim, resnet_groups,
-                                        causal, cond_frame)
+                                        causal)
             self.attentions.append(text)
             self.temporal_attentions.append(temporal)
         self.upsamplers = nn.ModuleList(
             [Upsample3D(out_channels, out_channels)] if add_upsample else [])
 
-    def forward(self, x, res_states, temb=None, encoder_hidden_states=None):
+    def forward(self, x, res_states, temb=None, encoder_hidden_states=None,
+                cond_frame: int = 0):
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
             x = torch.cat([x, res_states[-1]], dim=-1)
             res_states = res_states[:-1]
             x = resnet(x, temb)
             x = text(x, context=encoder_hidden_states)
-            x = temporal(x)
+            x = temporal(x, cond_frame=cond_frame)
         for up in self.upsamplers:
             x = up(x)
         return x

@@ -14,8 +14,15 @@ memory in 64-wide inner chunks (see the source note).
 
 Weights are taken in torch Linear layout, ``(out, in)``: ``w1`` (2 * inner,
 c) with rows [hidden | gate], ``w2`` (c, inner), ``w3`` (c, c).  The
-wrappers run the plain versions for CPU tensors and the kernel for CUDA
-tensors; there is no other path.
+wrappers run the plain versions for CPU tensors (autograd differentiates
+them) and the kernel for CUDA tensors; there is no other path.
+
+Backward: the JAX package computes the GEGLU gradients outside any Pallas
+kernel (an XLA chain rule that recomputes the intermediates from the saved
+inputs, ``_bwd`` / ``_ln_bwd`` / ``_ln_proj_bwd``).  ``GegluFn`` does the
+same in plain PyTorch: it saves the inputs only, re-runs the plain version
+under autograd in ``backward``, and asks for the gradients of just those
+inputs that need one, so a frozen site pays for no weight-gradient GEMM.
 """
 from __future__ import annotations
 
@@ -85,7 +92,16 @@ def ln_geglu_ff_preferred(n: int, c: int, inner: int, x: torch.Tensor) -> bool:
     return c <= LN_FUSE_MAX_C and geglu_ff_supported(n, c, inner, x)
 
 
-def _launch(mode: int, what: str, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
+_PLAIN = {0: lambda x, gamma, beta, w1, b1, w2, b2, w3, b3, res:
+          geglu_ff_plain(x, w1, b1, w2, b2),
+          1: lambda x, gamma, beta, w1, b1, w2, b2, w3, b3, res:
+          ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2),
+          2: ln_geglu_ff_proj_plain}
+_NAMES = {0: "geglu_ff", 1: "ln_geglu_ff", 2: "ln_geglu_ff_proj"}
+
+
+def _launch(mode: int, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
+    what = _NAMES[mode]
     n, c = x.shape
     inner = w2.shape[1]
     if x.device.type != "cuda":
@@ -95,8 +111,8 @@ def _launch(mode: int, what: str, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
     max_c = 704 if mode == 0 else LN_FUSE_MAX_C
     if c % 64 or c > max_c or n % 32 or inner % 64:
         raise ValueError(f"{what}: shape n={n} c={c} inner={inner} not covered")
-    bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
-    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    bf = lambda t: t.detach().to(torch.bfloat16).contiguous()  # noqa: E731
+    f32 = lambda t: t.detach().to(torch.float32).contiguous()  # noqa: E731
     x = x.contiguous()
     args = [x, f32(gamma) if gamma is not None else None,
             f32(beta) if beta is not None else None, bf(w1), bf(b1), bf(w2),
@@ -113,26 +129,56 @@ def _launch(mode: int, what: str, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
     code = fn(*ptrs, build.ptr(out), n, c, inner, LN_EPS, mode,
               build.stream_of(x))
     build.check(lib, code, what)
+    _WRAPPERS[mode].launches += 1
     return out
+
+
+class GegluFn(torch.autograd.Function):
+    """The kernel's forward (the plain version for CPU tensors) with a
+    plain-PyTorch backward by recomputation from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, mode, *tensors):
+        ctx.mode = mode
+        ctx.save_for_backward(*tensors)
+        if tensors[0].device.type == "cuda":
+            return _launch(mode, *tensors)
+        return _PLAIN[mode](*tensors)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(keep)
+                      for t, keep in zip(ctx.saved_tensors, need)]
+            out = _PLAIN[ctx.mode](*inputs)
+            wanted = [t for t, keep in zip(inputs, need) if keep]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (None, *(next(grads) if keep else None for keep in need))
+
+
+def _run(mode: int, *tensors):
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{_NAMES[mode]}: unsupported device "
+                         f"{tensors[0].device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        return GegluFn.apply(mode, *tensors)
+    return _launch(mode, *tensors)
 
 
 def geglu_ff(x, w1, b1, w2, b2):
     """(n, c) -> (n, c): (h * gelu(g)) W2 + b2, [h; g] = x W1 + b1."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, w1, b1, w2, b2)
-    out = _launch(0, "geglu_ff", x, None, None, w1, b1, w2, b2, None, None, None)
-    geglu_ff.launches += 1
-    return out
+    return _run(0, x, None, None, w1, b1, w2, b2, None, None, None)
 
 
 def ln_geglu_ff(x, gamma, beta, w1, b1, w2, b2):
     """(n, c) -> (n, c): x + FF(LN(x)); gamma/beta the LayerNorm affine."""
     if x.device.type == "cpu":
         return ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2)
-    out = _launch(1, "ln_geglu_ff", x, gamma, beta, w1, b1, w2, b2, None, None,
-                  None)
-    ln_geglu_ff.launches += 1
-    return out
+    return _run(1, x, gamma, beta, w1, b1, w2, b2, None, None, None)
 
 
 def ln_geglu_ff_proj(x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
@@ -141,12 +187,10 @@ def ln_geglu_ff_proj(x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
     if x.device.type == "cpu":
         return ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2, b2, w3, b3,
                                       res)
-    out = _launch(2, "ln_geglu_ff_proj", x, gamma, beta, w1, b1, w2, b2, w3,
-                  b3, res)
-    ln_geglu_ff_proj.launches += 1
-    return out
+    return _run(2, x, gamma, beta, w1, b1, w2, b2, w3, b3, res)
 
 
+_WRAPPERS = {0: geglu_ff, 1: ln_geglu_ff, 2: ln_geglu_ff_proj}
 geglu_ff.launches = 0
 ln_geglu_ff.launches = 0
 ln_geglu_ff_proj.launches = 0

@@ -1,16 +1,23 @@
-"""K1: fused SWAT windowed causal attention with rotary tables (CUDA C++,
-``csrc/swat_attention.cu``).
+"""K1 and K7: fused SWAT windowed causal attention with rotary tables and
+its backward (CUDA C++, ``csrc/swat_attention.cu``).
 
-Replaces ``seervideoldm_tpu/ops/pallas/swat_attention.py::
-swat_attention_tables`` (forward ``_swat_forward_tab``, body
-``_kernel_tab``).  On the H100 the kernel is tensor-core bound at the main
-path's shape; one CTA owns one query frame of one window and streams the
-visible key frames with an online softmax, because the window's 2.4 MB fp32
-score matrix the TPU kept in VMEM does not fit in shared memory (see the
-source note).
+Replaces ``seervideoldm_tpu/ops/pallas/swat_attention.py``:
+``swat_attention_tables`` (forward ``_swat_forward_tab``, body
+``_kernel_tab``) and ``_swat_backward_tab`` (body ``_bwd_kernel_tab``).  On
+the H100 both are tensor-core bound at the main path's shapes; one CTA owns
+one frame of one window and streams the visible frames of the other side
+through shared memory, because the window's 2.4 MB fp32 score matrix the
+TPU kept in VMEM does not fit there.  When a gradient is needed the forward
+also writes the rows' log-sum-exp, so the backward recomputes the
+probabilities exactly in two kernels without atomics, re-rotating q and k
+from the tables on load and de-rotating dq and dk with the adjoint before
+the store (see the source notes).
 
-The wrapper runs the plain version for CPU tensors and the kernel for CUDA
-tensors; there is no other path.
+The wrapper runs the plain version for CPU tensors (autograd
+differentiates it) and the kernels for CUDA tensors; there is no other
+path.  ``SwatAttentionTablesFn`` is the ``autograd.Function`` of the CUDA
+path; on CPU tensors it runs the explicit plain forward and backward, which
+is how the tests hold its bookkeeping.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch
 from ..rotary import rotate_half
 from ..windows import window_partition, window_reverse
 from . import build
-from .flash_attention import flash_attention_plain
+from .flash_attention import (BWD_MAX_D, _acc_dtype, attention_bwd_f32,
+                              flash_attention_plain)
 
 
 def rotate_tables(t: torch.Tensor, cos: torch.Tensor,
@@ -29,7 +37,7 @@ def rotate_tables(t: torch.Tensor, cos: torch.Tensor,
     """fp32 ``t * cos + rotate_half(t) * sin`` over interleaved pairs
     (rotate_half(t)[2i] = -t[2i+1], rotate_half(t)[2i+1] = t[2i]), cast back
     to t's dtype."""
-    t32 = t.float()
+    t32 = t.to(_acc_dtype(t))
     return (t32 * cos + rotate_half(t32) * sin).to(t.dtype)
 
 
@@ -42,6 +50,130 @@ def swat_attention_tables_plain(q, k, v, cos, sin, scale: float,
     qw, kw, vw = (window_partition(t, ws) for t in (qr, kr, v))
     ow = flash_attention_plain(qw, kw, vw, scale, causal)
     return window_reverse(ow, ws, f, h, w)
+
+
+def swat_attention_tables_bwd_plain(q, k, v, cos, sin, g, scale: float,
+                                    causal: bool, ws: int):
+    """The vjp of ``_unfused_reference_tab`` as explicit formulas: rotate q
+    and k, window-partition, the fp32 attention backward per window,
+    window-reverse, then de-rotate dq and dk with the adjoint
+    ``t * cos - rotate_half(t) * sin`` (the tables are pair-constant).
+    Returns (dq, dk, dv) in the inputs' dtypes; the tables get no
+    gradient."""
+    _, f, h, w, _ = q.shape
+    qr, kr = rotate_tables(q, cos, sin), rotate_tables(k, cos, sin)
+    qw, kw, vw, gw = (window_partition(t, ws) for t in (qr, kr, v, g))
+    dqw, dkw, dvw = attention_bwd_f32(qw, kw, vw, gw, scale, causal)
+    dq, dk, dv = (window_reverse(t, ws, f, h, w) for t in (dqw, dkw, dvw))
+    derotate = lambda t: t * cos - rotate_half(t) * sin  # noqa: E731
+    return (derotate(dq).to(q.dtype), derotate(dk).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_cuda(q, k, v, cos, sin, ws: int, what: str) -> None:
+    d = q.shape[-1]
+    if ws != 8:
+        raise ValueError(f"{what}: kernel covers ws = 8, got {ws}")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: kernel takes bf16, got {q.dtype}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise ValueError(f"{what}: tables must be fp32")
+    if d % 8 or d > 160:
+        raise ValueError(f"{what}: head dim {d} not covered "
+                         "(multiple of 8, at most 160)")
+
+
+def _launch_fwd(q, k, v, cos, sin, scale: float, causal: bool, ws: int,
+                want_lse: bool):
+    """The K1 launch on contiguous CUDA tensors.  Returns (out, lse or
+    None); lse (B, f, h, w) fp32, log2 domain."""
+    batch, f, h, w, d = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    lib = build.load("swat_attention")
+    fn = lib.svl_swat_attention_tab_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(cos),
+              build.ptr(sin), build.ptr(out),
+              build.ptr(lse) if want_lse else None, batch, f, h, w, d, ws,
+              float(scale), int(causal), build.stream_of(q))
+    build.check(lib, code, "swat_attention_tables")
+    swat_attention_tables.launches += 1
+    return out, lse
+
+
+def swat_attention_tables_bwd(q, k, v, cos, sin, out, lse, g, scale: float,
+                              causal: bool, ws: int,
+                              need=(True, True, True)):
+    """K7 on CUDA tensors: q/k/v/out/g (B, f, h, w, d) bf16 (q, k
+    UN-rotated), ``lse`` (B, f, h, w) fp32 as the forward wrote it.
+    Returns (dq, dk, dv); an entry is None where ``need`` is false and its
+    kernel could be skipped."""
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"swat_attention_tables_bwd: unsupported device {q.device}")
+    _check_cuda(q, k, v, cos, sin, ws, "swat_attention_tables_bwd")
+    batch, f, h, w, d = q.shape
+    if d > BWD_MAX_D:
+        raise ValueError(f"swat_attention_tables_bwd: head dim {d} not "
+                         f"covered by the backward kernel (at most {BWD_MAX_D})")
+    q, k, v, out, g = (t.contiguous() for t in (q, k, v, out, g))
+    cos, sin = cos.contiguous(), sin.contiguous()
+    need_kv = need[1] or need[2]
+    dq = torch.empty_like(q) if need[0] else None
+    dk = torch.empty_like(k) if need_kv else None
+    dv = torch.empty_like(v) if need_kv else None
+    delta = torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
+    lib = build.load("swat_attention")
+    fn = lib.svl_swat_attention_tab_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
+    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(cos),
+              build.ptr(sin), build.ptr(out), build.ptr(g),
+              build.ptr(lse.contiguous()), build.ptr(delta), opt(dq), opt(dk),
+              opt(dv), batch, f, h, w, d, ws, float(scale), int(causal),
+              build.stream_of(q))
+    build.check(lib, code, "swat_attention_tables_bwd")
+    swat_attention_tables_bwd.launches += 1
+    return dq, dk, dv
+
+
+class SwatAttentionTablesFn(torch.autograd.Function):
+    """K1 forward with the K7 backward.  Saves q, k, v, the tables and, on
+    CUDA, out and lse; cos/sin, scale, causal and ws get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, scale, causal, ws):
+        ctx.scale, ctx.causal, ctx.ws = float(scale), bool(causal), int(ws)
+        if q.device.type == "cuda":
+            out, lse = _launch_fwd(q, k, v, cos, sin, scale, causal, ws,
+                                   want_lse=True)
+            ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+        else:
+            out = swat_attention_tables_plain(q, k, v, cos, sin, scale,
+                                              causal, ws)
+            ctx.save_for_backward(q, k, v, cos, sin)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        if g.device.type == "cuda":
+            q, k, v, cos, sin, out, lse = ctx.saved_tensors
+            dq, dk, dv = swat_attention_tables_bwd(
+                q, k, v, cos, sin, out, lse, g, ctx.scale, ctx.causal, ctx.ws,
+                need)
+        else:
+            q, k, v, cos, sin = ctx.saved_tensors
+            dq, dk, dv = swat_attention_tables_bwd_plain(
+                q, k, v, cos, sin, g, ctx.scale, ctx.causal, ctx.ws)
+        grads = [t if keep else None for t, keep in zip((dq, dk, dv), need)]
+        return (*grads, None, None, None, None, None)
 
 
 def swat_attention_tables(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,29 +189,18 @@ def swat_attention_tables(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return swat_attention_tables_plain(q, k, v, cos, sin, scale, causal, ws)
     if q.device.type != "cuda":
         raise ValueError(f"swat_attention_tables: unsupported device {q.device}")
-    if ws != 8:
-        raise ValueError(f"swat_attention_tables: kernel covers ws = 8, got {ws}")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"swat_attention_tables: kernel takes bf16, got {q.dtype}")
-    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
-        raise ValueError("swat_attention_tables: tables must be fp32")
-    if d % 8 or d > 160:
-        raise ValueError(f"swat_attention_tables: head dim {d} not covered "
-                         "(multiple of 8, at most 160)")
+    _check_cuda(q, k, v, cos, sin, ws, "swat_attention_tables")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cos, sin = cos.contiguous(), sin.contiguous()
-    out = torch.empty_like(q)
-    lib = build.load("swat_attention")
-    fn = lib.svl_swat_attention_tab_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(cos),
-              build.ptr(sin), build.ptr(out), q.shape[0], f, h, w, d, ws,
-              float(scale), int(causal), build.stream_of(q))
-    build.check(lib, code, "swat_attention_tables")
-    swat_attention_tables.launches += 1
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if d > BWD_MAX_D:
+            raise ValueError(f"swat_attention_tables: head dim {d} has no "
+                             f"backward kernel (at most {BWD_MAX_D})")
+        return SwatAttentionTablesFn.apply(q, k, v, cos, sin, scale, causal, ws)
+    out, _ = _launch_fwd(q, k, v, cos, sin, scale, causal, ws, want_lse=False)
     return out
 
 
 swat_attention_tables.launches = 0
+swat_attention_tables_bwd.launches = 0

@@ -1,13 +1,21 @@
-"""Model construction for the entry points (port of the random-init branch
-and ``model_overrides`` of ``seervideoldm_tpu/pipelines/loading.py``).
+"""Model construction for the entry points (port of the random-init branch,
+``model_overrides`` and ``load_finetuned`` of
+``seervideoldm_tpu/pipelines/loading.py``).
 
-Weights are random, made from ``cfg.seed``: pretrained SD-1.5, CLIP and
-Seer checkpoints are not loaded by this slice of the port (``config.py``
-refuses a config that names one).  ``model_overrides`` (YAML dicts under
-``unet`` / ``vae`` / ``clip`` / ``fstext``) scale the sub-models down for
-smoke runs, with the JAX package's keys.
+Weights are random, made from ``cfg.seed``, or come from a checkpoint
+directory in the reference's two-file layout (``load_finetuned``: what the
+port's trainer and the JAX package's exporter write).  Pretrained SD-1.5
+and CLIP checkpoints are not loaded yet (``config.py`` refuses a config
+that names one).  ``model_overrides`` (YAML dicts under ``unet`` / ``vae``
+/ ``clip`` / ``fstext``) scale the sub-models down for smoke runs, with the
+JAX package's keys.
 """
 from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
 
 from ..config import Config
 from ..models.clip_text import CLIPTextConfig
@@ -27,8 +35,9 @@ def compute_dtype(cfg: Config):
     return DTYPES[str(key)]
 
 
-def load_models(cfg: Config, device=None):
-    """``(SeerModels, tokenizer)`` at the config's widths on ``device``."""
+def load_models(cfg: Config, device=None, trainable_scope=None):
+    """``(SeerModels, tokenizer)`` at the config's widths on ``device``;
+    ``trainable_scope`` builds them for training (fp32 masters, remat)."""
     overrides = cfg.model_overrides or {}
 
     def sub(cls, key):
@@ -43,5 +52,45 @@ def load_models(cfg: Config, device=None):
         vae_config=sub(VAEConfig, "vae"),
         clip_config=sub(CLIPTextConfig, "clip"),
         fstext_kwargs=overrides.get("fstext"),
-        dtype=compute_dtype(cfg), device=device, seed=int(cfg.seed))
+        dtype=compute_dtype(cfg), device=device, seed=int(cfg.seed),
+        trainable_scope=trainable_scope,
+        remat=(cfg.remat or bool(cfg.gradient_checkpointing))
+        if trainable_scope else False)
     return models, build_tokenizer(cfg.tokenizer_path)
+
+
+def resolve_finetuned_dir(cfg: Config) -> Optional[str]:
+    """Reference convention: ``<output_dir>/learned_sdunet-steps-<N>``
+    selected by ``saved_global_step``, or an explicit ``learned_unet_ckpt``
+    path."""
+    if cfg.learned_unet_ckpt:
+        return cfg.learned_unet_ckpt
+    if cfg.saved_global_step:
+        path = os.path.join(cfg.output_dir,
+                            f"learned_sdunet-steps-{cfg.saved_global_step}")
+        if os.path.isdir(path):
+            return path
+    return None
+
+
+def load_finetuned(models: SeerModels, ckpt_dir: str) -> SeerModels:
+    """Strictly load SeerUNet (``pytorch_model.bin``) and FSText
+    (``pytorch_model_1.bin``) from a checkpoint directory into ``models``
+    (each tensor cast to the module's own dtype).  Models built for training
+    also take their fp32 masters from the files."""
+    from ..io.checkpoint import FSTEXT_FILE, UNET_FILE
+
+    for key, fname in (("unet", UNET_FILE), ("fstext", FSTEXT_FILE)):
+        path = os.path.join(ckpt_dir, fname)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{path}: not a checkpoint directory in "
+                                    "the two-file layout")
+        sd = torch.load(path, map_location="cpu")
+        getattr(models, key).load_state_dict(sd, strict=True)
+        if models.masters is not None:
+            with torch.no_grad():
+                for name, master in models.masters.items():
+                    model, _, pname = name.partition(".")
+                    if model == key:
+                        master.copy_(sd[pname])
+    return models

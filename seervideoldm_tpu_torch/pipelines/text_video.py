@@ -12,7 +12,7 @@ decode x (1 / 0.18215) -> clamp to [0, 1].  Video layout at this boundary:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ from ..models.clip_text import CLIPTextConfig, CLIPTextModel
 from ..models.fstext import FSTextTransformer
 from ..models.unet3d import SeerUNet, SeerUNetConfig
 from ..models.vae import VAE_SCALE, AutoencoderKL, VAEConfig
+from ..training.optim import trainable_names
 from ..utils.device import cast_for_compute, resolve_device
 
 
@@ -40,6 +41,9 @@ class SeerModels:
     fstext: FSTextTransformer
     vae: AutoencoderKL
     clip: CLIPTextModel
+    # fp32 masters of the trainable parameters, ``{"unet.<name>" |
+    # "fstext.<name>": tensor}``; None for models built for sampling
+    masters: Optional[dict] = None
 
     @staticmethod
     def initialize(num_frames: int = 12,
@@ -48,10 +52,16 @@ class SeerModels:
                    clip_config: Optional[CLIPTextConfig] = None,
                    fstext_kwargs: Optional[dict] = None,
                    dtype: torch.dtype = torch.bfloat16, device=None,
-                   seed: int = 0) -> "SeerModels":
+                   seed: int = 0, trainable_scope: Optional[str] = None,
+                   remat: Union[bool, str] = False) -> "SeerModels":
         """Random weights from ``seed``, built directly on ``device`` (CUDA
         unless asked otherwise) and cast to the compute ``dtype`` (norm
-        layers stay fp32)."""
+        layers stay fp32).
+
+        For training pass ``trainable_scope`` ('reference' or 'all'): the
+        parameters it names keep an fp32 master (``masters``, taken before
+        the cast, so the compute copy is the master rounded once) and get
+        ``requires_grad``; everything else is frozen as for sampling."""
         dev = resolve_device(device)
         if dev.type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"the CUDA kernels compute in bf16, got {dtype}: "
@@ -65,17 +75,37 @@ class SeerModels:
         with torch.random.fork_rng(devices=forked), torch.device(dev):
             torch.manual_seed(seed)
             models = SeerModels(
-                unet=SeerUNet(unet_config),
+                unet=SeerUNet(unet_config, remat=remat),
                 fstext=FSTextTransformer(num_frames=num_frames, **fs_kw),
                 vae=AutoencoderKL(vae_config or VAEConfig()),
                 clip=CLIPTextModel(clip_config or CLIPTextConfig()))
         _zero_proj_out(models.unet)
+        if trainable_scope is not None:
+            named = models.named_trainable()
+            models.masters = {
+                n: named[n].detach().clone()
+                for n in trainable_names(models.trainable_modules(),
+                                         trainable_scope)}
         for m in models.modules():
             cast_for_compute(m, dtype).eval().requires_grad_(False)
+        if models.masters is not None:
+            named = models.named_trainable()
+            for n in models.masters:
+                named[n].requires_grad_(True)
         return models
 
     def modules(self):
         return (self.unet, self.fstext, self.vae, self.clip)
+
+    def trainable_modules(self) -> dict:
+        """The two models training may touch (VAE and CLIP never train)."""
+        return {"unet": self.unet, "fstext": self.fstext}
+
+    def named_trainable(self) -> dict:
+        """``{"unet.<name>" | "fstext.<name>": parameter}`` of both."""
+        return {f"{key}.{name}": p
+                for key, m in self.trainable_modules().items()
+                for name, p in m.named_parameters()}
 
 
 class SeerPipeline:

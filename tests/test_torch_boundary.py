@@ -1,7 +1,9 @@
 """The port's import boundary and device default.
 
-- every module of ``seervideoldm_tpu_torch`` and the root ``chip_smoke.py``
-  import in a fresh interpreter where ``jax``, ``flax`` and
+- every module of ``seervideoldm_tpu_torch`` (the training slice's
+  included: ``train``, ``training/``, ``data/``, ``io/checkpoint``,
+  ``diffusion/ddpm``) and the root ``chip_smoke.py`` import in a fresh
+  interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
   ``seervideoldm_tpu`` cannot be imported;
 - no source file of the port names them in an import;
 - on a host without CUDA, the entry points called without ``device="cpu"``
@@ -19,7 +21,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "seervideoldm_tpu_torch")
-BLOCKED = ("jax", "flax", "seervideoldm_tpu")
+BLOCKED = ("jax", "flax", "optax", "orbax", "seervideoldm_tpu")
 
 
 def _port_modules():
@@ -35,6 +37,14 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_boundary_walk_reaches_the_training_modules():
+    names = set(_port_modules())
+    for mod in ("train", "training.trainer", "training.optim",
+                "training.meters", "diffusion.ddpm", "io.checkpoint",
+                "data.datasets", "data.loader"):
+        assert f"seervideoldm_tpu_torch.{mod}" in names, mod
 
 
 def test_port_imports_with_jax_blocked():
@@ -58,8 +68,9 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_port_sources_name_no_jax_import():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|seervideoldm_tpu)\b",
-                     re.MULTILINE)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|seervideoldm_tpu)\b",
+        re.MULTILINE)
     offenders = [p for p in _sources() if pat.search(open(p).read())]
     assert not offenders
 
@@ -77,6 +88,10 @@ def test_entry_points_default_to_cuda():
         build_pipeline({"resolution": 32})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SeerModels.initialize()
+    from seervideoldm_tpu_torch.train import train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train({"resolution": 32, "output_dir": "unused"})
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -7,7 +7,10 @@ repository's conftest sets up JAX, which that machine need not have):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Small shapes of each kernel's main-path form, bf16 inputs from a seed,
-tolerance 2e-2 abs + 2e-2 rel on bf16 outputs (as ``chip_smoke.py``).
+tolerance 2e-2 abs + 2e-2 rel on bf16 outputs (as ``chip_smoke.py``); for
+the backward kernels (K7, K8) the same bound and a relative L2 error of at
+most 1e-2 on each of dq, dk, dv, at odd shapes: n not a multiple of 64, n != m, a fully
+masked tail tile, a non-contiguous ``grad_output``, d = 80.
 """
 import pytest
 import torch
@@ -94,3 +97,204 @@ def test_kernel_refuses_uncovered_shape(gen):
     q = _randn(gen, 2, 600, 36)  # head dim not a multiple of 8
     with pytest.raises(ValueError, match="not covered"):
         K.flash_attention(q, q, q, 0.1)
+
+
+# ------------------------------------------------------- backward (K7, K8)
+
+def _close_bwd(got, want):
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g).all(), name
+        g32, w32 = g.float(), w.float()
+        err = (g32 - w32).abs()
+        assert bool((err <= ATOL + RTOL * w32.abs()).all()), (
+            name, float(err.max()))
+        assert float((g32 - w32).norm() / w32.norm()) <= 1e-2, name
+
+
+@pytest.mark.parametrize("n,m,d,causal", [
+    (700, 700, 40, False),   # n not a multiple of 64
+    (700, 700, 80, True),    # causal, ragged last tile, d = 80
+    (1000, 712, 40, False),  # n != m
+    (520, 65, 40, False),    # a key tile with one live key: 63 masked
+    (64, 64, 16, True),      # one tile, narrow head
+])
+def test_flash_bwd_kernel(gen, n, m, d, causal):
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
+
+    q, g = _randn(gen, 5, n, d), _randn(gen, 5, n, d)
+    k, v = _randn(gen, 5, m, d), _randn(gen, 5, m, d)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    before = K.flash_attention_bwd.launches
+    out = K.flash_attention(qa, ka, va, d ** -0.5, causal)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert K.flash_attention_bwd.launches == before + 1
+    want = K.flash_attention_bwd_plain(q, k, v, g, d ** -0.5, causal)
+    _close_bwd((qa.grad, ka.grad, va.grad), want)
+
+
+def test_flash_bwd_noncontiguous_grad_and_heads_layout(gen):
+    """The gradient autograd hands back through ``merge_heads`` is a
+    transposed view; q/k/v come as (b, H, n, d) views of (b, n, H*d)."""
+    from seervideoldm_tpu_torch.ops.attention import merge_heads, split_heads
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
+
+    x = [_randn(gen, 2, 576, 4 * 40).requires_grad_() for _ in range(3)]
+    q, k, v = (split_heads(t, 4) for t in x)
+    w = _randn(gen, 2, 576, 160)
+    (merge_heads(K.flash_attention(q, k, v, 40 ** -0.5)) * w).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in x]
+    qr, kr, vr = (split_heads(t, 4) for t in ref)
+    (merge_heads(K.flash_attention_plain(qr, kr, vr, 40 ** -0.5)) * w
+     ).sum().backward()
+    _close_bwd([t.grad for t in x], [t.grad for t in ref])
+
+
+def test_flash_bwd_skips_unneeded_and_refuses_wide_heads(gen):
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
+
+    q, k, v = (_randn(gen, 3, 512, 40) for _ in range(3))
+    qa = q.clone().requires_grad_()
+    K.flash_attention(qa, k, v, 0.2).sum().backward()  # dq only
+    want = K.flash_attention_bwd_plain(q, k, v, torch.ones_like(q), 0.2)
+    _close_bwd((qa.grad,), want[:1])
+    wide = _randn(gen, 2, 512, 160).requires_grad_()
+    with pytest.raises(ValueError, match="no backward kernel"):
+        K.flash_attention(wide, wide, wide, 0.1)
+    with torch.no_grad():  # the forward alone still covers d = 160
+        assert K.flash_attention(wide, wide, wide, 0.1).shape == wide.shape
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 3, 16, 24, 40), True), ((2, 5, 8, 16, 80), True),
+    ((3, 2, 8, 8, 16), False)])
+def test_swat_bwd_kernel(gen, shape, causal):
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
+    from seervideoldm_tpu_torch.ops.rotary import rotary_tables
+
+    _, f, h, w, d = shape
+    q, k, v, g = (_randn(gen, *shape) for _ in range(4))
+    cos, sin = rotary_tables(f, h, w, d, min(32, d), device="cuda")
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    before = K.swat_attention_tables_bwd.launches
+    out = K.swat_attention_tables(qa, ka, va, cos, sin, d ** -0.5, causal, 8)
+    assert out.grad_fn is not None
+    # a non-contiguous grad_output: a permuted view of another layout
+    g_view = g.permute(0, 1, 3, 2, 4).contiguous().permute(0, 1, 3, 2, 4)
+    assert not g_view.is_contiguous() or h == w
+    out.backward(g_view)
+    assert K.swat_attention_tables_bwd.launches == before + 1
+    want = K.swat_attention_tables_bwd_plain(q, k, v, cos, sin, g, d ** -0.5,
+                                             causal, 8)
+    _close_bwd((qa.grad, ka.grad, va.grad), want)
+
+
+def test_geglu_wrappers_carry_grad_fn(gen):
+    """On CUDA tensors a wrapper's result has a ``grad_fn`` when a gradient
+    is required, and the frozen weights get none."""
+    from seervideoldm_tpu_torch.ops.kernels import geglu_ff as K
+
+    n, c, inner = 512, 64, 256
+    x = _randn(gen, n, c).requires_grad_()
+    w1, b1 = _randn(gen, 2 * inner, c, scale=c ** -0.5), _randn(gen, 2 * inner)
+    w2, b2 = _randn(gen, c, inner, scale=inner ** -0.5), _randn(gen, c)
+    gamma = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+             ).requires_grad_()
+    beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    out = K.ln_geglu_ff(x, gamma, beta, w1, b1, w2, b2)
+    assert out.grad_fn is not None
+    g = _randn(gen, n, c)
+    out.backward(g)
+    xr = x.detach().clone().requires_grad_()
+    gr = gamma.detach().clone().requires_grad_()
+    K.ln_geglu_ff_plain(xr, gr, beta, w1, b1, w2, b2).backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(x.grad, xr.grad) and torch.equal(gamma.grad, gr.grad)
+    assert w1.grad is None and beta.grad is None
+
+
+def test_no_grad_leaves_sampling_launch_counts_unchanged(gen):
+    """Under ``torch.no_grad()`` nothing is saved and no backward kernel
+    can run: one SeerUNet call launches what it launched before the
+    wrappers had ``autograd.Function``s, even with trainable weights."""
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet, SeerUNetConfig
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as fa
+    from seervideoldm_tpu_torch.ops.kernels import geglu_ff as gg
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as sw
+    from seervideoldm_tpu_torch.utils.device import cast_for_compute
+
+    cfg = SeerUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
+                         norm_num_groups=8, cross_attention_dim=64,
+                         attention_head_dim=2)
+    with torch.device("cuda"):
+        unet = cast_for_compute(SeerUNet(cfg), torch.bfloat16)
+    x = _randn(gen, 2, 12, 32, 32, 4)
+    ctx = _randn(gen, 2, 12, 77, 64)
+    ts = torch.tensor([500, 500], device="cuda")
+    fns = (sw.swat_attention_tables, fa.flash_attention, gg.ln_geglu_ff,
+           gg.ln_geglu_ff_proj, gg.geglu_ff, sw.swat_attention_tables_bwd,
+           fa.flash_attention_bwd)
+
+    def counts(grad):
+        for p in unet.parameters():
+            p.requires_grad_(grad)
+        for fn in fns:
+            fn.launches = 0
+        with torch.no_grad():
+            out = unet(x, ts, ctx)
+        torch.cuda.synchronize()
+        assert out.grad_fn is None
+        return [fn.launches for fn in fns]
+
+    frozen, trainable = counts(False), counts(True)
+    assert frozen == trainable
+    assert frozen[0] > 0 and frozen[1] > 0 and frozen[3] > 0
+    assert frozen[5] == frozen[6] == 0
+
+
+def test_remat_equals_no_remat_on_the_card(gen):
+    """``remat: True`` (non-reentrant checkpoint around each top-level block)
+    through the kernels' ``autograd.Function``s: the recomputed forward
+    launches the forward kernels a second time and the gradients are those
+    of the plain run (the kernels are deterministic: no atomics)."""
+    import copy
+
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet, SeerUNetConfig
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as fa
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as sw
+    from seervideoldm_tpu_torch.utils.device import cast_for_compute
+
+    cfg = SeerUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
+                         norm_num_groups=8, cross_attention_dim=64,
+                         attention_head_dim=2)
+    with torch.device("cuda"):
+        plain = cast_for_compute(SeerUNet(cfg), torch.bfloat16)
+    remat = copy.deepcopy(plain)
+    remat.remat = True
+    x = _randn(gen, 1, 12, 32, 32, 4)
+    ctx = _randn(gen, 1, 12, 77, 64)
+    ts = torch.tensor([400], device="cuda")
+
+    def run(model):
+        params = [p for n, p in model.named_parameters()
+                  if "temporal_attentions" in n]
+        for p in model.parameters():
+            p.requires_grad_(False)
+        for p in params:
+            p.requires_grad_(True)
+        for fn in (sw.swat_attention_tables, sw.swat_attention_tables_bwd,
+                   fa.flash_attention, fa.flash_attention_bwd):
+            fn.launches = 0
+        loss = model(x, ts, ctx, cond_frame=2)[:, 2:].float().pow(2).mean()
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return (float(loss.detach()), grads, sw.swat_attention_tables.launches,
+                sw.swat_attention_tables_bwd.launches)
+
+    loss_a, grads_a, fwd_a, bwd_a = run(plain)
+    loss_b, grads_b, fwd_b, bwd_b = run(remat)
+    assert loss_a == loss_b
+    assert bwd_a == bwd_b > 0 and fwd_b == 2 * fwd_a
+    for ga, gb in zip(grads_a, grads_b):
+        assert torch.equal(ga, gb)

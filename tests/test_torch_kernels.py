@@ -220,3 +220,19 @@ def test_cuda_wrapper_raises_off_card():
     b = torch.empty(512, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tgg.geglu_ff(x, w1, b, w2, b[:64])
+    # nor do the backward wrappers, or a forward that has to save for one
+    lse = torch.empty(2, 512, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention_bwd(q[0], q[0], q[0], q[0], lse, q[0], 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention(q.clone().requires_grad_(), q, q, 0.1)
+    v5 = torch.empty(1, 2, 8, 8, 40, dtype=torch.bfloat16, device="meta")
+    tab = torch.empty(2, 8, 8, 40, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsw.swat_attention_tables(v5, v5, v5, tab, tab, 0.1, True, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsw.swat_attention_tables_bwd(v5, v5, v5, tab, tab, v5, tab[None, ..., 0],
+                                      v5, 0.1, True, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tgg.ln_geglu_ff(x.clone().requires_grad_(), b[:64].float(),
+                        b[:64].float(), w1, b, w2, b[:64])
