@@ -20,8 +20,10 @@ no result line):
    (d = 40 and d = 80), bf16 inputs from a seeded generator, against its
    plain PyTorch version (for a backward kernel dq, dk and dv each); the
    forward kernels' log-sum-exp against ``logsumexp`` of the plain scores;
-   times the kernel, the plain version and one library call computing the
-   same function;
+   K6 (pre-rotated, ``rot_dim`` 0, and in-kernel trig, ``rot_dim`` 32) and
+   K9 (both modes) at the shapes of the sequence-parallel path and at the
+   256 / 512 px shapes; times the kernel, the plain version and one library
+   call computing the same function;
 4. reference: one SeerUNet call at narrow widths (64/128) and the main
    path's 256 px / 12 frame / CFG-batch-2 shapes, bf16 with the kernels on
    the card against the port's plain path in fp32 on the CPU, same weights
@@ -47,7 +49,23 @@ no result line):
    from the checkpoint it wrote, every trainable fp32 master moved and
    every frozen SeerUNet / FSText weight equals its seeded initial value;
    the checkpoint is loaded and sampled for a few DDIM steps;
-8. prints the ``kernels`` line, the card line and the result line.
+8. parallel: 2 ranks started with ``parallel.launch`` (NCCL with a card
+   per rank, else gloo with the ranks sharing the card and collectives
+   staged through pinned host memory; chosen from the card count before any
+   rank starts, and printed), full width, 256 px:
+   (a) ``inference_img``'s pipeline under ``{seq: 2}``, 12 frames, 30 DDIM
+   steps (the ring branch), rank 0 writes the GIF; one UNet call compared
+   with the single-rank call on the same weights and inputs;
+   (b) one UNet call under ``{seq: 2}`` at 11 frames (cond 2): the frames
+   do not split evenly, the ring declines and K6 runs; compared the same;
+   (c) the ``train`` entry under ``{data: 2}``, 2 optimizer steps; then one
+   micro-step's loss and gradients against a single-rank step on the same
+   global batch;
+   (d) the ``train`` entry under ``{seq: 2}`` at 11 frames, 2 optimizer
+   steps (K6 and K9), then the same check;
+   each run's launch counts are zeroed just before and read just after, on
+   every rank; a ``parallel_run`` JSON line per run;
+9. prints the ``kernels`` line, the card line and the result line.
 
 ``--profile PATH`` adds where one full-width DDIM step's time goes (one
 SeerUNet call's CUDA kernel time by category and the device busy share, a
@@ -61,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -80,6 +99,13 @@ REF_RTOL = 5e-2            # relative L2, bf16 UNet on the card vs fp32 CPU
 # bound over the whole tensor, which the rounding noise averages out of.
 BWD_REL_L2 = 1e-2
 LSE_ATOL = 1e-3            # natural-log lse of bf16 scores, fp32 both sides
+# K6/K9 with in-kernel trig: the kernel's sincosf and the plain version's
+# torch cos/sin differ by an fp32 ulp or two, so a rotated q or k element
+# can round to the neighbouring bf16 value (2^-8 relative); a score then
+# moves by up to scale * 2^-8 * sum |q_i k_i| over the flipped lanes, a few
+# 1e-3 on randn inputs at d = 40.  The scores themselves are the same
+# function; dq, dk, dv keep the common bounds.
+LSE_TRIG_ATOL = 1e-2
 # Training gradients, bf16 through the kernels on the card vs fp32 on the
 # CPU (narrow SeerUNet): relative L2 over all trainable gradients, and the
 # loosest single tensor (small bias / LayerNorm tensors carry the most
@@ -96,7 +122,8 @@ SEED = 0
 # c = 640 FF sites
 PER_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
             "ln_geglu_ff": 5, "ln_geglu_ff_proj": 5, "geglu_ff": 10,
-            "swat_attention_tables_bwd": 0, "flash_attention_bwd": 0}
+            "swat_attention_tables_bwd": 0, "flash_attention_bwd": 0,
+            "swat_attention": 0, "swat_attention_bwd": 0}
 # launches per training micro-step (batch 1, 12 frames, cond_frame 2, no
 # remat): with cond_frame > 0 the temporal tails run K3 on the non-cond
 # tokens, never K4, so K3 serves the 5 text and the 5 temporal c = 320
@@ -105,7 +132,16 @@ PER_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
 # launches have a K8.
 PER_MICRO_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
                   "ln_geglu_ff": 10, "ln_geglu_ff_proj": 0, "geglu_ff": 10,
-                  "swat_attention_tables_bwd": 5, "flash_attention_bwd": 4}
+                  "swat_attention_tables_bwd": 5, "flash_attention_bwd": 4,
+                  "swat_attention": 0, "swat_attention_bwd": 0}
+# the parallel phase: 2 ranks; a sequence-parallel UNet call must agree with
+# the single-rank call within PAR_UNET_RTOL (relative L2, bf16 both); a
+# parallel training step's loss within PAR_LOSS_RTOL and its gradients
+# within TRAIN_REF_RTOL (relative L2 over all trainable gradients) of a
+# single-rank step on the same global batch
+PAR_RANKS, PAR_TIMEOUT = 2, 700
+PAR_UNET_RTOL, PAR_LOSS_RTOL = 2e-2, 1e-2
+PAR_OPT_STEPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -134,7 +170,9 @@ def wrappers() -> dict:
             "ln_geglu_ff": gg.ln_geglu_ff,
             "ln_geglu_ff_proj": gg.ln_geglu_ff_proj, "geglu_ff": gg.geglu_ff,
             "swat_attention_tables_bwd": sw.swat_attention_tables_bwd,
-            "flash_attention_bwd": fa.flash_attention_bwd}
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "swat_attention": sw.swat_attention,
+            "swat_attention_bwd": sw.swat_attention_bwd}
 
 
 def reset_launches() -> None:
@@ -359,6 +397,89 @@ def case_swat_bwd(gen, batch, f, h, d):
         shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal")
 
 
+def case_swat6(gen, batch, f, h, d, rot_dim, grad=False):
+    """K6 against its plain version; library yardstick: SDPA on pre-rotated,
+    window-partitioned inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
+    from seervideoldm_tpu_torch.ops.windows import window_partition
+
+    bf, ws = torch.bfloat16, 8
+    q, k, v = (_randn((batch, f, h, h, d), gen, bf) for _ in range(3))
+    scale = d ** -0.5
+    qw, kw, vw = (window_partition(t, ws) for t in (q, k, v))
+    tokens = f * ws * ws
+    windows = batch * (h // ws) ** 2
+    return _as_path_calls(dict(
+        name="swat_attention",
+        kernel=lambda: K.swat_attention(q, k, v, scale, True, ws, rot_dim),
+        plain=lambda: K.swat_attention_plain(q, k, v, scale, True, ws, rot_dim),
+        library=lambda: F.scaled_dot_product_attention(
+            qw, kw, vw, scale=scale, is_causal=True),
+        flops=4.0 * windows * d * tokens * (tokens + 1) / 2,
+        # q, k, v read, o written (bf16), no tables; lse when it writes one
+        nbytes=4.0 * q.numel() * 2 + (4.0 * batch * f * h * h if grad else 0.0),
+        shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal rot_dim {rot_dim}"),
+        (q, k, v), grad)
+
+
+def case_swat6_bwd(gen, batch, f, h, d, rot_dim):
+    """K9 against the explicit plain backward; the K6 forward's lse against
+    logsumexp of the plain scores.  Library yardstick: autograd through
+    SDPA (forward + backward) on window-partitioned inputs."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
+    from seervideoldm_tpu_torch.ops.rotary import rotary_tables
+    from seervideoldm_tpu_torch.ops.windows import window_partition
+
+    bf, ws = torch.bfloat16, 8
+    q, k, v, g = (_randn((batch, f, h, h, d), gen, bf) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = K._launch_swat_fwd(q, k, v, scale, True, ws, rot_dim,
+                                  want_lse=True)
+    tokens = f * ws * ws
+    windows = batch * (h // ws) ** 2
+
+    def lse_err():
+        qr, kr = q[:1], k[:1]
+        if rot_dim:
+            cos, sin = rotary_tables(f, h, h, d, rot_dim, device="cuda")
+            qr, kr = (K.rotate_tables(t, cos, sin) for t in (qr, kr))
+        qw, kw = window_partition(qr, ws), window_partition(kr, ws)
+        logits = torch.matmul(qw.float(), kw.float().transpose(1, 2)) * scale
+        keep = torch.ones(tokens, tokens, dtype=torch.bool, device="cuda").tril()
+        want = torch.logsumexp(logits.masked_fill(~keep, float("-inf")), dim=-1)
+        got = window_partition(lse[:1, ..., None], ws)[..., 0] * math.log(2.0)
+        return float((got - want).abs().max())
+
+    ql, kl, vl = (window_partition(t, ws).clone().requires_grad_()
+                  for t in (q, k, v))
+    gl = window_partition(g, ws)
+
+    def library():
+        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale,
+                                           is_causal=True)
+        return torch.autograd.grad(o, (ql, kl, vl), gl)
+
+    return dict(
+        name="swat_attention_bwd", lse_atol=LSE_TRIG_ATOL if rot_dim else
+        LSE_ATOL,
+        kernel=lambda: K.swat_attention_bwd(q, k, v, out, lse, g, scale, True,
+                                            ws, rot_dim),
+        plain=lambda: K.swat_attention_bwd_plain(q, k, v, g, scale, True, ws,
+                                                 rot_dim),
+        library=library, lse_err=lse_err, backward=True,
+        flops=10.0 * windows * tokens * tokens * d * (f + 1) / (2.0 * f),
+        nbytes=8.0 * q.numel() * 2 + 4.0 * lse.numel(),
+        shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal rot_dim {rot_dim}")
+
+
 def case_geglu(gen, mode, n, c, grad=False):
     import torch
     import torch.nn.functional as F
@@ -428,6 +549,12 @@ KERNEL_META = {
     "flash_attention_bwd": (
         "seervideoldm_tpu_torch/csrc/flash_attention.cu",
         "seervideoldm_tpu/ops/pallas/flash_attention.py:331"),
+    "swat_attention": (
+        "seervideoldm_tpu_torch/csrc/swat_attention.cu",
+        "seervideoldm_tpu/ops/pallas/swat_attention.py:850"),
+    "swat_attention_bwd": (
+        "seervideoldm_tpu_torch/csrc/swat_attention.cu",
+        "seervideoldm_tpu/ops/pallas/swat_attention.py:801"),
 }
 
 
@@ -465,6 +592,20 @@ KERNEL_CASES = (
     ("training", case_geglu, (1, 10240, 320, True)),
     ("training", case_geglu, (0, 3072, 640, True)),
     ("training", case_geglu, (0, 2560, 640, True)),
+    # K6 and K9: the sequence-parallel path's shapes first (whole videos of
+    # bh / 2 per rank at 11 frames: the sampling call's CFG batch 2, the
+    # training step's batch 1), then the 12-frame 256 / 512 px shapes
+    ("parallel", case_swat6, (8, 11, 32, 40, 0)),
+    ("parallel", case_swat6, (4, 11, 32, 40, 0, True)),
+    ("parallel", case_swat6_bwd, (4, 11, 32, 40, 0)),
+    (None, case_swat6, (16, 12, 32, 40, 0)),
+    (None, case_swat6, (16, 12, 64, 40, 0)),
+    (None, case_swat6, (16, 12, 32, 80, 0)),
+    (None, case_swat6, (16, 12, 32, 40, 32)),
+    (None, case_swat6_bwd, (8, 12, 32, 40, 0)),
+    (None, case_swat6_bwd, (8, 12, 32, 40, 32)),
+    (None, case_swat6_bwd, (8, 12, 32, 80, 0)),
+    (None, case_swat6_bwd, (8, 12, 32, 80, 32)),
 )
 
 
@@ -478,7 +619,8 @@ def kernel_cases(gen):
     case with ragged tiles; last the forward kernels at the training path's
     shapes (batch 1; the c = 320 LN form sees the 12288 tokens of a text
     site and the 10240 non-cond tokens of a temporal site, the c = 640 FF
-    3072 and 2560)."""
+    3072 and 2560); then K6 and K9 at the sequence-parallel path's shapes
+    and at the 256 / 512 px shapes, in both rotation modes."""
     for path, build, args in KERNEL_CASES:
         yield path, build(gen, *args)
 
@@ -509,7 +651,8 @@ def check_case(case: dict) -> dict:
     row.update(tol=tol, ok=ok)
     if "lse_err" in case:
         row["lse_max_abs_err"] = case["lse_err"]()
-        row["ok"] = row["ok"] and row["lse_max_abs_err"] <= LSE_ATOL
+        row["lse_tol"] = case.get("lse_atol", LSE_ATOL)
+        row["ok"] = row["ok"] and row["lse_max_abs_err"] <= row["lse_tol"]
     del got, want
     row["ms"] = time_ms(case["kernel"])
     row["plain_ms"] = time_ms(case["plain"], iters=5, warmup=1)
@@ -930,6 +1073,300 @@ def phase_training(card: str, profile: str | None) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- parallel
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def _peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _start_run():
+    import torch
+
+    from seervideoldm_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    collectives.reset_stats()
+    return time.perf_counter()
+
+
+def _end_run(t0: float) -> dict:
+    """Seconds, peak memory, launches and collectives (calls and bytes
+    sent, by operation) since ``_start_run``."""
+    import torch
+
+    from seervideoldm_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    # copies of the [calls, bytes] lists: the counters keep counting into
+    # them until the next reset
+    return {"seconds": time.perf_counter() - t0, "peak_mem_gb": _peak_gb(),
+            "launches": read_launches(),
+            "collectives": {op: list(v) for op, v in collectives.stats.items()}}
+
+
+def _unet_vs_single(unet, mesh, f: int, cond_frame: int, seed: int) -> dict:
+    """One CFG-batch-2 SeerUNet call on this rank's frames under ``mesh``,
+    the frames joined, against rank 0's single-rank call on the whole
+    input (the mesh cleared meanwhile; the other rank waits)."""
+    import torch
+
+    from seervideoldm_tpu_torch.parallel.activation import (
+        frame_shard, gather_frames, set_activation_mesh)
+    from seervideoldm_tpu_torch.parallel.distributed import barrier_sync, rank
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2, f, 32, 32, 4, generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn(2, f, 77, 768, generator=gen, device="cuda").bfloat16()
+    ts = torch.tensor([981, 981], dtype=torch.int32, device="cuda")
+    lo, hi = mesh.frame_range(f)
+    with torch.no_grad():
+        unet(x[:, lo:hi], ts, ctx[:, lo:hi], cond_frame=cond_frame,
+             num_frames=f)                              # warm-up
+        t0 = _start_run()
+        part = unet(x[:, lo:hi], ts, ctx[:, lo:hi], cond_frame=cond_frame,
+                    num_frames=f)
+        row = {"unet_call": _end_run(t0)}
+        launches = row["unet_call"]["launches"]
+        got = gather_frames(part, frame_shard(f))
+        row["launches"] = launches
+        set_activation_mesh(None)
+        if rank() == 0:
+            unet(x, ts, ctx, cond_frame=cond_frame)     # warm-up
+            t0 = time.perf_counter()
+            want = unet(x, ts, ctx, cond_frame=cond_frame)
+            torch.cuda.synchronize()
+            row.update(rel_l2_err=_rel_l2(got, want),
+                       single_rank_call_s=time.perf_counter() - t0,
+                       finite=bool(torch.isfinite(got).all()))
+        barrier_sync()
+        set_activation_mesh(mesh)
+    return row
+
+
+def _train_vs_single(cfg, mesh, seed: int) -> dict:
+    """One micro-step's loss and gradients under ``mesh`` (this rank's rows
+    and frames; reduced over the ranks) against rank 0's single-rank step on
+    the same global batch, noise and timesteps.  Every ``proj_out`` gets
+    seeded non-zero weights so that the temporal attentions' gradients (K9
+    under ``seq``) are not all zero."""
+    import torch
+
+    from seervideoldm_tpu_torch.parallel.activation import set_activation_mesh
+    from seervideoldm_tpu_torch.parallel.distributed import barrier_sync, rank
+    from seervideoldm_tpu_torch.pipelines.loading import (broadcast_weights,
+                                                          load_models)
+    from seervideoldm_tpu_torch.training.trainer import make_train_step
+
+    models, _ = load_models(cfg, torch.device("cuda", torch.cuda.current_device()),
+                            trainable_scope=cfg.trainable_scope, mesh=mesh)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in models.unet.named_parameters():
+            if ".proj_out." in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 0.02)
+    broadcast_weights(models)
+    f, cond = int(cfg.num_frames), int(cfg.cond_frames)
+    n_global = int(cfg.train_batch_size) * mesh.axis_size("data")
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    batch = {"latents_x0": rn(n_global, cond, 32, 32, 4).bfloat16(),
+             "latents": rn(n_global, f - cond, 32, 32, 4).bfloat16(),
+             "clip_emb": rn(n_global, 77, 768).bfloat16()}
+    noise = rn(n_global, f - cond, 32, 32, 4).bfloat16()
+    ts = torch.randint(0, 1000, (n_global,), generator=gen, device="cuda")
+    step = make_train_step(models, cond_frames=cond, text_loss=True)
+    names = list(models.masters)
+    rows = mesh.batch_slice(n_global)
+    t0 = _start_run()
+    loss, _, grads = step.loss_and_grads(
+        names, {k: v[rows] for k, v in batch.items()}, noise[rows], ts[rows])
+    row = {"micro_step": _end_run(t0), "loss": float(loss)}
+    row["launches"] = row["micro_step"]["launches"]
+    set_activation_mesh(None)
+    if rank() == 0:
+        want_loss, _, want = step.loss_and_grads(names, batch, noise, ts)
+        num = sum(float((grads[n] - want[n]).pow(2).sum()) for n in names)
+        den = sum(float(want[n].pow(2).sum()) for n in names)
+        row.update(loss_single=float(want_loss), grad_rel_l2=(num / den) ** 0.5,
+                   finite=all(bool(torch.isfinite(g).all())
+                              for g in grads.values()))
+    barrier_sync()
+    del models, grads
+    return row
+
+
+def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
+    """The four runs of the parallel phase on one rank (started by
+    ``parallel.launch``); returns each run's numbers from this rank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.inference_img import (build_pipeline,
+                                                      generate_video)
+    from seervideoldm_tpu_torch.parallel.distributed import is_main_process
+    from seervideoldm_tpu_torch.parallel.mesh import create_mesh
+    from seervideoldm_tpu_torch.train import train
+    from seervideoldm_tpu_torch.utils.viz import save_visualization_onegif
+
+    runs = {}
+    # (a) sampling under {seq: 2}, 12 frames: the ring
+    t0 = _start_run()
+    pipe, tok, cfg = build_pipeline(dict(
+        resolution=256, cond_frames=2, num_frames=12, ddim_steps=E2E_STEPS,
+        scale=7.5, seed=SEED, mixed_precision="bf16",
+        compute_dtype="bfloat16", mesh_shape={"seq": 2},
+        output_dir=os.path.join(out_dir, "sample")))
+    image = np.random.RandomState(SEED).randint(0, 256, (256, 256, 3),
+                                                dtype=np.uint8)
+    build_s = time.perf_counter() - t0
+    generate_video(pipe, tok, dataclasses.replace(cfg, ddim_steps=1), image,
+                   "push the green cup to the left")
+    t0 = _start_run()
+    samples, cond = generate_video(pipe, tok, cfg, image,
+                                   "push the green cup to the left")
+    row = _end_run(t0)
+    gif = None
+    if is_main_process():
+        gif = save_visualization_onegif(samples.cpu().numpy(),
+                                        ((cond + 1.0) / 2.0).numpy(),
+                                        cfg.output_dir, 0)
+    mesh = create_mesh({"seq": 2})
+    row.update(build_seconds=build_s, frames=list(samples.shape),
+               finite=bool(torch.isfinite(samples).all()),
+               in_range=bool(samples.min() >= 0 and samples.max() <= 1),
+               gif_written=gif is not None and os.path.exists(gif),
+               unet_check=_unet_vs_single(pipe.m.unet, mesh, 12, 0,
+                                                   SEED + 3))
+    runs["sample_seq2_ring"] = row
+    # (b) one UNet call under {seq: 2} at 11 frames, cond 2: K6
+    row = _unet_vs_single(pipe.m.unet, mesh, 11, 2, SEED + 4)
+    row.update(peak_mem_gb=row["unet_call"]["peak_mem_gb"])
+    runs["unet_seq2_f11_k6"] = row
+    del pipe
+    # (c), (d) the train entry, then the step check
+    for name, mesh_shape, frames in (("train_data2", {"data": 2}, 12),
+                                     ("train_seq2_f11_k6", {"seq": 2}, 11)):
+        raw = dict(
+            output_dir=os.path.join(out_dir, name), data_dir=data_dir,
+            dataset="sthv2", resolution=256, num_frames=frames,
+            cond_frames=2, train_batch_size=1, gradient_accumulation_steps=1,
+            learning_rate=1.28e-5, scale_lr=True, lr_scheduler="cosine",
+            lr_warmup_steps=1, max_train_steps=PAR_OPT_STEPS,
+            save_steps=PAR_OPT_STEPS, max_grad_norm=0.3, num_workers=2,
+            seed=SEED, mixed_precision="bf16", compute_dtype="bfloat16",
+            text_loss=True, mesh_shape=mesh_shape)
+        t0 = _start_run()
+        summary = train(config_from_dict(dict(raw)))
+        row = _end_run(t0)
+        row.update(global_step=summary["global_step"],
+                   losses=summary["losses"],
+                   step_seconds=summary["step_seconds"],
+                   checkpoint_written=os.path.isdir(summary["checkpoint"]))
+        cfg = config_from_dict(dict(raw))
+        row["step_check"] = _train_vs_single(cfg, create_mesh(mesh_shape),
+                                             SEED + 5)
+        runs[name] = row
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_parallel(card: str) -> dict:
+    """The parallel phase (see the module docstring).  Returns the launch
+    counts of the parallel path, summed over its runs (rank 0's)."""
+    import torch
+
+    from seervideoldm_tpu_torch.parallel import launch
+    from seervideoldm_tpu_torch.parallel.distributed import pick_backend
+
+    cards = torch.cuda.device_count()
+    transport = pick_backend("cuda", PAR_RANKS)
+    print(json.dumps({"parallel": {
+        "ranks": PAR_RANKS, "cards": cards, "transport": transport,
+        "note": ("one card per rank" if transport == "nccl" else
+                 "ranks share one card; collectives staged through pinned "
+                 "host memory; times are not a parallel speed-up")}}),
+          flush=True)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        write_synthetic_sthv2(os.path.join(tmp, "data"), clips=4, frames=14,
+                              res=256)
+        t0 = time.perf_counter()
+        results = launch.run(parallel_rank, PAR_RANKS,
+                             args=(os.path.join(tmp, "data"),
+                                   os.path.join(tmp, "out")),
+                             backend=transport, timeout=PAR_TIMEOUT)
+        wall = time.perf_counter() - t0
+    except RuntimeError as e:
+        raise SmokeFailure(f"parallel: {e}") from e
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    main = results[0]
+    total = {name: 0 for name in wrappers()}
+    for name, row in main.items():
+        per_rank = [r[name] for r in results]
+        print(json.dumps({"parallel_run": {
+            "run": name, "card": card, "transport": transport,
+            "ranks": PAR_RANKS, **{k: v for k, v in row.items()
+                                   if k not in ("launches", "peak_mem_gb")},
+            "launches_per_rank": [r["launches"] for r in per_rank],
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in per_rank]}}),
+              flush=True)
+        for k, n in row["launches"].items():
+            total[k] += n
+    print(json.dumps({"parallel_phase": {"seconds": wall}}), flush=True)
+
+    a = main["sample_seq2_ring"]
+    require(a["frames"] == [1, 10, 256, 256, 3] and a["finite"]
+            and a["in_range"] and a["gif_written"],
+            f"parallel (a): frames {a['frames']}, GIF {a['gif_written']}")
+    require(a["unet_check"]["rel_l2_err"] <= PAR_UNET_RTOL,
+            f"parallel (a): UNet relative L2 {a['unet_check']['rel_l2_err']}")
+    require(a["launches"]["swat_attention"] == 0
+            and a["launches"]["swat_attention_tables"] == 0,
+            "parallel (a): the ring branch ran a SWAT kernel")
+    b = main["unet_seq2_f11_k6"]
+    require(b["rel_l2_err"] <= PAR_UNET_RTOL and b["finite"],
+            f"parallel (b): UNet relative L2 {b['rel_l2_err']}")
+    require(b["launches"]["swat_attention"] > 0,
+            "parallel (b): K6 was not launched")
+    for name, kernels in (("train_data2", ("swat_attention_tables",
+                                           "swat_attention_tables_bwd")),
+                          ("train_seq2_f11_k6", ("swat_attention",
+                                                 "swat_attention_bwd"))):
+        row = main[name]
+        check = row["step_check"]
+        require(row["global_step"] == PAR_OPT_STEPS
+                and row["checkpoint_written"],
+                f"parallel {name}: {row['global_step']} optimizer steps")
+        require(row["losses"] and all(map(math.isfinite, row["losses"])),
+                f"parallel {name}: losses {row['losses']}")
+        require(abs(check["loss"] - check["loss_single"])
+                <= PAR_LOSS_RTOL * abs(check["loss_single"]),
+                f"parallel {name}: loss {check['loss']} vs single-rank "
+                f"{check['loss_single']}")
+        require(check["grad_rel_l2"] <= TRAIN_REF_RTOL and check["finite"],
+                f"parallel {name}: gradient relative L2 "
+                f"{check['grad_rel_l2']}")
+        for k in kernels:
+            require(row["launches"][k] > 0,
+                    f"parallel {name}: {k} was not launched")
+    return total
+
+
 # kernel-name fragments -> category of the step breakdown (first match wins)
 KERNEL_CATEGORIES = (
     ("port: flash_attention (K2)", ("flash_fwd_kernel",)),
@@ -1065,6 +1502,7 @@ def main() -> int:
         phase_train_reference()
         launches = phase_end_to_end(card, args.profile)
         train_launches = phase_training(card, args.profile)
+        par_launches = phase_parallel(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1072,12 +1510,15 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         row, shapes = rows[name][0], rows[name]
         # each path is driven with the counts zeroed just before and read
-        # just after; `launches` is the sum over the two paths
+        # just after; `launches` is the sum over the three paths (the
+        # parallel path's: rank 0's, summed over its runs)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] + train_launches[name],
+            launches=(launches[name] + train_launches[name]
+                      + par_launches[name]),
             sampling_launches=launches[name],
             training_launches=train_launches[name],
+            parallel_launches=par_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

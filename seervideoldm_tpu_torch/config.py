@@ -55,7 +55,9 @@ class Config:
     lora_rank: int = 0
     zero1: bool = False
     fsdp: bool = False
+    # {"data": D, "seq": S} over the ranks torchrun starts; null: all data
     mesh_shape: Optional[dict] = None
+    ring_attention: bool = True         # False: gather-based paths under seq
     push_to_hub: bool = False
     resolution: int = 256
     cond_frames: int = 2
@@ -97,8 +99,8 @@ _NOT_YET = {
     "guidance_interval": (None,), "guidance_rescale": (0.0, 0),
     "pab": (False,), "tome_ratio": (0.0, 0), "freeu": (None,),
     "total_frames": (None,),
-    "use_8bit_adam": (False,), "lora_rank": (0,), "zero1": (False,),
-    "fsdp": (False,), "remat": (False, True, "block"),
+    "use_8bit_adam": (False,), "lora_rank": (0,),
+    "remat": (False, True, "block"),
     "param_dtype": ("float32", "fp32"),
 }
 
@@ -125,15 +127,22 @@ def validate(cfg: Config) -> Config:
                          "wrote (learned_unet_ckpt / saved_global_step); "
                          "loading pretrained SD-1.5 / FSText weights is not "
                          "ported yet")
-    mesh = cfg.mesh_shape
-    if mesh is not None:
-        size = 1
-        for v in dict(mesh).values():
-            size *= int(v)
-        if size != 1:
-            raise ValueError(f"mesh_shape={mesh!r} is not supported by the "
-                             "PyTorch port yet (one device; null or a "
-                             "1-device mesh)")
+    for key, what in (("zero1", "sharded optimizer state"),
+                      ("fsdp", "sharded parameters and optimizer state")):
+        if getattr(cfg, key):
+            raise ValueError(f"{key} ({what}) is not ported yet: the port "
+                             "runs data and sequence parallelism only")
+    if cfg.mesh_shape is not None:
+        for axis, size in dict(cfg.mesh_shape).items():
+            if axis == "model":
+                raise ValueError("mesh_shape axis 'model' (tensor "
+                                 "parallelism) is not ported yet: use "
+                                 "'data' and 'seq'")
+            if axis not in ("data", "seq"):
+                raise ValueError(f"mesh_shape axis {axis!r} is unknown "
+                                 "(supported: 'data', 'seq')")
+            if int(size) < 1:
+                raise ValueError(f"mesh_shape {axis}={size} must be >= 1")
     if cfg.push_to_hub:
         raise ValueError("push_to_hub is not supported: there is no network "
                          "access; upload the checkpoint directory manually")

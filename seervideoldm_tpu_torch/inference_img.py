@@ -10,6 +10,13 @@ remaining frames with classifier-free guidance; the cond frames and the
 prediction are written as ``<output_dir>/sample-0.gif``.  Runs on CUDA;
 ``--device cpu`` runs the plain PyTorch path instead.
 
+Several ranks under torchrun (``--nproc_per_node N``) take ``mesh_shape``
+({"data": D, "seq": S}; null = every rank on ``data``) and
+``ring_attention``: ``seq`` splits the latent frames (the temporal
+attention rotates K/V around a ring, or gathers them when
+``ring_attention: false`` or the frames do not split evenly), ``data`` the
+prompt batch; rank 0 writes the GIF.
+
 ``generate_video`` is the same path as a Python API (a config dict or
 ``Config``, a numpy image), with no GIF written.
 """
@@ -25,7 +32,9 @@ from .data.transforms import image_to_model_input
 from .pipelines.loading import (load_finetuned, load_models,
                                 resolve_finetuned_dir)
 from .pipelines.text_video import SeerPipeline
-from .utils.device import resolve_device, set_numerics
+from .parallel.distributed import initialize_distributed, is_main_process
+from .parallel.mesh import create_mesh
+from .utils.device import set_numerics
 from .utils.viz import save_visualization_onegif
 
 
@@ -33,9 +42,10 @@ def build_pipeline(cfg: Union[Config, dict], device=None):
     """``(SeerPipeline, tokenizer, cfg)`` for a config on ``device``."""
     if isinstance(cfg, dict):
         cfg = config_from_dict(cfg)
-    dev = resolve_device(device)
+    dev = initialize_distributed(device)
     set_numerics()
-    models, tokenizer = load_models(cfg, dev)
+    models, tokenizer = load_models(cfg, dev,
+                                    mesh=create_mesh(cfg.mesh_shape))
     ckpt_dir = resolve_finetuned_dir(cfg)
     if ckpt_dir:
         load_finetuned(models, ckpt_dir)
@@ -59,8 +69,9 @@ def generate_video(pipe: SeerPipeline, tokenizer, cfg: Config, image,
     return samples, cond
 
 
-def main(argv: Optional[list[str]] = None, device=None) -> str:
-    """Command-line entry; returns the GIF's path."""
+def main(argv: Optional[list[str]] = None, device=None) -> Optional[str]:
+    """Command-line entry; returns the GIF's path (None on the ranks that
+    write nothing)."""
     cfg = parse_args("Seer single-image inference (PyTorch / CUDA port)",
                      extra_flags={"image_path": None,
                                   "input_text_prompts": None,
@@ -74,6 +85,8 @@ def main(argv: Optional[list[str]] = None, device=None) -> str:
     with Image.open(cfg.image_path) as img:
         samples, cond = generate_video(pipe, tokenizer, cfg, img,
                                        cfg.input_text_prompts or "")
+    if not is_main_process():
+        return None
     path = save_visualization_onegif(samples.cpu().numpy(),
                                      ((cond + 1.0) / 2.0).numpy(),
                                      cfg.output_dir, 0)

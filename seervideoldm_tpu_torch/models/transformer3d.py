@@ -17,7 +17,10 @@
 
 ``cond_frame`` is an argument of each ``forward`` (training calls with the
 number of conditioning frames, sampling with 0, on the same weights); the
-constructor value is only the default for a call that passes none.
+constructor value is only the default for a call that passes none.  It
+counts global frames: under ``seq`` (``frames``, this rank's
+``FrameShard``) each rank skips the residual of its own share of them,
+``clamp(cond_frame - first_frame, 0, f_local)``.
 
 Layout ``(b, f, h, w, c)``.
 """
@@ -34,6 +37,7 @@ from ..ops.conv import InflatedConv
 from ..ops.kernels.geglu_ff import (geglu_ff, geglu_ff_supported, ln_geglu_ff,
                                     ln_geglu_ff_preferred, ln_geglu_ff_proj)
 from ..ops.norms import GroupNorm, LayerNorm
+from ..parallel.activation import FrameShard
 
 
 class GEGLU(nn.Module):
@@ -135,14 +139,17 @@ class BasicTransformerBlock3D(nn.Module):
         self.norm3 = LayerNorm(dim)
 
     def forward(self, x: torch.Tensor, fuse_out=None,
-                cond_frame: Optional[int] = None) -> torch.Tensor:
+                cond_frame: Optional[int] = None,
+                frames: Optional[FrameShard] = None) -> torch.Tensor:
         """``fuse_out = (proj_out, res)``: run the site tail in the FF
         kernel; the return value is then the site's final output."""
         b, f, h, w, c = x.shape
-        x = self.attn1(self.norm1(x)).reshape(b, f * h * w, c) + x.reshape(
-            b, f * h * w, c)
+        x = self.attn1(self.norm1(x), frames=frames).reshape(
+            b, f * h * w, c) + x.reshape(b, f * h * w, c)
         if cond_frame is None:
             cond_frame = self.cond_frame
+        if frames is not None:
+            cond_frame = min(max(cond_frame - frames.start, 0), f)
         cf = cond_frame * h * w
         if cf > 0:
             # cond-frame tokens bypass the FF residual (reference
@@ -185,7 +192,8 @@ class SpatialTransformer3D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
-                cond_frame: Optional[int] = None) -> torch.Tensor:
+                cond_frame: Optional[int] = None,
+                frames: Optional[FrameShard] = None) -> torch.Tensor:
         b, f, h, w, c = x.shape
         x_in = x
         x = self.proj_in(self.norm(x))
@@ -199,6 +207,7 @@ class SpatialTransformer3D(nn.Module):
             if (cond_frame == 0 and c == inner
                     and ln_geglu_ff_preferred(b * f * h * w, inner, inner * 4, x)):
                 # proj_out + the outer residual ride the FF kernel (K4)
-                return block(x, fuse_out=(self.proj_out, x_in), cond_frame=0)
-            x = block(x, cond_frame=cond_frame)
+                return block(x, fuse_out=(self.proj_out, x_in), cond_frame=0,
+                             frames=frames)
+            x = block(x, cond_frame=cond_frame, frames=frames)
         return self.proj_out(x) + x_in

@@ -11,6 +11,12 @@ of conditioning frames, sampling with 0, on the same weights.  ``remat``
 (``False``, or ``True`` / ``"block"``) recomputes each top-level block in
 the backward instead of keeping its activations
 (``torch.utils.checkpoint``, non-reentrant), as the JAX ``SeerUNet.remat``.
+
+Under a registered ``seq`` axis the UNet takes and returns this rank's
+frames of a ``num_frames``-frame video (``parallel.activation``): convs,
+the VAE-side layers and the per-frame attention are frame-local, GroupNorm
+sums its moments over the ranks, and the temporal sites see the global
+frame positions.  The per-frame text context is split with the frames.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import InflatedConv
 from ..ops.norms import GroupNorm
+from ..parallel.activation import frame_shard, seq_group
 from .embeddings import TimestepEmbedding, timestep_embedding
 from .unet_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D, DownBlock3D,
                           UNetMidBlock3DCrossAttn, UpBlock3D)
@@ -105,12 +112,26 @@ class SeerUNet(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor,
-                cond_frame: Optional[int] = None) -> torch.Tensor:
+                cond_frame: Optional[int] = None,
+                num_frames: Optional[int] = None) -> torch.Tensor:
         """sample (b, f, h, w, 4); timesteps (b,) or scalar; context
         (b, f, l, d) FSText embeddings; ``cond_frame``: the first frames
-        whose temporal FF residual is skipped (None: the constructor's)."""
+        whose temporal FF residual is skipped (None: the constructor's).
+        Under ``seq``, sample and context hold this rank's frames of a
+        ``num_frames``-frame video (required there)."""
         cfg = self.config
         cf = self.cond_frame if cond_frame is None else int(cond_frame)
+        frames = None
+        if seq_group() is not None:
+            if num_frames is None:
+                raise ValueError("under a 'seq' mesh the UNet takes this "
+                                 "rank's frames: pass num_frames, the frame "
+                                 "count of the whole video")
+            frames = frame_shard(int(num_frames))
+            if frames.counts[frames.index] != sample.shape[1]:
+                raise ValueError(
+                    f"this rank holds frames {frames.start}..{frames.stop} "
+                    f"of {num_frames}, but the sample has {sample.shape[1]}")
         dtype = self.conv_in.weight.dtype
         if cfg.center_input_sample:
             sample = 2 * sample - 1.0
@@ -127,20 +148,20 @@ class SeerUNet(nn.Module):
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock3D):
                 sample, states = self._block(block, sample, emb, context,
-                                             cond_frame=cf)
+                                             cond_frame=cf, frames=frames)
             else:
                 sample, states = self._block(block, sample, emb)
             res_states += states
 
         sample = self._block(self.mid_block, sample, emb, context,
-                             cond_frame=cf)
+                             cond_frame=cf, frames=frames)
 
         for block in self.up_blocks:
             k = len(block.resnets)
             states, res_states = res_states[-k:], res_states[:-k]
             if isinstance(block, CrossAttnUpBlock3D):
                 sample = self._block(block, sample, states, emb, context,
-                                     cond_frame=cf)
+                                     cond_frame=cf, frames=frames)
             else:
                 sample = self._block(block, sample, states, emb)
 

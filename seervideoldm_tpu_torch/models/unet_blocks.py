@@ -4,8 +4,9 @@
 Each cross-attention layer runs ResnetBlock3D -> SpatialTransformer3D
 (per-frame spatial + text cross-attention) -> SpatialTransformer3D
 (temporal, causal).  Skip connections concatenate on the channel axis
-(last here).  ``cond_frame`` is an argument of each attention block's
-``forward``, handed down to its temporal sites.
+(last here).  ``cond_frame`` and ``frames`` (this rank's ``FrameShard``
+under ``seq``) are arguments of each attention block's ``forward``, handed
+down to its temporal sites.
 """
 from __future__ import annotations
 
@@ -50,13 +51,13 @@ class CrossAttnDownBlock3D(nn.Module):
             if add_downsample else [])
 
     def forward(self, x, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0):
+                cond_frame: int = 0, frames=None):
         states = ()
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
             x = resnet(x, temb)
             x = text(x, context=encoder_hidden_states)
-            x = temporal(x, cond_frame=cond_frame)
+            x = temporal(x, cond_frame=cond_frame, frames=frames)
             states += (x,)
         for down in self.downsamplers:
             x = down(x)
@@ -108,13 +109,13 @@ class UNetMidBlock3DCrossAttn(nn.Module):
             self.temporal_attentions.append(temporal)
 
     def forward(self, x, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0):
+                cond_frame: int = 0, frames=None):
         x = self.resnets[0](x, temb)
         for text, temporal, resnet in zip(self.attentions,
                                           self.temporal_attentions,
                                           self.resnets[1:]):
             x = text(x, context=encoder_hidden_states)
-            x = temporal(x, cond_frame=cond_frame)
+            x = temporal(x, cond_frame=cond_frame, frames=frames)
             x = resnet(x, temb)
         return x
 
@@ -145,14 +146,14 @@ class CrossAttnUpBlock3D(nn.Module):
             [Upsample3D(out_channels, out_channels)] if add_upsample else [])
 
     def forward(self, x, res_states, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0):
+                cond_frame: int = 0, frames=None):
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
             x = torch.cat([x, res_states[-1]], dim=-1)
             res_states = res_states[:-1]
             x = resnet(x, temb)
             x = text(x, context=encoder_hidden_states)
-            x = temporal(x, cond_frame=cond_frame)
+            x = temporal(x, cond_frame=cond_frame, frames=frames)
         for up in self.upsamplers:
             x = up(x)
         return x

@@ -7,8 +7,13 @@
   ``temporal=True`` applies rotary (rot_dim = min(32, dim_head)) to q/k.
 - ``WindowTemporalAttention``: SWAT windowed causal spatio-temporal
   self-attention with the fused Q/K/V matmul.  Paths, in the JAX order:
-  the table kernel (K1) when ws >= 8 and the window tiles h and w exactly;
-  else rotary pre-rotation, then full-frame (h <= 4) or a windowed einsum.
+  the table kernel (K1) when ws >= 8, the window tiles h and w exactly and
+  the ring is not in use; else rotary pre-rotation at the global
+  positions, then the ring over ``seq`` (``ops/ring.py``), then the
+  pre-rotated kernel (K6) under ``seq``, then full-frame (h <= 4) or a
+  windowed einsum.  Under ``seq`` the kernels run through
+  ``parallel.activation.seq_kernel_step`` and the einsum paths on the
+  gathered frames.
 
 Layout: tokens ``(b, n, c)``; heads ``(b, H, n, d)``.
 """
@@ -21,7 +26,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .kernels.flash_attention import flash_attention, flash_attention_plain
-from .kernels.swat_attention import swat_attention_tables
+from ..parallel.activation import (FrameShard, gather_frames, local_frames,
+                                   seq_kernel_step)
+from .kernels.swat_attention import swat_attention, swat_attention_tables
+from .ring import ring_attention_applicable, ring_window_attention
 from .rotary import apply_rotary, inv_freq, rotary_freqs, rotary_tables
 from .windows import select_window_size, window_partition, window_reverse
 
@@ -118,7 +126,11 @@ class WindowTemporalAttention(nn.Module):
     ``(b, f, h, w, c)``: q/k/v over the f-major flattened video, rotary with
     positions ``frame*h*w + row*w + col`` (before windowing), ws x ws
     windows across all frames (full-frame when h <= 4), causal over the
-    f-major window tokens."""
+    f-major window tokens.
+
+    ``frames``: under ``seq`` the input holds this rank's frames of a
+    longer video (``FrameShard``); positions and causality are those of the
+    global frames."""
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
                  bias: bool = False, causal: bool = True):
@@ -132,11 +144,14 @@ class WindowTemporalAttention(nn.Module):
         self.to_out = _out_proj(inner, query_dim)
         self.rotary_emb = RotaryEmbedding(min(32, dim_head))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                frames: Optional[FrameShard] = None) -> torch.Tensor:
         b, f, h, w, c = x.shape
         n, heads, d = f * h * w, self.heads, self.dim_head
         # Q/K/V as one matmul against the concatenated weights: the hidden
-        # states are read once
+        # states are read once.  (Under a mesh the JAX layer switches to
+        # three Dense layers so the weights can shard over 'model'; the
+        # port has no 'model' axis, and the fused form is the same math.)
         lin = (self.to_q, self.to_k, self.to_v)
         weight = torch.cat([m.weight for m in lin])
         bias = (torch.cat([m.bias for m in lin])
@@ -147,21 +162,47 @@ class WindowTemporalAttention(nn.Module):
         rot_dim = self.rotary_emb.rot_dim
         ws = select_window_size(h)
         scale = d ** -0.5
-        if ws is not None and ws >= 8 and h % ws == 0 and w % ws == 0:
-            cos, sin = rotary_tables(f, h, w, d, rot_dim, device=x.device)
-            grid5 = lambda t: t.reshape(b * heads, f, h, w, d)  # noqa: E731
-            out = swat_attention_tables(grid5(q), grid5(k), grid5(v), cos, sin,
-                                        scale, self.causal, ws)
-            out = out.reshape(b, heads, n, d)
-        else:
-            freqs = rotary_freqs(torch.arange(n, device=x.device), rot_dim)
+        total = f if frames is None else frames.total
+        start = 0 if frames is None else frames.start
+        bh = b * heads
+        grid5 = lambda t: t.reshape(bh, f, h, w, d)  # noqa: E731
+        tiles = ws is not None and ws >= 8 and h % ws == 0 and w % ws == 0
+        out = None
+        if tiles and not ring_attention_applicable(frames):
+            cos, sin = rotary_tables(total, h, w, d, rot_dim, device=x.device)
+            fn = lambda qs, ks, vs, cs, sn: swat_attention_tables(  # noqa: E731
+                qs, ks, vs, cs, sn, scale, self.causal, ws)
+            if frames is None:
+                out = fn(grid5(q), grid5(k), grid5(v), cos, sin)
+            else:
+                out = seq_kernel_step(fn, (grid5(q), grid5(k), grid5(v)),
+                                      frames, replicated=(cos, sin))
+        if out is None:
+            # pre-rotation at the global positions of this rank's tokens
+            pos = torch.arange(start * h * w, (start + f) * h * w,
+                               device=x.device)
+            freqs = rotary_freqs(pos, rot_dim)
             q, k = apply_rotary(q, freqs), apply_rotary(k, freqs)
+            if ring_attention_applicable(frames):
+                out = ring_window_attention(grid5(q), grid5(k), grid5(v),
+                                            scale, self.causal, ws, frames)
+        if out is None and tiles and frames is not None:
+            fn = lambda qs, ks, vs: swat_attention(  # noqa: E731
+                qs, ks, vs, scale, self.causal, ws, 0)
+            out = seq_kernel_step(fn, (grid5(q), grid5(k), grid5(v)), frames)
+        if out is None:
+            if frames is not None:
+                q, k, v = (gather_frames(t.reshape(b, heads, f, h * w, d),
+                                         frames, dim=2).reshape(
+                               b, heads, total * h * w, d) for t in (q, k, v))
             if ws is None:
                 out = dot_product_attention(q, k, v, scale, causal=self.causal)
+                out = out.reshape(bh, total, h, w, d)
             else:
-                grid = lambda t: t.reshape(b * heads, f, h, w, d)  # noqa: E731
+                grid = lambda t: t.reshape(bh, total, h, w, d)  # noqa: E731
                 qw, kw, vw = (window_partition(grid(t), ws) for t in (q, k, v))
                 ow = dot_product_attention(qw, kw, vw, scale, causal=self.causal)
-                out = window_reverse(ow, ws, f, h, w).reshape(b, heads, n, d)
-        out = self.to_out[0](merge_heads(out))
+                out = window_reverse(ow, ws, total, h, w)
+            out = local_frames(out, frames)
+        out = self.to_out[0](merge_heads(out.reshape(b, heads, n, d)))
         return out.reshape(b, f, h, w, c)

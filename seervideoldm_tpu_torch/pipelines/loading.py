@@ -9,6 +9,11 @@ and CLIP checkpoints are not loaded yet (``config.py`` refuses a config
 that names one).  ``model_overrides`` (YAML dicts under ``unet`` / ``vae``
 / ``clip`` / ``fstext``) scale the sub-models down for smoke runs, with the
 JAX package's keys.
+
+``load_models(mesh=...)`` registers the mesh for the model code
+(``parallel.activation``) and the ``ring_attention`` key (``ops/ring.py``),
+and, when several ranks run, broadcasts rank 0's seeded weights (and fp32
+masters) to every rank, so all ranks start from the same values.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ from ..config import Config
 from ..models.clip_text import CLIPTextConfig
 from ..models.unet3d import SeerUNetConfig
 from ..models.vae import VAEConfig
+from ..ops.ring import set_ring_enabled
+from ..parallel.activation import set_activation_mesh
+from ..parallel.collectives import broadcast_, group_size
 from ..utils.device import DTYPES
 from ..utils.tokenizer import build_tokenizer
 from .text_video import SeerModels
@@ -35,9 +43,37 @@ def compute_dtype(cfg: Config):
     return DTYPES[str(key)]
 
 
-def load_models(cfg: Config, device=None, trainable_scope=None):
+def broadcast_weights(models: SeerModels) -> None:
+    """Every parameter, buffer and fp32 master of every rank takes rank 0's
+    value (one flat broadcast per dtype and model)."""
+    if group_size(None) == 1:
+        return
+    for m in models.modules():
+        tensors = list(m.parameters()) + list(m.buffers())
+        _broadcast_flat(tensors)
+    if models.masters is not None:
+        _broadcast_flat(list(models.masters.values()))
+
+
+def _broadcast_flat(tensors) -> None:
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    with torch.no_grad():
+        for group in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in group])
+            broadcast_(flat, 0)
+            for t, src in zip(group, flat.split([t.numel() for t in group])):
+                t.copy_(src.view_as(t))
+
+
+def load_models(cfg: Config, device=None, trainable_scope=None, mesh=None):
     """``(SeerModels, tokenizer)`` at the config's widths on ``device``;
-    ``trainable_scope`` builds them for training (fp32 masters, remat)."""
+    ``trainable_scope`` builds them for training (fp32 masters, remat).
+    ``mesh`` (``parallel.mesh.Mesh``) is registered for the model code;
+    None clears a registered one."""
+    set_activation_mesh(mesh)
+    set_ring_enabled(bool(cfg.ring_attention))
     overrides = cfg.model_overrides or {}
 
     def sub(cls, key):
@@ -56,6 +92,7 @@ def load_models(cfg: Config, device=None, trainable_scope=None):
         trainable_scope=trainable_scope,
         remat=(cfg.remat or bool(cfg.gradient_checkpointing))
         if trainable_scope else False)
+    broadcast_weights(models)
     return models, build_tokenizer(cfg.tokenizer_path)
 
 

@@ -8,9 +8,21 @@ frame) -> VAE-encode the cond frames x 0.18215 -> DDIM with batched CFG,
 re-concatenating the clean cond latents at every step -> per-frame VAE
 decode x (1 / 0.18215) -> clamp to [0, 1].  Video layout at this boundary:
 ``(b, f, h, w, c)``, cond frames in [-1, 1].
+
+Under a registered mesh (``parallel.activation``, port of ``_shard``):
+``data`` splits the prompt / image batch when it divides (else every data
+rank computes the whole batch, as the JAX package replicates it); the CFG
+``[uncond; cond]`` pairing stays whole on each rank.  ``seq`` splits the
+latent frames: each rank runs the UNet on its frames of the
+``cond + future`` video, the clean cond latents re-concatenated on the
+ranks that own frames 0..cond-1, and updates its own future frames; the
+VAE runs frame-local, each rank on its share of the frames.  Every rank
+returns the whole result; noise is drawn for the whole batch and video on
+every rank, so a split run sees the draws of a single-rank run.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -23,6 +35,9 @@ from ..models.clip_text import CLIPTextConfig, CLIPTextModel
 from ..models.fstext import FSTextTransformer
 from ..models.unet3d import SeerUNet, SeerUNetConfig
 from ..models.vae import VAE_SCALE, AutoencoderKL, VAEConfig
+from ..parallel.activation import (frame_local, frame_shard,
+                                   get_activation_mesh)
+from ..parallel.collectives import all_gather_cat, group_size
 from ..training.optim import trainable_names
 from ..utils.device import cast_for_compute, resolve_device
 
@@ -136,6 +151,11 @@ class SeerPipeline:
                          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(b, f, h, w, 3) in [-1, 1] -> (b, f, h/8, w/8, 4) scaled
         latents; ``noise`` the posterior draw, shaped like the latents."""
+        if noise is None:
+            return frame_local(self._encode, video)
+        return frame_local(self._encode, video, noise)
+
+    def _encode(self, video, noise=None):
         b, f = video.shape[:2]
         x = video.reshape(b * f, *video.shape[2:]).to(self.dtype)
         if noise is not None:
@@ -146,6 +166,9 @@ class SeerPipeline:
     @torch.no_grad()
     def vae_decode_video(self, latents: torch.Tensor) -> torch.Tensor:
         """(b, f, h', w', 4) scaled latents -> (b, f, h, w, 3) in [0, 1]."""
+        return frame_local(self._decode, latents)
+
+    def _decode(self, latents):
         b, f = latents.shape[:2]
         z = latents.reshape(b * f, *latents.shape[2:]) / self.vae_scale
         x = self.m.vae.decode(z.to(self.dtype))
@@ -159,11 +182,29 @@ class SeerPipeline:
                        ddim_steps: int = 30,
                        guidance_scale: float = 7.5) -> torch.Tensor:
         """x_T (b, f2, h', w', 4) noise; x0_emb (b, f1, h', w', 4) clean
-        cond latents; context / uncond_context (b, f1 + f2, l, d)."""
+        cond latents; context / uncond_context (b, f1 + f2, l, d).  Returns
+        the whole (b, f2, ...) latents, under ``seq`` too."""
         tables = self.schedule.ddim_tables(ddim_steps, eta=0.0)
-        return ddim_sample_loop(self.m.unet, x_T, tables, context,
-                                x0_emb=x0_emb, uncond_context=uncond_context,
-                                guidance_scale=guidance_scale)
+        f1, f2 = x0_emb.shape[1], x_T.shape[1]
+        shard = frame_shard(f1 + f2)
+        if shard is None:
+            return ddim_sample_loop(self.m.unet, x_T, tables, context,
+                                    x0_emb=x0_emb,
+                                    uncond_context=uncond_context,
+                                    guidance_scale=guidance_scale)
+        # this rank's frames of the (cond + future) video
+        lo, hi = shard.start, shard.stop
+        local = lambda t: None if t is None else t[:, lo:hi]  # noqa: E731
+        starts = [sum(shard.counts[:i]) for i in range(len(shard.counts))]
+        future = [max(0, a + n - max(a, f1))
+                  for a, n in zip(starts, shard.counts)]
+        img = ddim_sample_loop(
+            functools.partial(self.m.unet, num_frames=f1 + f2),
+            x_T[:, max(lo, f1) - f1:max(hi, f1) - f1], tables,
+            local(context), x0_emb=x0_emb[:, min(lo, f1):min(hi, f1)],
+            uncond_context=local(uncond_context),
+            guidance_scale=guidance_scale)
+        return all_gather_cat(img, shard.group, 1, future)
 
     @torch.no_grad()
     def generate(self, cond_video, input_ids, attention_mask, uncond_ids,
@@ -185,15 +226,37 @@ class SeerPipeline:
         lat = (h // scale, w // scale, vcfg.latent_channels)
         randn = lambda *s: torch.randn(s, generator=generator,  # noqa: E731
                                        device=self.device)
-        x0_emb = self.vae_encode_video(cond_video, randn(b, f1, *lat))
-        context = self.fstext(self.encode_text(input_ids, attention_mask))
+        post_noise = randn(b, f1, *lat)
+        x_T = randn(b, f2, *lat)
+        rows, data = self._data_rows(b)
+        # the uncond prompt may be one row for the whole batch
+        ids, mask, uids, umask = (
+            t[rows] if t.shape[0] == b else t
+            for t in map(self._tensor, (input_ids, attention_mask, uncond_ids,
+                                        uncond_mask)))
+        x0_emb = self.vae_encode_video(cond_video[rows], post_noise[rows])
+        context = self.fstext(self.encode_text(ids, mask))
         if context.shape[1] != num_frames:
             raise ValueError(f"FSText was built for {context.shape[1]} frames "
                              f"but num_frames={num_frames}")
-        uncond = self.encode_text(uncond_ids, uncond_mask)
-        uncond_context = uncond[:, None].expand(b, num_frames,
+        uncond = self.encode_text(uids, umask)
+        uncond_context = uncond[:, None].expand(context.shape[0], num_frames,
                                                 *uncond.shape[1:])
-        x_T = randn(b, f2, *lat).to(x0_emb.dtype)
-        latents = self.sample_latents(x_T, x0_emb, context, uncond_context,
-                                      ddim_steps, guidance_scale)
-        return self.vae_decode_video(latents)
+        latents = self.sample_latents(x_T[rows].to(x0_emb.dtype), x0_emb,
+                                      context, uncond_context, ddim_steps,
+                                      guidance_scale)
+        frames = self.vae_decode_video(latents)
+        if data is not None:
+            frames = all_gather_cat(frames, data, 0,
+                                    [frames.shape[0]] * group_size(data))
+        return frames
+
+    def _data_rows(self, b: int):
+        """This rank's rows of a batch of ``b`` under a registered ``data``
+        axis, and the group to gather over (None: every rank takes the
+        whole batch)."""
+        mesh = get_activation_mesh()
+        group = mesh.group("data") if mesh is not None else None
+        if group is None or b % group_size(group):
+            return slice(None), None
+        return mesh.batch_slice(b), group

@@ -1,6 +1,9 @@
-"""Fine-tuning entry point for one GPU (port of the root ``train.py``).
+"""Fine-tuning entry point (port of the root ``train.py``), on one GPU or
+on several ranks under torchrun:
 
     python -m seervideoldm_tpu_torch.train --config ./configs/train.yaml
+    torchrun --nproc_per_node 4 -m seervideoldm_tpu_torch.train \
+        --config ./configs/train.yaml --set 'mesh_shape={data: 2, seq: 2}'
 
 Takes the JAX entry point's YAML keys.  Recipe parity: AdamW over the
 temporal attentions + FSText only, lr scaled by accumulation x batch when
@@ -11,6 +14,15 @@ reference layout + ``train_state.pt``) with a JSON sidecar of the meters;
 ``saved_global_step: N`` resumes from one, mid-epoch, in the data order of
 an uninterrupted run.  Runs on CUDA; ``--device cpu`` runs the plain
 PyTorch path instead.
+
+Several ranks: ``mesh_shape`` ({"data": D, "seq": S}, null = every rank on
+``data``) lays the ranks out.  Each data rank loads its own
+``train_batch_size`` clips (the loader's shard of the epoch), so the global
+batch is ``train_batch_size * D``, as one host's batch is to the JAX entry,
+and ``scale_lr`` multiplies by it; the ranks of one ``seq`` line share a
+batch and split its frames.  Rank 0 writes the checkpoints; every rank
+checks that its fp32 masters equal rank 0's after each optimizer step.  A
+checkpoint resumes on any mesh.
 
 ``train(cfg, device)`` is the same loop as a Python API; it returns a
 summary dict (steps taken, seconds per optimizer step, losses, the
@@ -29,12 +41,15 @@ import torch
 from .config import Config, config_from_dict, parse_args
 from .data import DataLoader, build_dataset
 from .io.checkpoint import CheckpointManager
+from .parallel.distributed import (assert_replicas_equal, barrier_sync,
+                                   initialize_distributed, is_main_process)
+from .parallel.mesh import create_mesh
 from .pipelines.loading import load_models
 from .training.meters import RunningAverageMeter
 from .training.optim import build_optimizer
 from .training.trainer import (TrainState, make_train_step, prepare_batch_fn,
                                trainable_masters)
-from .utils.device import resolve_device, set_numerics
+from .utils.device import set_numerics
 
 LOG_EVERY = 50
 
@@ -53,16 +68,20 @@ def _write_sidecar(cfg: Config, global_step: int, epoch: int,
 def train(cfg: Union[Config, dict], device=None) -> dict:
     if isinstance(cfg, dict):
         cfg = config_from_dict(cfg)
-    dev = resolve_device(device)
+    dev = initialize_distributed(device)
     set_numerics()
     os.makedirs(cfg.output_dir, exist_ok=True)
+    mesh = create_mesh(cfg.mesh_shape)
+    n_data, data_index = mesh.axis_size("data"), mesh.axis_index("data")
+    main = is_main_process()
     accum = max(1, int(cfg.gradient_accumulation_steps))
     learning_rate = float(cfg.learning_rate)
     if cfg.scale_lr:
-        learning_rate *= accum * int(cfg.train_batch_size)
+        learning_rate *= accum * int(cfg.train_batch_size) * n_data
 
     models, tokenizer = load_models(cfg, dev,
-                                    trainable_scope=cfg.trainable_scope)
+                                    trainable_scope=cfg.trainable_scope,
+                                    mesh=mesh)
     masters = trainable_masters(models)
     optimizer, schedule_fn = build_optimizer(
         masters, learning_rate, scheduler=cfg.lr_scheduler,
@@ -89,7 +108,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         force_num_frames=bool(cfg.get("force_num_frames", True)))
     loader = DataLoader(
         dataset, int(cfg.train_batch_size), shuffle=True, seed=int(cfg.seed),
-        num_workers=int(cfg.get("num_workers", cfg.dataloader_num_workers)))
+        num_workers=int(cfg.get("num_workers", cfg.dataloader_num_workers)),
+        shard_index=data_index, num_shards=n_data)
 
     ckpt = CheckpointManager(
         cfg.output_dir,
@@ -114,9 +134,14 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
     # diffusion noise in train_step() must never share one, or the eps
     # target would equal noise already embedded in the input latents.  Both
     # are re-seeded per micro-step, so a resume replays the same draws.
+    # Data ranks draw apart; the ranks of one seq line draw alike.
     prep_gen = torch.Generator(device=dev)
     step_gen = torch.Generator(device=dev)
     seed = int(cfg.seed) + 1
+
+    def reseed(gen: torch.Generator, stream: int) -> None:
+        gen.manual_seed((seed * 1_000_003 + 2 * micro_step + stream) * n_data
+                        + data_index)
 
     micro_step = first_micro_step = global_step * accum
     # mid-epoch resume: skip the batches this epoch already consumed.  Only
@@ -125,13 +150,17 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
     steps_per_epoch = max(1, len(loader))
     resume_skip = max(0, micro_step - start_epoch * steps_per_epoch)
     if resume_skip and not meta_loaded:
-        print("resume: epoch meta missing -- replaying the epoch from the start")
+        if main:
+            print("resume: epoch meta missing -- replaying the epoch from "
+                  "the start")
         resume_skip = 0
     elif resume_skip == steps_per_epoch:
         start_epoch += 1
         resume_skip = 0
     elif resume_skip > steps_per_epoch:
-        print("resume: dataset size changed -- replaying the epoch from the start")
+        if main:
+            print("resume: dataset size changed -- replaying the epoch from "
+                  "the start")
         resume_skip = 0
 
     pending: list = []        # (global_step, window-mean loss, start, end)
@@ -163,8 +192,10 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         pending.clear()
 
     def save(epoch: int) -> None:
-        ckpt.save(global_step, state, models)
-        _write_sidecar(cfg, global_step, epoch, lr_meter, losses_train)
+        if main:
+            ckpt.save(global_step, state, models)
+            _write_sidecar(cfg, global_step, epoch, lr_meter, losses_train)
+        barrier_sync()
 
     log_time = time.time()
     step_start = mark()
@@ -177,8 +208,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                          skip_batches=resume_skip if epoch == start_epoch else 0)
         for videos, prompts in loader:
             tok = tokenizer(prompts)
-            prep_gen.manual_seed(seed * 1_000_003 + 2 * micro_step)
-            step_gen.manual_seed(seed * 1_000_003 + 2 * micro_step + 1)
+            reseed(prep_gen, 0)
+            reseed(step_gen, 1)
             batch = prepare(videos, tok["input_ids"], tok["attention_mask"],
                             int(cfg.cond_frames), generator=prep_gen)
             metrics = train_step(state, batch, generator=step_gen)
@@ -188,6 +219,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                 continue
             # global_step counts optimizer (sync) steps, reference parity
             global_step += 1
+            if mesh.size > 1:
+                assert_replicas_equal(state.optimizer.params)
             step_end = mark()
             pending.append((global_step, torch.stack(window_losses).mean(),
                             step_start, step_end))
@@ -195,7 +228,7 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
             window_losses = []
             if len(pending) >= 10 or global_step % int(cfg.save_steps) == 0:
                 flush_pending()
-            if global_step % LOG_EVERY == 0:
+            if global_step % LOG_EVERY == 0 and main:
                 loss = (losses_train.val if losses_train.val is not None
                         else float("nan"))
                 dt = (time.time() - log_time) / LOG_EVERY
@@ -215,14 +248,16 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
     if global_step > 0 and global_step % int(cfg.save_steps) != 0:
         save(epoch)
     last = losses_train.val
-    print(f"trained to step {global_step}: loss "
-          f"{last if last is not None else float('nan'):.4f}, checkpoint "
-          f"{ckpt.path_for_step(global_step)}", flush=True)
+    if main:
+        print(f"trained to step {global_step}: loss "
+              f"{last if last is not None else float('nan'):.4f}, checkpoint "
+              f"{ckpt.path_for_step(global_step)}", flush=True)
     return {"global_step": global_step,
             "micro_steps": micro_step - first_micro_step,
             "step_seconds": step_seconds, "loss": last,
             "losses": list(losses_train.vals),
-            "checkpoint": ckpt.path_for_step(global_step)}
+            "checkpoint": ckpt.path_for_step(global_step),
+            "mesh": dict(mesh.shape), "device": str(dev)}
 
 
 def main(argv: Optional[list[str]] = None, device=None) -> dict:

@@ -15,6 +15,16 @@ One micro-step follows the reference hot loop:
 VAE and CLIP encoding is a separate ``prepare`` function under
 ``no_grad``: those models are frozen.
 
+Under a registered mesh (``parallel.activation``): each ``data`` rank holds
+its own batch, and the trainable gradients are averaged over ``data``.
+Under ``seq`` every rank of a replica holds the whole batch and noise, the
+VAE encodes frame-local, and the UNet runs on this rank's frames; each
+rank's loss is its share of the global eps-MSE sum over the global count
+(the FSText ``text_loss``, computed whole on every rank, enters with a
+1 / S share), so the shares' gradients, summed over ``seq``, are those of
+the global mean the JAX step computes.  Gradients are reduced before the
+clip sees their global norm, so every rank takes the same AdamW step.
+
 Parameters and dtypes: frozen weights are in the compute dtype.  Each
 trainable parameter has an fp32 master that the optimizer updates; the
 module computes with its compute-dtype copy, refreshed from the master
@@ -33,6 +43,9 @@ import torch
 from ..diffusion.ddpm import add_noise, min_snr_weight
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.vae import VAE_SCALE
+from ..parallel.activation import (frame_local, frame_shard,
+                                   get_activation_mesh)
+from ..parallel.collectives import all_reduce_
 from ..pipelines.text_video import SeerModels
 from .optim import Optimizer
 
@@ -108,12 +121,20 @@ def prepare_batch_fn(models: SeerModels, sample_posterior: bool = True,
                                 device=dev)
         elif not sample_posterior:
             noise = None
-        if noise is not None:
-            noise = torch.as_tensor(noise, device=dev).reshape(
-                b * f, h // down, w // down, vcfg.latent_channels)
-        z = models.vae.encode(video.reshape(b * f, h, w, c).to(dtype),
-                              noise) * vae_scale
-        z = z.reshape(b, f, *z.shape[1:])
+        lat = (h // down, w // down, vcfg.latent_channels)
+
+        def encode(v, *draw):
+            fl = v.shape[1]
+            z = models.vae.encode(v.reshape(b * fl, h, w, c).to(dtype),
+                                  draw[0].reshape(b * fl, *lat) if draw
+                                  else None) * vae_scale
+            return z.reshape(b, fl, *z.shape[1:])
+
+        if noise is None:
+            z = frame_local(encode, video)
+        else:
+            noise = torch.as_tensor(noise, device=dev).reshape(b, f, *lat)
+            z = frame_local(encode, video, noise)
         return {"latents_x0": z[:, :cond_frames], "latents": z[:, cond_frames:],
                 "clip_emb": clip_emb}
 
@@ -142,6 +163,8 @@ def make_train_step(models: SeerModels,
     unet, fstext = models.unet, models.fstext
 
     def loss_fn(batch, noise, timesteps):
+        """(loss, mse) of this rank: the whole values without ``seq``,
+        this rank's shares of them under it."""
         context = fstext(batch["clip_emb"])
         loss_text = 0.0
         if text_loss:
@@ -151,6 +174,10 @@ def make_train_step(models: SeerModels,
         latents = batch["latents"]
         noisy = add_noise(acp, latents, noise, timesteps)
         x_in = torch.cat([batch["latents_x0"], noisy], dim=1)
+        shard = frame_shard(x_in.shape[1])
+        if shard is not None:
+            return _shard_loss(x_in, noise, timesteps, context, loss_text,
+                               shard)
         pred = unet(x_in, timesteps, context, cond_frame=cond_frames)
         pred = pred[:, cond_frames:]
         se = (pred.float() - noise.float()) ** 2
@@ -164,7 +191,29 @@ def make_train_step(models: SeerModels,
             loss = mse
         return loss + loss_text, mse
 
+    def _shard_loss(x_in, noise, timesteps, context, loss_text, shard):
+        """This rank's frames through the UNet; the squared error of its
+        future frames summed, over the global counts."""
+        lo, hi = shard.start, shard.stop
+        pred = unet(x_in[:, lo:hi], timesteps, context[:, lo:hi],
+                    cond_frame=cond_frames, num_frames=shard.total)
+        first = max(lo, cond_frames)
+        pred = pred[:, first - lo:]
+        target = noise[:, first - cond_frames:hi - cond_frames]
+        se = (pred.float() - target.float()) ** 2
+        b = noise.shape[0]
+        per_sample = se.reshape(b, -1).sum(dim=1) / noise[0].numel()
+        mse = per_sample.mean()
+        if snr_gamma > 0.0:
+            w = min_snr_weight(acp, timesteps, snr_gamma, prediction_type)
+            loss = (w * per_sample).mean()
+        else:
+            loss = mse
+        return loss + loss_text / len(shard.counts), mse
+
     def loss_and_grads(names, batch, noise, timesteps):
+        """``(loss, mse, {name: fp32 gradient})``: under a mesh the global
+        values, the gradients reduced over every rank."""
         named = models.named_trainable()
         params = [named[n] for n in names]
         with torch.enable_grad():
@@ -172,10 +221,25 @@ def make_train_step(models: SeerModels,
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         # the master's gradient is the compute copy's, cast to fp32; a
         # parameter the loss does not reach gets zeros
-        grads = {n: (torch.zeros_like(p, dtype=torch.float32) if g is None
-                     else g.float())
-                 for n, p, g in zip(names, params, grads)}
-        return loss.detach(), mse.detach(), grads
+        grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
+                 else g.float() for p, g in zip(params, grads)]
+        loss, mse = loss.detach(), mse.detach()
+        mesh = get_activation_mesh()
+        if mesh is not None:
+            loss, mse, grads = _reduce(mesh, loss, mse, grads)
+        return loss, mse, dict(zip(names, grads))
+
+    def _reduce(mesh, loss, mse, grads):
+        """Sum over ``seq`` (the shares) and mean over ``data`` (the
+        replicas): one all-reduce over every rank of a flat buffer."""
+        flat = torch.cat([loss.reshape(1).float(), mse.reshape(1).float()]
+                         + [g.reshape(-1) for g in grads])
+        all_reduce_(flat)
+        flat /= mesh.axis_size("data")
+        sizes = [1, 1] + [g.numel() for g in grads]
+        loss, mse, *parts = flat.split(sizes)
+        return (loss[0], mse[0],
+                [p.view_as(g) for p, g in zip(parts, grads)])
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,

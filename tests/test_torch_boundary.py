@@ -2,7 +2,8 @@
 
 - every module of ``seervideoldm_tpu_torch`` (the training slice's
   included: ``train``, ``training/``, ``data/``, ``io/checkpoint``,
-  ``diffusion/ddpm``) and the root ``chip_smoke.py`` import in a fresh
+  ``diffusion/ddpm``; the parallel slice's: ``parallel/``, ``ops/ring``)
+  and the root ``chip_smoke.py`` import in a fresh
   interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
   ``seervideoldm_tpu`` cannot be imported;
 - no source file of the port names them in an import;
@@ -44,6 +45,14 @@ def test_boundary_walk_reaches_the_training_modules():
     for mod in ("train", "training.trainer", "training.optim",
                 "training.meters", "diffusion.ddpm", "io.checkpoint",
                 "data.datasets", "data.loader"):
+        assert f"seervideoldm_tpu_torch.{mod}" in names, mod
+
+
+def test_boundary_walk_reaches_the_parallel_modules():
+    names = set(_port_modules())
+    for mod in ("parallel.distributed", "parallel.mesh",
+                "parallel.collectives", "parallel.activation",
+                "parallel.launch", "ops.ring", "ops.kernels.swat_attention"):
         assert f"seervideoldm_tpu_torch.{mod}" in names, mod
 
 

@@ -10,7 +10,9 @@ Small shapes of each kernel's main-path form, bf16 inputs from a seed,
 tolerance 2e-2 abs + 2e-2 rel on bf16 outputs (as ``chip_smoke.py``); for
 the backward kernels (K7, K8) the same bound and a relative L2 error of at
 most 1e-2 on each of dq, dk, dv, at odd shapes: n not a multiple of 64, n != m, a fully
-masked tail tile, a non-contiguous ``grad_output``, d = 80.
+masked tail tile, a non-contiguous ``grad_output``, d = 80.  K6 and K9 (the
+pre-rotated and in-kernel-trig modes of the SWAT kernels) the same, with
+``rot_dim`` 0 and 32.
 """
 import pytest
 import torch
@@ -188,6 +190,43 @@ def test_swat_bwd_kernel(gen, shape, causal):
     want = K.swat_attention_tables_bwd_plain(q, k, v, cos, sin, g, d ** -0.5,
                                              causal, 8)
     _close_bwd((qa.grad, ka.grad, va.grad), want)
+
+
+@pytest.mark.parametrize("shape,rot_dim,causal", [
+    ((4, 3, 16, 24, 40), 0, True), ((4, 3, 16, 24, 40), 32, True),
+    ((2, 5, 8, 16, 80), 32, True), ((3, 2, 8, 8, 16), 0, False)])
+def test_swat_k6_k9_kernels(gen, shape, rot_dim, causal):
+    """K6 forward against its plain version, then K9 through the
+    ``autograd.Function`` against the plain backward."""
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
+
+    d = shape[-1]
+    q, k, v, g = (_randn(gen, *shape) for _ in range(4))
+    before = K.swat_attention.launches
+    with torch.no_grad():
+        got = K.swat_attention(q, k, v, d ** -0.5, causal, 8, rot_dim)
+    assert K.swat_attention.launches == before + 1
+    _close(got, K.swat_attention_plain(q, k, v, d ** -0.5, causal, 8, rot_dim))
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    before = K.swat_attention_bwd.launches
+    out = K.swat_attention(qa, ka, va, d ** -0.5, causal, 8, rot_dim)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert K.swat_attention_bwd.launches == before + 1
+    want = K.swat_attention_bwd_plain(q, k, v, g, d ** -0.5, causal, 8,
+                                      rot_dim)
+    _close_bwd((qa.grad, ka.grad, va.grad), want)
+
+
+def test_swat_k6_refuses_odd_rot_dim_and_wide_backward(gen):
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
+
+    q = _randn(gen, 1, 2, 8, 8, 40)
+    with pytest.raises(ValueError, match="rot_dim"):
+        K.swat_attention(q, q, q, 0.1, True, 8, 5)
+    wide = _randn(gen, 1, 2, 8, 8, 160).requires_grad_()
+    with pytest.raises(ValueError, match="no backward kernel"):
+        K.swat_attention(wide, wide, wide, 0.1, True, 8, 0)
 
 
 def test_geglu_wrappers_carry_grad_fn(gen):
