@@ -65,7 +65,21 @@ no result line):
    steps (K6 and K9), then the same check;
    each run's launch counts are zeroed just before and read just after, on
    every rank; a ``parallel_run`` JSON line per run;
-9. prints the ``kernels`` line, the card line and the result line.
+9. floor budget: K10 (the on-chip softmax calibration) against its plain
+   version at (256, 2048) and at the calibration shape (SMs x 16 rows),
+   reps 0, 1, 2, 4 and 64 (the final scores element by element and the row
+   sums, within 1e-5), then its time, bound (one MUFU ex2 per element per pass),
+   plain and library numbers; both budget entries at their defaults through
+   ``main(argv)`` (``tools/floor_budget.py``: 512 px sampling sites,
+   ``tools/floor_budget_train.py``: the four 256 px training sections),
+   launch counts zeroed just before and read just after each; their
+   ``floor_budget`` / ``floor_budget_train`` JSON lines; every measured
+   time finite and positive, the calibration at least its bound, the whole
+   512 px UNet call within 0.5-2x the sum of its sites; a
+   ``remat_launches`` line (one full-width micro-step under ``none``,
+   ``save_attn`` and ``block``): ``save_attn`` launches the forward kernels
+   as often as ``none``, ``block`` more;
+10. prints the ``kernels`` line, the card line and the result line.
 
 ``--profile PATH`` adds where one full-width DDIM step's time goes (one
 SeerUNet call's CUDA kernel time by category and the device busy share, a
@@ -123,7 +137,7 @@ SEED = 0
 PER_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
             "ln_geglu_ff": 5, "ln_geglu_ff_proj": 5, "geglu_ff": 10,
             "swat_attention_tables_bwd": 0, "flash_attention_bwd": 0,
-            "swat_attention": 0, "swat_attention_bwd": 0}
+            "swat_attention": 0, "swat_attention_bwd": 0, "softmax_calib": 0}
 # launches per training micro-step (batch 1, 12 frames, cond_frame 2, no
 # remat): with cond_frame > 0 the temporal tails run K3 on the non-cond
 # tokens, never K4, so K3 serves the 5 text and the 5 temporal c = 320
@@ -133,7 +147,8 @@ PER_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
 PER_MICRO_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
                   "ln_geglu_ff": 10, "ln_geglu_ff_proj": 0, "geglu_ff": 10,
                   "swat_attention_tables_bwd": 5, "flash_attention_bwd": 4,
-                  "swat_attention": 0, "swat_attention_bwd": 0}
+                  "swat_attention": 0, "swat_attention_bwd": 0,
+                  "softmax_calib": 0}
 # the parallel phase: 2 ranks; a sequence-parallel UNet call must agree with
 # the single-rank call within PAR_UNET_RTOL (relative L2, bf16 both); a
 # parallel training step's loss within PAR_LOSS_RTOL and its gradients
@@ -142,6 +157,24 @@ PER_MICRO_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
 PAR_RANKS, PAR_TIMEOUT = 2, 700
 PAR_UNET_RTOL, PAR_LOSS_RTOL = 2e-2, 1e-2
 PAR_OPT_STEPS = 2
+# the floor-budget phase: K10 against its plain version (fp32 both sides:
+# exp2f of a log2e-scaled argument and one reciprocal per row against exp and
+# a division, a few ulps apart per element; sums of 2048 terms in another
+# order), at the TPU's block shape and at the calibration shape, on an input
+# that spans +-K10_CHECK_SCALE * 5 (an exp without the max subtraction
+# overflows there).  The row sums are 1 + cols * 1e-6 after any normalising
+# pass, so the check holds the final s element by element, and the sums
+# against the rows' sum of |s|, both within K10_RTOL, from 0 passes up.
+# Its numbers at the calibration shape after K10_REPS passes; the whole
+# 512 px UNet call against the sum of its sites
+K10_RTOL = 1e-5
+K10_CHECK_REPS = (0, 1, 2, 4, 64)
+K10_CHECK_SCALE = 30.0
+K10_REPS = 64
+MUFU_EX2_PER_CLK_PER_SM = 16   # CUDA C++ Programming Guide, cc 9.0
+STEP_OVER_SITES = (0.5, 2.0)
+FORWARD_KERNELS = ("swat_attention_tables", "flash_attention", "ln_geglu_ff",
+                   "ln_geglu_ff_proj", "geglu_ff")
 
 
 class SmokeFailure(RuntimeError):
@@ -161,18 +194,9 @@ def card_line() -> str:
 
 
 def wrappers() -> dict:
-    from seervideoldm_tpu_torch.ops.kernels import flash_attention as fa
-    from seervideoldm_tpu_torch.ops.kernels import geglu_ff as gg
-    from seervideoldm_tpu_torch.ops.kernels import swat_attention as sw
+    from seervideoldm_tpu_torch.ops.kernels import launch_counters
 
-    return {"swat_attention_tables": sw.swat_attention_tables,
-            "flash_attention": fa.flash_attention,
-            "ln_geglu_ff": gg.ln_geglu_ff,
-            "ln_geglu_ff_proj": gg.ln_geglu_ff_proj, "geglu_ff": gg.geglu_ff,
-            "swat_attention_tables_bwd": sw.swat_attention_tables_bwd,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "swat_attention": sw.swat_attention,
-            "swat_attention_bwd": sw.swat_attention_bwd}
+    return launch_counters()
 
 
 def reset_launches() -> None:
@@ -555,6 +579,8 @@ KERNEL_META = {
     "swat_attention_bwd": (
         "seervideoldm_tpu_torch/csrc/swat_attention.cu",
         "seervideoldm_tpu/ops/pallas/swat_attention.py:801"),
+    "softmax_calib": ("seervideoldm_tpu_torch/csrc/softmax_calib.cu",
+                      "tools/floor_budget.py:110"),
 }
 
 
@@ -1367,6 +1393,164 @@ def phase_parallel(card: str) -> dict:
     return total
 
 
+# ------------------------------------------------------------ floor budget
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k10_ex2_rate() -> float:
+    """ex2 results per second of the whole card: SMs x 16 per clock x the
+    maximum SM clock nvidia-smi reports."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * MUFU_EX2_PER_CLK_PER_SM * _max_sm_clock_hz()
+
+
+def check_k10() -> dict:
+    """K10 against its plain version at the TPU's (256, 2048) and at the
+    calibration shape, reps K10_CHECK_REPS: the final s element by element
+    and the row sums (of the rows' sum of |s|) within K10_RTOL; then its
+    time, bound, plain and library numbers at the calibration shape after
+    K10_REPS passes.  The library yardstick is one ``torch.softmax`` pass
+    over the same array (it goes through HBM)."""
+    import torch
+
+    from seervideoldm_tpu_torch.ops.kernels import softmax_calib as K
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = K.calibration_rows("cuda")
+    worst_rel, worst_abs, failures = 0.0, 0.0, []
+    for n in (256, rows):
+        x = torch.randn(n, K.CALIB_COLS, generator=gen,
+                        device="cuda") * K10_CHECK_SCALE
+        for reps in K10_CHECK_REPS:
+            got, got_s = K.softmax_calib(x, reps, return_s=True)
+            want, want_s = K.softmax_calib_plain(x, reps, return_s=True)
+            torch.cuda.synchronize()
+            err_s, err_sum = (got_s - want_s).abs(), (got - want).abs()
+            scale_sum = want_s.abs().sum(1, keepdim=True)
+            ok = (bool(torch.isfinite(got_s).all())
+                  and bool((err_s <= K10_RTOL * want_s.abs()).all())
+                  and bool((err_sum <= K10_RTOL * scale_sum).all()))
+            tiny = torch.finfo(torch.float32).tiny
+            rel_s = float((err_s / want_s.abs().clamp_min(tiny)).max())
+            rel_sum = float((err_sum / scale_sum.clamp_min(tiny)).max())
+            worst_rel = max(worst_rel, rel_s, rel_sum)
+            worst_abs = max(worst_abs, float(err_s.max()),
+                            float(err_sum.max()))
+            if not ok:
+                failures.append(f"({n}, {K.CALIB_COLS}) reps {reps}: max "
+                                f"relative error s {rel_s}, sums {rel_sum}")
+    x = torch.randn(rows, K.CALIB_COLS, generator=gen, device="cuda")
+    elems = x.numel()
+    t_ops = K10_REPS * elems / k10_ex2_rate()
+    t_bytes = (elems + rows) * 4 / PEAK_BYTES
+    row = dict(name="softmax_calib", path="floor_budget",
+               shape=f"({rows}, {K.CALIB_COLS}) fp32, {K10_REPS} passes",
+               max_abs_err=worst_abs, max_rel_err=worst_rel,
+               tol=f"{K10_RTOL} relative on the final s and on the row "
+                   "sums (of the rows' sum of |s|)", ok=not failures,
+               ms=time_ms(lambda: K.softmax_calib(x, K10_REPS)),
+               plain_ms=time_ms(lambda: K.softmax_calib_plain(x, K10_REPS),
+                                iters=3, warmup=1),
+               library_ms=time_ms(lambda: torch.softmax(x, dim=1)),
+               library_note="one torch.softmax pass over the array (HBM in "
+                            "and out), not K10_REPS passes",
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_note="one MUFU ex2 per element per pass at "
+                          f"{MUFU_EX2_PER_CLK_PER_SM} per clock per SM, the "
+                          "maximum SM clock")
+    print(json.dumps({"kernel_check": row}), flush=True)
+    require(not failures, "K10 disagrees with its plain version: "
+            + "; ".join(failures))
+    return row
+
+
+def _positive_times(where: str, values: dict) -> None:
+    bad = {k: v for k, v in values.items()
+           if v is None or not math.isfinite(v) or v <= 0.0}
+    require(not bad, f"{where}: measured times not finite and positive: {bad}")
+
+
+def phase_floor_budget(card: str) -> tuple[dict, dict]:
+    """K10 checked and timed; both budget entries driven at their defaults
+    through ``main(argv)`` with the launch counts zeroed just before and
+    read just after each; the checks on what they measured.  Returns (the
+    K10 row, the launches of this path)."""
+    import torch
+
+    from seervideoldm_tpu_torch.ops.kernels.softmax_calib import \
+        calibration_rows
+    from seervideoldm_tpu_torch.tools import floor_budget, floor_budget_train
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    k10 = check_k10()
+    reset_launches()
+    fb = floor_budget.main(["--json"])
+    launches = read_launches()
+    torch.cuda.empty_cache()
+    reset_launches()
+    fbt = floor_budget_train.main(["--json"])
+    for name, n in read_launches().items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+
+    times = {"step_ms": fb["step_ms"], "step_kernel_ms": fb["step_kernel_ms"]}
+    for r in fb["rows"] + [fb["l3"]]:
+        times.update({f"{r['level']} {k}": v for k, v in r.items()
+                      if k.endswith("_ms") and "floor" not in k
+                      and not k.endswith("_sm_ms")})
+    _positive_times("floor_budget", times)
+    times = {f"b={b}": v for b, v in fbt["step_ms_by_batch"].items()}
+    times.update({f"remat {k}": v for k, v in fbt["remat_ms"].items()})
+    times.update(step_ms=fbt["step_ms"], optimizer_ms=fbt["optimizer_ms"])
+    for r in fbt["site_rows"]:
+        times.update({f"{r['level']} {k}": r[k] for k in
+                      ("res_ms", "res_kernel_ms", "text_ms", "text_kernel_ms",
+                       "temp_ms", "temp_kernel_ms")})
+    _positive_times("floor_budget_train", times)
+    require(len(fbt["step_ms_by_batch"]) == 3,
+            f"floor_budget_train: batches {list(fbt['step_ms_by_batch'])}")
+    bound_s = 1.0 / k10_ex2_rate()
+    for what, out in (("floor_budget", fb), ("floor_budget_train", fbt)):
+        require(out["sm_ps_per_elem"] * 1e-12 >= bound_s,
+                f"{what}: softmax calibration {out['sm_ps_per_elem']} ps per "
+                f"element below its bound {bound_s * 1e12} ps")
+    lo, hi = STEP_OVER_SITES
+    require(lo <= fb["step_over_sites"] <= hi,
+            f"floor_budget: whole UNet call {fb['step_ms']} ms is "
+            f"{fb['step_over_sites']} x the sum of its sites "
+            f"{fb['site_sum_ms']} ms, outside [{lo}, {hi}]")
+
+    rl = fbt["remat_launches"]
+    print(json.dumps({"remat_launches": {
+        "card": card, "what": "kernel launches of one full-width training "
+        "micro-step (batch 1, 256 px, 12 frames, cond_frame 2) per remat "
+        "policy", **rl}}), flush=True)
+    differ = {k: (rl["none"][k], rl["save_attn"][k]) for k in FORWARD_KERNELS
+              if rl["none"][k] != rl["save_attn"][k]}
+    require(not differ, f"remat save_attn launched the forward kernels "
+            f"otherwise than no remat (none, save_attn): {differ}")
+    fwd = lambda p: sum(rl[p][k] for k in FORWARD_KERNELS)  # noqa: E731
+    require(fwd("block") > fwd("none"),
+            f"remat block launched {fwd('block')} forward kernels, no remat "
+            f"{fwd('none')}: the recompute did not run")
+    require(launches["softmax_calib"] > 0, "floor budget: K10 not launched")
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"floor_budget_phase": {
+        "seconds": seconds, "k10_calibration_rows": calibration_rows("cuda"),
+        "launches": launches}}), flush=True)
+    return k10, launches
+
+
 # kernel-name fragments -> category of the step breakdown (first match wins)
 KERNEL_CATEGORIES = (
     ("port: flash_attention (K2)", ("flash_fwd_kernel",)),
@@ -1503,6 +1687,8 @@ def main() -> int:
         launches = phase_end_to_end(card, args.profile)
         train_launches = phase_training(card, args.profile)
         par_launches = phase_parallel(card)
+        k10_row, fb_launches = phase_floor_budget(card)
+        rows["softmax_calib"] = [k10_row]
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1510,15 +1696,16 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         row, shapes = rows[name][0], rows[name]
         # each path is driven with the counts zeroed just before and read
-        # just after; `launches` is the sum over the three paths (the
+        # just after; `launches` is the sum over the four paths (the
         # parallel path's: rank 0's, summed over its runs)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=(launches[name] + train_launches[name]
-                      + par_launches[name]),
+                      + par_launches[name] + fb_launches[name]),
             sampling_launches=launches[name],
             training_launches=train_launches[name],
             parallel_launches=par_launches[name],
+            floor_budget_launches=fb_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

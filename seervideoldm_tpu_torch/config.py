@@ -47,7 +47,7 @@ class Config:
     save_steps: int = 1000
     max_to_keep: Optional[int] = None
     logging_dir: str = "logs"
-    remat: Any = False                  # False | True | "block"
+    remat: Any = False                  # False | True | "block" | "save_attn"
     gradient_checkpointing: bool = False  # the reference's key for remat
     param_dtype: str = "float32"
     # refused until ported (see _NOT_YET)
@@ -100,19 +100,23 @@ _NOT_YET = {
     "pab": (False,), "tome_ratio": (0.0, 0), "freeu": (None,),
     "total_frames": (None,),
     "use_8bit_adam": (False,), "lora_rank": (0,),
-    "remat": (False, True, "block"),
     "param_dtype": ("float32", "fp32"),
 }
 
 
 def parse_remat(value: Any) -> Any:
-    """YAML ``remat``: bool, or a string ("true" / "block" / "false")."""
-    if isinstance(value, str):
-        low = value.lower()
-        if low in ("false", "no", "none", ""):
-            return False
-        return True if low in ("true", "yes") else low
-    return bool(value)
+    """YAML ``remat``: False / none, True / "block", or "save_attn" (any
+    case); an unknown value is refused by name, as the JAX package's
+    ``_parse_remat`` does, rather than taken as a policy."""
+    low = value.lower() if isinstance(value, str) else value
+    if low in (False, None, 0, "false", "no", "none", ""):
+        return False
+    if low in (True, 1, "true", "yes"):
+        return True
+    if low in ("block", "save_attn"):
+        return low
+    raise ValueError(f"remat={value!r} is not supported (one of False/none, "
+                     "True/block, save_attn)")
 
 
 def validate(cfg: Config) -> Config:

@@ -3,7 +3,9 @@
 
 - ``FeedForward``: GEGLU(dim -> 4 dim) -> Linear(4 dim -> dim), names
   ``ff.net.0.proj`` / ``ff.net.2``; the fused GEGLU kernel (K5) where the
-  JAX site gate admits the shape;
+  JAX site gate admits the shape, else the same chain as one plain site
+  (``ops/kernels/geglu_ff.feed_forward``; every FF output, fused or not, is
+  the JAX package's ``ff_out``, kept under ``remat: save_attn``);
 - ``ln_ff_residual``: ``x + ff(norm3(x))`` with the LN-fused kernel (K3) at
   c <= 320;
 - ``BasicTextTransformerBlock3D``: per-frame spatial self-attention (flash
@@ -34,8 +36,9 @@ import torch.nn.functional as F
 
 from ..ops.attention import CrossAttention, WindowTemporalAttention
 from ..ops.conv import InflatedConv
-from ..ops.kernels.geglu_ff import (geglu_ff, geglu_ff_supported, ln_geglu_ff,
-                                    ln_geglu_ff_preferred, ln_geglu_ff_proj)
+from ..ops.kernels.geglu_ff import (feed_forward, geglu_ff, geglu_ff_supported,
+                                    ln_geglu_ff, ln_geglu_ff_preferred,
+                                    ln_geglu_ff_proj)
 from ..ops.norms import GroupNorm, LayerNorm
 from ..parallel.activation import FrameShard
 
@@ -69,7 +72,7 @@ class FeedForward(nn.Module):
         inner = self.net[2].in_features
         if geglu_ff_supported(n, c, inner, x):
             return geglu_ff(x.reshape(n, c), *self.weights()).reshape(*lead, c)
-        return self.net[2](self.net[0](x))
+        return feed_forward(x, *self.weights())
 
 
 def ln_ff_residual(norm: LayerNorm, ff: FeedForward,

@@ -8,9 +8,13 @@ up -> fp32 GroupNorm + SiLU + conv_out.  ``sample`` is ``(b, f, h, w, 4)``.
 
 ``cond_frame`` is an argument of ``forward``: training calls with the number
 of conditioning frames, sampling with 0, on the same weights.  ``remat``
-(``False``, or ``True`` / ``"block"``) recomputes each top-level block in
-the backward instead of keeping its activations
-(``torch.utils.checkpoint``, non-reentrant), as the JAX ``SeerUNet.remat``.
+(``False``, ``True`` / ``"block"`` or ``"save_attn"``) recomputes each
+top-level block in the backward instead of keeping its activations
+(``torch.utils.checkpoint``, non-reentrant), as the JAX ``SeerUNet.remat``;
+under ``"save_attn"`` the recompute replays the outputs of the attention
+cores and feed-forwards that the forward kept (``ops/remat.py``), so no
+forward attention or GEGLU kernel runs twice.  It is an attribute read at
+call time: one built model serves every policy.
 
 Under a registered ``seq`` axis the UNet takes and returns this rank's
 frames of a ``num_frames``-frame video (``parallel.activation``): convs,
@@ -30,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import InflatedConv
 from ..ops.norms import GroupNorm
+from ..ops.remat import save_attn_contexts
 from ..parallel.activation import frame_shard, seq_group
 from .embeddings import TimestepEmbedding, timestep_embedding
 from .unet_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D, DownBlock3D,
@@ -52,12 +57,16 @@ class SeerUNetConfig:
     attention_head_dim: int = 8
 
 
+SEER_UNET_SD15_CONFIG = SeerUNetConfig()
+REMAT_POLICIES = (False, True, "block", "save_attn")
+
+
 class SeerUNet(nn.Module):
     def __init__(self, config: SeerUNetConfig = SeerUNetConfig(),
                  cond_frame: int = 0, remat: Union[bool, str] = False):
         super().__init__()
-        if remat not in (False, True, "block"):
-            raise ValueError(f"remat must be False, True or 'block', got "
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
                              f"{remat!r}")
         cfg = self.config = config
         self.cond_frame, self.remat = cond_frame, remat
@@ -105,8 +114,11 @@ class SeerUNet(nn.Module):
 
     def _block(self, block, *args, **kwargs):
         """One top-level block; under ``remat`` with gradients on, its
-        activations are recomputed in the backward."""
+        activations are recomputed in the backward (``save_attn``: all but
+        the kept site outputs)."""
         if self.remat and torch.is_grad_enabled():
+            if self.remat == "save_attn":
+                kwargs["context_fn"] = save_attn_contexts
             return checkpoint(block, *args, use_reentrant=False, **kwargs)
         return block(*args, **kwargs)
 

@@ -31,6 +31,9 @@ class VAEConfig:
     norm_num_groups: int = 32
 
 
+SD15_VAE_CONFIG = VAEConfig()
+
+
 class Conv(nn.Conv2d):
     """nn.Conv2d over channels-last ``(n, h, w, c)``."""
 

@@ -3,6 +3,9 @@
 - ``dot_product_attention``: fp32 logits and softmax; the fused flash kernel
   (K2) where both sequence lengths are >= 512 and no explicit mask is given
   (rectangular causal stays on the einsum path), exactly the JAX gate.
+  Every attention core without an explicit mask, kernel or einsum, is a
+  site that ``remat: save_attn`` keeps with what its backward reads
+  (``ops/remat.py``; the JAX package's ``attn_out``).
 - ``CrossAttention``: reference ``to_q/to_k/to_v/to_out.0`` projections;
   ``temporal=True`` applies rotary (rot_dim = min(32, dim_head)) to q/k.
 - ``WindowTemporalAttention``: SWAT windowed causal spatio-temporal
@@ -25,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .kernels.flash_attention import flash_attention, flash_attention_plain
+from .kernels.flash_attention import flash_attention, plain_attention
 from ..parallel.activation import (FrameShard, gather_frames, local_frames,
                                    seq_kernel_step)
 from .kernels.swat_attention import swat_attention, swat_attention_tables
@@ -51,7 +54,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is None and n >= 512 and m >= 512 and (not causal or n == m):
         return flash_attention(q, k, v, scale, causal)
     if mask is None:
-        return flash_attention_plain(q, k, v, scale, causal)
+        return plain_attention(q, k, v, scale, causal)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

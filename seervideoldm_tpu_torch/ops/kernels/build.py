@@ -22,7 +22,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("flash_attention", "swat_attention", "geglu_ff")
+SOURCES = ("flash_attention", "swat_attention", "geglu_ff", "softmax_calib")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,11 +11,12 @@ gradient is needed it also writes the rows' log-sum-exp, so the backward
 recomputes the probabilities exactly, tile by tile, in two kernels without
 atomics (see the source notes).
 
-The wrapper runs the plain version for CPU tensors (autograd
-differentiates it) and the kernels for CUDA tensors; there is no other
-path.  ``FlashAttentionFn`` is the ``autograd.Function`` of the CUDA path;
-on CPU tensors it runs the explicit plain forward and backward, which is
-how the tests hold its bookkeeping.
+The wrapper runs the plain version for CPU tensors and the kernels for
+CUDA tensors; there is no other path.  Where a gradient is needed both go
+through ``FlashAttentionFn`` (on CPU tensors its explicit plain forward and
+backward), so that the CPU path has the CUDA path's autograd structure and
+``remat: save_attn`` (``ops/remat.py``) keeps the forward's output and lse
+on either.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..remat import needs_grad, saved_site
 from . import build
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -141,26 +143,32 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale: float,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """softmax(q k^T * scale) v on folded (B, n, d) / (B, m, d) tensors with
-    the K8 backward.  Saves q, k, v and, on CUDA, out and lse."""
+    """softmax(q k^T * scale) v on folded (B, n, d) / (B, m, d) tensors.
+    With ``kernel`` (default: on CUDA tensors) the K2 forward and the K8
+    backward, saving q, k, v, out and lse; otherwise the plain forward and
+    its explicit backward, saving q, k, v.  The forward's outputs are a
+    saved site under ``remat: save_attn`` (``ops/remat.py``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
+    def forward(ctx, q, k, v, scale, causal, kernel=None):
         ctx.scale, ctx.causal = float(scale), bool(causal)
-        if q.device.type == "cuda":
-            out, lse = _launch_fwd(q, k, v, scale, causal, want_lse=True)
+        ctx.kernel = q.device.type == "cuda" if kernel is None else kernel
+        if ctx.kernel:
+            out, lse = saved_site(lambda: _launch_fwd(q, k, v, scale, causal,
+                                                      want_lse=True))
             ctx.save_for_backward(q, k, v, out, lse)
         else:
             if causal and q.shape[-2] != k.shape[-2]:
                 raise ValueError("flash_attention: causal needs n == m")
-            out = flash_attention_plain(q, k, v, scale, causal)
+            out, = saved_site(lambda: (flash_attention_plain(q, k, v, scale,
+                                                             causal),))
             ctx.save_for_backward(q, k, v)
         return out
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad[:3]
-        if g.device.type == "cuda":
+        if ctx.kernel:
             q, k, v, out, lse = ctx.saved_tensors
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.scale,
                                              ctx.causal, need)
@@ -169,7 +177,21 @@ class FlashAttentionFn(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, g, ctx.scale,
                                                    ctx.causal)
         grads = [t if keep else None for t, keep in zip((dq, dk, dv), need)]
-        return (*grads, None, None)
+        return (*grads, None, None, None)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool = False) -> torch.Tensor:
+    """``flash_attention_plain`` as an attention site, on any device:
+    through ``FlashAttentionFn``'s plain branch when a gradient is needed,
+    a saved site either way.  (A causal n != m call keeps plain autograd:
+    the explicit backward covers the top-left mask only.)"""
+    if needs_grad(q, k, v):
+        if causal and q.shape[-2] != k.shape[-2]:
+            return flash_attention_plain(q, k, v, scale, causal)
+        return FlashAttentionFn.apply(q, k, v, scale, causal, False)
+    return saved_site(lambda: (flash_attention_plain(q, k, v, scale,
+                                                     causal),))[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -177,7 +199,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T * scale) v.  q: (..., n, d), k/v: (..., m, d); leading
     dims fold.  Causal = top-left tril (key <= query)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, causal)
+        return plain_attention(q, k, v, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     n, m, d = _check_cuda(q, k, v, causal, "flash_attention")
@@ -185,14 +207,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.reshape(-1, n, d).contiguous()
     kf = k.reshape(-1, m, d).contiguous()
     vf = v.reshape(-1, m, d).contiguous()
-    if torch.is_grad_enabled() and (qf.requires_grad or kf.requires_grad
-                                    or vf.requires_grad):
+    if needs_grad(qf, kf, vf):
         if d > BWD_MAX_D:
             raise ValueError(f"flash_attention: head dim {d} has no backward "
                              f"kernel (at most {BWD_MAX_D})")
         out = FlashAttentionFn.apply(qf, kf, vf, scale, causal)
     else:
-        out, _ = _launch_fwd(qf, kf, vf, scale, causal, want_lse=False)
+        out, = saved_site(lambda: _launch_fwd(qf, kf, vf, scale, causal,
+                                              want_lse=False)[:1])
     return out.reshape(*lead, n, d)
 
 

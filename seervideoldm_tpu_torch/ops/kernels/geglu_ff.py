@@ -14,8 +14,9 @@ memory in 64-wide inner chunks (see the source note).
 
 Weights are taken in torch Linear layout, ``(out, in)``: ``w1`` (2 * inner,
 c) with rows [hidden | gate], ``w2`` (c, inner), ``w3`` (c, c).  The
-wrappers run the plain versions for CPU tensors (autograd differentiates
-them) and the kernel for CUDA tensors; there is no other path.
+wrappers run the plain versions for CPU tensors and the kernel for CUDA
+tensors; there is no other path.  ``feed_forward`` is the FF site of the
+shapes no kernel takes (the plain chain on either device).
 
 Backward: the JAX package computes the GEGLU gradients outside any Pallas
 kernel (an XLA chain rule that recomputes the intermediates from the saved
@@ -30,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..remat import needs_grad, saved_site
 from . import build
 
 LN_EPS = 1e-5  # ops/norms.LayerNorm default (torch parity)
@@ -92,12 +94,24 @@ def ln_geglu_ff_preferred(n: int, c: int, inner: int, x: torch.Tensor) -> bool:
     return c <= LN_FUSE_MAX_C and geglu_ff_supported(n, c, inner, x)
 
 
+def feed_forward_plain(x, w1, b1, w2, b2):
+    """The FeedForward modules' own chain (``models/transformer3d.py``
+    GEGLU + Linear): Linear -> hidden * gelu(gate) (exact erf) -> Linear,
+    in x's dtype; the FF site where no kernel takes the shape."""
+    hidden, gate = torch.nn.functional.linear(x, w1, b1).chunk(2, dim=-1)
+    return torch.nn.functional.linear(hidden * _gelu(gate), w2, b2)
+
+
 _PLAIN = {0: lambda x, gamma, beta, w1, b1, w2, b2, w3, b3, res:
           geglu_ff_plain(x, w1, b1, w2, b2),
           1: lambda x, gamma, beta, w1, b1, w2, b2, w3, b3, res:
           ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2),
-          2: ln_geglu_ff_proj_plain}
-_NAMES = {0: "geglu_ff", 1: "ln_geglu_ff", 2: "ln_geglu_ff_proj"}
+          2: ln_geglu_ff_proj_plain,
+          3: lambda x, gamma, beta, w1, b1, w2, b2, w3, b3, res:
+          feed_forward_plain(x, w1, b1, w2, b2)}
+_NAMES = {0: "geglu_ff", 1: "ln_geglu_ff", 2: "ln_geglu_ff_proj",
+          3: "feed_forward"}
+KERNEL_MODES = (0, 1, 2)   # mode 3 is the plain chain on every device
 
 
 def _launch(mode: int, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
@@ -133,17 +147,25 @@ def _launch(mode: int, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
     return out
 
 
+def _compute(mode: int, *tensors):
+    """The kernel for CUDA tensors in a kernel mode, else the plain
+    version."""
+    if tensors[0].device.type == "cuda" and mode in KERNEL_MODES:
+        return _launch(mode, *tensors)
+    return _PLAIN[mode](*tensors)
+
+
 class GegluFn(torch.autograd.Function):
-    """The kernel's forward (the plain version for CPU tensors) with a
-    plain-PyTorch backward by recomputation from the saved inputs."""
+    """The kernel's forward (the plain version for CPU tensors and for the
+    plain chain, mode 3) with a plain-PyTorch backward by recomputation
+    from the saved inputs.  The forward's output is a saved site under
+    ``remat: save_attn`` (``ops/remat.py``)."""
 
     @staticmethod
     def forward(ctx, mode, *tensors):
         ctx.mode = mode
         ctx.save_for_backward(*tensors)
-        if tensors[0].device.type == "cuda":
-            return _launch(mode, *tensors)
-        return _PLAIN[mode](*tensors)
+        return saved_site(lambda: (_compute(mode, *tensors),))[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -158,36 +180,37 @@ class GegluFn(torch.autograd.Function):
 
 
 def _run(mode: int, *tensors):
-    if tensors[0].device.type != "cuda":
+    """One FF site: through ``GegluFn`` when a gradient is needed, a saved
+    site either way."""
+    if mode in KERNEL_MODES and tensors[0].device.type not in ("cpu",
+                                                              "cuda"):
         raise ValueError(f"{_NAMES[mode]}: unsupported device "
                          f"{tensors[0].device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         return GegluFn.apply(mode, *tensors)
-    return _launch(mode, *tensors)
+    return saved_site(lambda: (_compute(mode, *tensors),))[0]
 
 
 def geglu_ff(x, w1, b1, w2, b2):
     """(n, c) -> (n, c): (h * gelu(g)) W2 + b2, [h; g] = x W1 + b1."""
-    if x.device.type == "cpu":
-        return geglu_ff_plain(x, w1, b1, w2, b2)
     return _run(0, x, None, None, w1, b1, w2, b2, None, None, None)
 
 
 def ln_geglu_ff(x, gamma, beta, w1, b1, w2, b2):
     """(n, c) -> (n, c): x + FF(LN(x)); gamma/beta the LayerNorm affine."""
-    if x.device.type == "cpu":
-        return ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2)
     return _run(1, x, gamma, beta, w1, b1, w2, b2, None, None, None)
 
 
 def ln_geglu_ff_proj(x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
     """(n, c) -> (n, c): res + (y W3 + b3), y = x + FF(LN(x)); w3 the
     site's 1x1 proj_out as (c_out, c_in), res the outer residual."""
-    if x.device.type == "cpu":
-        return ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2, b2, w3, b3,
-                                      res)
     return _run(2, x, gamma, beta, w1, b1, w2, b2, w3, b3, res)
+
+
+def feed_forward(x, w1, b1, w2, b2):
+    """(..., c) -> (..., c): the plain FF chain as a site (the shapes no
+    kernel takes)."""
+    return _run(3, x, None, None, w1, b1, w2, b2, None, None, None)
 
 
 _WRAPPERS = {0: geglu_ff, 1: ln_geglu_ff, 2: ln_geglu_ff_proj}

@@ -18,11 +18,11 @@ probabilities exactly in two kernels without atomics, re-rotating q and k
 from the tables on load and de-rotating dq and dk with the adjoint before
 the store (see the source notes).
 
-The wrapper runs the plain version for CPU tensors (autograd
-differentiates it) and the kernels for CUDA tensors; there is no other
-path.  ``SwatAttentionTablesFn`` is the ``autograd.Function`` of the CUDA
-path; on CPU tensors it runs the explicit plain forward and backward, which
-is how the tests hold its bookkeeping.
+The wrapper runs the plain version for CPU tensors and the kernels for
+CUDA tensors; there is no other path.  Where a gradient is needed both go
+through ``SwatAttentionTablesFn`` / ``SwatAttentionFn`` (on CPU tensors
+their explicit plain forward and backward), so that ``remat: save_attn``
+(``ops/remat.py``) keeps the forward's output and lse on either device.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import torch
 
 from ..rotary import inv_freq, rotary_tables, rotate_half
 from ..windows import window_partition, window_reverse
+from ..remat import needs_grad, saved_site
 from . import build
 from .flash_attention import (BWD_MAX_D, _acc_dtype, attention_bwd_f32,
                               flash_attention_plain)
@@ -149,19 +150,22 @@ def swat_attention_tables_bwd(q, k, v, cos, sin, out, lse, g, scale: float,
 
 
 class SwatAttentionTablesFn(torch.autograd.Function):
-    """K1 forward with the K7 backward.  Saves q, k, v, the tables and, on
-    CUDA, out and lse; cos/sin, scale, causal and ws get no gradient."""
+    """K1 forward with the K7 backward on CUDA tensors, saving q, k, v, the
+    tables, out and lse; on CPU tensors the plain forward and its explicit
+    backward, saving q, k, v and the tables.  cos/sin, scale, causal and
+    ws get no gradient.  The forward's outputs are a saved site under
+    ``remat: save_attn`` (``ops/remat.py``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, scale, causal, ws):
         ctx.scale, ctx.causal, ctx.ws = float(scale), bool(causal), int(ws)
         if q.device.type == "cuda":
-            out, lse = _launch_fwd(q, k, v, cos, sin, scale, causal, ws,
-                                   want_lse=True)
+            out, lse = saved_site(lambda: _launch_fwd(
+                q, k, v, cos, sin, scale, causal, ws, want_lse=True))
             ctx.save_for_backward(q, k, v, cos, sin, out, lse)
         else:
-            out = swat_attention_tables_plain(q, k, v, cos, sin, scale,
-                                              causal, ws)
+            out, = saved_site(lambda: (swat_attention_tables_plain(
+                q, k, v, cos, sin, scale, causal, ws),))
             ctx.save_for_backward(q, k, v, cos, sin)
         return out
 
@@ -191,20 +195,23 @@ def swat_attention_tables(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"SWAT kernel needs h % ws == 0 and w % ws == 0; "
                          f"got h={h}, w={w}, ws={ws}")
     if q.device.type == "cpu":
-        return swat_attention_tables_plain(q, k, v, cos, sin, scale, causal, ws)
+        if needs_grad(q, k, v):
+            return SwatAttentionTablesFn.apply(q, k, v, cos, sin, scale,
+                                               causal, ws)
+        return saved_site(lambda: (swat_attention_tables_plain(
+            q, k, v, cos, sin, scale, causal, ws),))[0]
     if q.device.type != "cuda":
         raise ValueError(f"swat_attention_tables: unsupported device {q.device}")
     _check_cuda(q, k, v, cos, sin, ws, "swat_attention_tables")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cos, sin = cos.contiguous(), sin.contiguous()
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if needs_grad(q, k, v):
         if d > BWD_MAX_D:
             raise ValueError(f"swat_attention_tables: head dim {d} has no "
                              f"backward kernel (at most {BWD_MAX_D})")
         return SwatAttentionTablesFn.apply(q, k, v, cos, sin, scale, causal, ws)
-    out, _ = _launch_fwd(q, k, v, cos, sin, scale, causal, ws, want_lse=False)
-    return out
+    return saved_site(lambda: _launch_fwd(q, k, v, cos, sin, scale, causal, ws,
+                                          want_lse=False)[:1])[0]
 
 
 swat_attention_tables.launches = 0
@@ -351,18 +358,21 @@ def swat_attention_bwd(q, k, v, out, lse, g, scale: float, causal: bool,
 
 
 class SwatAttentionFn(torch.autograd.Function):
-    """K6 forward with the K9 backward.  Saves q, k, v and, on CUDA, out and
-    lse; scale, causal, ws and rot_dim get no gradient."""
+    """K6 forward with the K9 backward on CUDA tensors, saving q, k, v, out
+    and lse; on CPU tensors the plain forward and its explicit backward,
+    saving q, k, v.  scale, causal, ws and rot_dim get no gradient.  The
+    forward's outputs are a saved site under ``remat: save_attn``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, ws, rot_dim):
         ctx.args = (float(scale), bool(causal), int(ws), int(rot_dim))
         if q.device.type == "cuda":
-            out, lse = _launch_swat_fwd(q, k, v, scale, causal, ws, rot_dim,
-                                        want_lse=True)
+            out, lse = saved_site(lambda: _launch_swat_fwd(
+                q, k, v, scale, causal, ws, rot_dim, want_lse=True))
             ctx.save_for_backward(q, k, v, out, lse)
         else:
-            out = swat_attention_plain(q, k, v, scale, causal, ws, rot_dim)
+            out, = saved_site(lambda: (swat_attention_plain(
+                q, k, v, scale, causal, ws, rot_dim),))
             ctx.save_for_backward(q, k, v)
         return out
 
@@ -388,20 +398,21 @@ def swat_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions ``frame*h*w + row*w + col``.  Returns (B, f, h, w, d)."""
     _check_window_divisible(q.shape, ws)
     if q.device.type == "cpu":
-        return swat_attention_plain(q, k, v, scale, causal, ws, rot_dim)
+        if needs_grad(q, k, v):
+            return SwatAttentionFn.apply(q, k, v, scale, causal, ws, rot_dim)
+        return saved_site(lambda: (swat_attention_plain(
+            q, k, v, scale, causal, ws, rot_dim),))[0]
     if q.device.type != "cuda":
         raise ValueError(f"swat_attention: unsupported device {q.device}")
     _check_cuda_k6(q, k, v, ws, rot_dim, "swat_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if needs_grad(q, k, v):
         if q.shape[-1] > BWD_MAX_D:
             raise ValueError(f"swat_attention: head dim {q.shape[-1]} has no "
                              f"backward kernel (at most {BWD_MAX_D})")
         return SwatAttentionFn.apply(q, k, v, scale, causal, ws, rot_dim)
-    out, _ = _launch_swat_fwd(q, k, v, scale, causal, ws, rot_dim,
-                              want_lse=False)
-    return out
+    return saved_site(lambda: _launch_swat_fwd(q, k, v, scale, causal, ws,
+                                               rot_dim, want_lse=False)[:1])[0]
 
 
 swat_attention.launches = 0

@@ -2,13 +2,16 @@
 
 - every module of ``seervideoldm_tpu_torch`` (the training slice's
   included: ``train``, ``training/``, ``data/``, ``io/checkpoint``,
-  ``diffusion/ddpm``; the parallel slice's: ``parallel/``, ``ops/ring``)
+  ``diffusion/ddpm``; the parallel slice's: ``parallel/``, ``ops/ring``;
+  the floor-budget slice's: ``tools/``, ``ops/kernels/softmax_calib``,
+  ``ops/remat``, ``utils/flops``, ``utils/profiling``)
   and the root ``chip_smoke.py`` import in a fresh
   interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
   ``seervideoldm_tpu`` cannot be imported;
 - no source file of the port names them in an import;
-- on a host without CUDA, the entry points called without ``device="cpu"``
-  raise instead of running on the CPU; models for the GPU are bf16.
+- on a host without CUDA, the entry points (the two floor budgets
+  included) called without ``device="cpu"`` raise instead of running on
+  the CPU; models for the GPU are bf16.
 """
 import os
 import pkgutil
@@ -45,6 +48,14 @@ def test_boundary_walk_reaches_the_training_modules():
     for mod in ("train", "training.trainer", "training.optim",
                 "training.meters", "diffusion.ddpm", "io.checkpoint",
                 "data.datasets", "data.loader"):
+        assert f"seervideoldm_tpu_torch.{mod}" in names, mod
+
+
+def test_boundary_walk_reaches_the_floor_budget_modules():
+    names = set(_port_modules())
+    for mod in ("tools.floor_budget", "tools.floor_budget_train",
+                "ops.kernels.softmax_calib", "ops.remat", "utils.flops",
+                "utils.profiling"):
         assert f"seervideoldm_tpu_torch.{mod}" in names, mod
 
 
@@ -101,6 +112,11 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train({"resolution": 32, "output_dir": "unused"})
+    from seervideoldm_tpu_torch.tools import floor_budget, floor_budget_train
+
+    for entry in (floor_budget, floor_budget_train):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry.main(["--json"])
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -12,7 +12,8 @@ the backward kernels (K7, K8) the same bound and a relative L2 error of at
 most 1e-2 on each of dq, dk, dv, at odd shapes: n not a multiple of 64, n != m, a fully
 masked tail tile, a non-contiguous ``grad_output``, d = 80.  K6 and K9 (the
 pre-rotated and in-kernel-trig modes of the SWAT kernels) the same, with
-``rot_dim`` 0 and 32.
+``rot_dim`` 0 and 32.  K10 (the softmax calibration): the final scores and
+the row sums within 1e-5 relative of its plain version, from 0 passes up.
 """
 import pytest
 import torch
@@ -91,6 +92,33 @@ def test_geglu_kernel(gen, mode, c):
         want = K.ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2, b2, w3,
                                         b3, res)
     _close(got, want)
+
+
+@pytest.mark.parametrize("rows,reps", [(256, 0), (256, 1), (256, 2),
+                                       (256, 4), (256, 64), (37, 16),
+                                       (200, 3)])
+def test_softmax_calib_kernel(gen, rows, reps):
+    """K10 against its plain version on an input that spans +-150 (an exp
+    without the max subtraction overflows there): the final s element by
+    element and the row sums, each within 1e-5 relative (the sums: of the
+    rows' sum of |s|, which is the sum itself once a pass has run).  fp32
+    both sides; exp2f and one reciprocal per row against exp and a
+    division, sums in another order."""
+    from seervideoldm_tpu_torch.ops.kernels import softmax_calib as K
+
+    x = torch.randn(rows, K.CALIB_COLS, generator=gen, device="cuda") * 30
+    before = K.softmax_calib.launches
+    got, got_s = K.softmax_calib(x, reps, return_s=True)
+    assert K.softmax_calib.launches == before + 1
+    want, want_s = K.softmax_calib_plain(x, reps, return_s=True)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, 1) and torch.isfinite(got_s).all()
+    assert bool(((got_s - want_s).abs() <= 1e-5 * want_s.abs()).all())
+    scale = want_s.abs().sum(1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    torch.testing.assert_close(K.softmax_calib(x, reps), got, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="not covered"):
+        K.softmax_calib(x[:, :1024].contiguous(), reps)
 
 
 def test_kernel_refuses_uncovered_shape(gen):

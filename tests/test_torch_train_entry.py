@@ -173,7 +173,7 @@ def test_train_entry_defaults_to_cuda(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("use_8bit_adam", True), ("lora_rank", 4), ("zero1", True),
     ("fsdp", True), ("mesh_shape", {"data": 2, "model": 2}),
-    ("remat", "save_attn"),
+    ("remat", "bogus"),
     ("prediction_type", "v_prediction"), ("rescale_zero_snr", True),
     ("pretrained_model_name_or_path", "/models/sd15"),
     ("fstext_init_ckpt", "fstext.bin"), ("push_to_hub", True)])

@@ -16,8 +16,8 @@ package, on the CPU in fp32.
   fed to the port: loss, ``mse``, ``grad_norm`` and every trainable gradient
   vs the JAX trainer's (gradients captured exactly with ``optax.trace(0)``),
   then parameters and EMA after two optimizer steps with accumulation 2;
-- ``remat`` on equals off; ``cond_frame`` at call time equals the
-  constructor's value.
+- ``remat`` (``True`` and ``save_attn``) equals off; ``cond_frame`` at call
+  time equals the constructor's value.
 
 Tolerances are stated at each comparison (fp32 summation-order differences
 between XLA and PyTorch on the CPU).
@@ -413,27 +413,29 @@ def test_two_optimizer_steps_with_accumulation_and_ema_match_jax(slice_case):
 
 
 def test_remat_equals_no_remat(slice_case):
-    """``remat: True`` recomputes each block in the backward: the same loss
-    and gradients bit for bit on the CPU."""
+    """``remat: True`` recomputes each block in the backward, ``save_attn``
+    all but the attention and feed-forward outputs it kept: the same loss
+    and gradients bit for bit on the CPU.  An unknown policy is refused."""
     c = slice_case
     noise, ts = _jax_draws(jax.random.PRNGKey(4), 0,
                            c["jbatch"]["latents"].shape, 2)
     out = []
-    for remat in (False, True):
+    for remat in (False, True, "save_attn"):
         models = _port_models(c["jparams"], remat=remat)
         assert models.unet.remat == remat
         tstep = ttrainer.make_train_step(models, cond_frames=COND)
         out.append(tstep.loss_and_grads(
             list(models.masters), _tbatch(c["jbatch"]), _t(noise),
             torch.tensor(ts)))
-    (loss_a, _, grads_a), (loss_b, _, grads_b) = out
-    assert float(loss_a) == float(loss_b)
-    for name in grads_a:
-        np.testing.assert_allclose(grads_b[name].numpy(),
-                                   grads_a[name].numpy(), atol=1e-7,
-                                   err_msg=name)
+    loss_a, _, grads_a = out[0]
+    for loss_b, _, grads_b in out[1:]:
+        assert float(loss_a) == float(loss_b)
+        for name in grads_a:
+            np.testing.assert_allclose(grads_b[name].numpy(),
+                                       grads_a[name].numpy(), atol=1e-7,
+                                       err_msg=name)
     with pytest.raises(ValueError, match="remat must be"):
-        SeerUNet(SeerUNetConfig(**UNET), remat="save_attn")
+        SeerUNet(SeerUNetConfig(**UNET), remat="bogus")
 
 
 def test_cond_frame_at_call_time_equals_constructor(slice_case):
