@@ -10,8 +10,9 @@ no result line):
 
 1. device: CUDA present, compute capability (9, 0); prints the card's name
    and power limit as nvidia-smi reports them;
-2. build: compiles the three CUDA sources under ``seervideoldm_tpu_torch/
-   csrc`` with nvcc for sm_90a, all at once, and prints the build time;
+2. build: compiles the four CUDA sources under ``seervideoldm_tpu_torch/
+   csrc`` with nvcc for sm_90a, all at once, and prints the build time and
+   each kernel's registers and spills (``-Xptxas -v``);
 3. kernel checks: each of K1-K5 (forward) and K7, K8 (backward) at the
    shapes both main paths give it at 256 px -- sampling (CFG batch 2, under
    ``no_grad``) and training (batch 1, called under ``enable_grad`` on
@@ -23,7 +24,11 @@ no result line):
    K6 (pre-rotated, ``rot_dim`` 0, and in-kernel trig, ``rot_dim`` 32) and
    K9 (both modes) at the shapes of the sequence-parallel path and at the
    256 / 512 px shapes; times the kernel, the plain version and one library
-   call computing the same function;
+   call computing the same function; K3-K5, each an up kernel (``a =
+   bf16(h * gelu(g))``, LayerNorm prologue) and a down kernel (``a W2 +
+   b2`` and the mode's epilogue), also as those two halves alone against
+   their plain versions, the down kernel fed the plain ``a``, with each
+   half's time (``up_ms``, ``down_ms``) and the tile plan on the row;
 4. reference: one SeerUNet call at narrow widths (64/128) and the main
    path's 256 px / 12 frame / CFG-batch-2 shapes, bf16 with the kernels on
    the card against the port's plain path in fp32 on the CPU, same weights
@@ -529,11 +534,25 @@ def case_geglu(gen, mode, n, c, grad=False):
         a = hg[:, :inner] * F.gelu(hg[:, inner:])
         return F.linear(a, w2, b2)
 
+    def halves():
+        """The up and down kernels alone against their plain versions (the
+        down kernel fed the plain ``a``), and each one's time."""
+        with torch.no_grad():
+            up = lambda: K.geglu_up(x, gamma, beta, w1, b1, mode > 0)  # noqa: E731
+            a = K.geglu_up_plain(x, gamma, beta, w1, b1, mode > 0)
+            down = lambda: K.geglu_down(a, w2, b2, x, w3, b3, res, mode)  # noqa: E731
+            up_err, up_ok = _elementwise(up(), a)
+            down_err, down_ok = _elementwise(
+                down(), K.geglu_down_plain(a, w2, b2, x, w3, b3, res, mode))
+            return dict(up_max_abs_err=up_err, down_max_abs_err=down_err,
+                        up_ok=up_ok, down_ok=down_ok, up_ms=time_ms(up),
+                        down_ms=time_ms(down), plan=K.plan(n, c, inner, mode))
+
     if mode == 0:
         case = dict(name="geglu_ff", kernel=lambda: K.geglu_ff(x, w1, b1, w2, b2),
                     plain=lambda: K.geglu_ff_plain(x, w1, b1, w2, b2),
                     library=lambda: chain(x), flops=flops, nbytes=nbytes,
-                    shape=f"({n}, {c}) inner {inner}")
+                    halves=halves, shape=f"({n}, {c}) inner {inner}")
         return _as_path_calls(case, (x,), grad)
     ln = lambda: F.layer_norm(x.float(), (c,), gamma, beta, K.LN_EPS).to(bf)  # noqa: E731
     if mode == 1:
@@ -541,7 +560,7 @@ def case_geglu(gen, mode, n, c, grad=False):
                     kernel=lambda: K.ln_geglu_ff(x, gamma, beta, w1, b1, w2, b2),
                     plain=lambda: K.ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2),
                     library=lambda: chain(ln()) + x, flops=flops, nbytes=nbytes,
-                    shape=f"({n}, {c}) inner {inner}")
+                    halves=halves, shape=f"({n}, {c}) inner {inner}")
         return _as_path_calls(case, (x,), grad)
     case = dict(name="ln_geglu_ff_proj",
                 kernel=lambda: K.ln_geglu_ff_proj(x, gamma, beta, w1, b1, w2, b2,
@@ -550,7 +569,8 @@ def case_geglu(gen, mode, n, c, grad=False):
                                                        b2, w3, b3, res),
                 library=lambda: F.linear(chain(ln()) + x, w3, b3) + res,
                 flops=flops + 2.0 * n * c * c,
-                nbytes=nbytes + 2.0 * (n * c + c * c), shape=f"({n}, {c}) inner {inner}")
+                nbytes=nbytes + 2.0 * (n * c + c * c), halves=halves,
+                shape=f"({n}, {c}) inner {inner}")
     return _as_path_calls(case, (x, res), grad)
 
 
@@ -651,6 +671,18 @@ def kernel_cases(gen):
         yield path, build(gen, *args)
 
 
+def _elementwise(got, want) -> tuple[float, bool]:
+    """Max abs error and the ATOL + RTOL element-by-element bound, bf16
+    outputs compared in fp32; the result must be finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    g32, w32 = got.float(), want.float()
+    err = (g32 - w32).abs()
+    return float(err.max()), bool(torch.isfinite(got).all()) and bool(
+        (err <= ATOL + RTOL * w32.abs()).all())
+
+
 def check_case(case: dict) -> dict:
     import torch
 
@@ -680,6 +712,9 @@ def check_case(case: dict) -> dict:
         row["lse_tol"] = case.get("lse_atol", LSE_ATOL)
         row["ok"] = row["ok"] and row["lse_max_abs_err"] <= row["lse_tol"]
     del got, want
+    if "halves" in case:
+        row.update(case["halves"]())
+        row["ok"] = row["ok"] and row["up_ok"] and row["down_ok"]
     row["ms"] = time_ms(case["kernel"])
     row["plain_ms"] = time_ms(case["plain"], iters=5, warmup=1)
     row["library_ms"] = time_ms(case["library"])
@@ -701,7 +736,9 @@ def phase_kernels() -> dict:
         if not row["ok"]:
             failures.append(f"{row['name']} {row['shape']}: max_abs_err "
                             f"{row['max_abs_err']}, lse "
-                            f"{row.get('lse_max_abs_err')}")
+                            f"{row.get('lse_max_abs_err')}, up/down "
+                            f"{row.get('up_max_abs_err')}/"
+                            f"{row.get('down_max_abs_err')}")
         if path:
             main_rows.setdefault(row["name"], []).append(row)
         del case
@@ -730,15 +767,36 @@ def phase_device() -> str:
     return line
 
 
+def ptxas_kernels(log: str) -> list:
+    """(kernel, "R registers, S bytes spill stores, L loads, M smem") per
+    entry function of an ``nvcc -Xptxas -v`` report."""
+    import re
+
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} loads"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and kernel:
+            out.append((kernel, f"{m.group(1)} registers, {spill}{m.group(2)}"))
+            kernel = None
+    return out
+
+
 def phase_build() -> None:
     from seervideoldm_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
     reports = build.build_all()
     for name, log in reports.items():
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"build {name}: " + " | ".join(regs[:6]), flush=True)
+        for kernel, info in ptxas_kernels(log):
+            print(f"build {name}: {kernel}: {info}", flush=True)
     print(f"build: {len(reports)} sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1554,12 +1612,12 @@ def phase_floor_budget(card: str) -> tuple[dict, dict]:
 # kernel-name fragments -> category of the step breakdown (first match wins)
 KERNEL_CATEGORIES = (
     ("port: flash_attention (K2)", ("flash_fwd_kernel",)),
-    ("port: swat_attention_tables (K1)", ("swat_tab_fwd_kernel",)),
+    ("port: swat_attention_tables (K1; K6 a mode of it)", ("swat_fwd_kernel",)),
     ("port: flash_attention_bwd (K8)", ("flash_bwd_",)),
     ("port: swat_attention_tables_bwd (K7)", ("swat_bwd_",)),
     # the rowsum(g * o) prologue is one kernel that K7 and K8 both launch
     ("port: delta prologue (K7 + K8)", ("delta_kernel",)),
-    ("port: geglu_ff (K3/K4/K5)", ("geglu_ff_kernel",)),
+    ("port: geglu_ff (K3/K4/K5)", ("geglu_up_kernel", "geglu_down_kernel")),
     ("convolution (cuDNN)", ("cudnn", "fprop", "implicit_gemm", "winograd",
                              "conv2d", "nchwtonhwc", "nhwctonchw")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "cublas")),

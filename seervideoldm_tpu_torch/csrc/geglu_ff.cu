@@ -1,327 +1,822 @@
-// K3 / K4 / K5: fused GEGLU feed-forward, one kernel body with a
-// compile-time prologue/epilogue mode.
+// K3 / K4 / K5: the GEGLU feed-forward as two Hopper GEMMs, an up kernel
+// and a down kernel, launched back to back on one stream; each public mode
+// is one call of the C entries below from the Python wrapper.
 //
 // Replaces seervideoldm_tpu/ops/pallas/geglu_ff.py:
-//   MODE 0 (K5) geglu_ff        -> _geglu_ff_fwd_impl, body _kernel
-//       out = (h * gelu(g)) W2 + b2,          [h; g] = x W1 + b1
-//   MODE 1 (K3) ln_geglu_ff      -> _ln_geglu_ff_impl, body _kernel_ln
+//   mode 0 (K5) geglu_ff         -> _geglu_ff_fwd_impl, body _kernel
+//       out = (h * gelu(g)) W2^T + b2,        [h; g] = x W1^T + b1
+//   mode 1 (K3) ln_geglu_ff       -> _ln_geglu_ff_impl, body _kernel_ln
 //       out = x + FF(LN(x))
-//   MODE 2 (K4) ln_geglu_ff_proj -> _ln_proj_impl, body _kernel_ln_proj
-//       y = x + FF(LN(x));  out = (y W3 + b3) + res
-// All three share _ff_core, and so do the modes here.
+//   mode 2 (K4) ln_geglu_ff_proj  -> _ln_proj_impl, body _kernel_ln_proj
+//       y = x + FF(LN(x));  out = (y W3^T + b3) + res
 //
-// Rounding points kept exactly as the JAX bodies (geglu_ff.py:89-96, 112,
-// 135, 160-162): h = bf16(x W1h) + bf16 b1h and g likewise (bf16 adds);
-// a = bf16(fp32(h) * gelu_erf(fp32(g))); acc += a W2 in fp32; epilogue
-// bf16(acc) + b2 (+ x); K4 adds z = y W3 in fp32 then bf16(z) + b3 + res.
-// gelu uses the exact erf (erff): the TPU kernel's Abramowitz-Stegun erf
-// existed only because Mosaic has no erf, and the JAX plain path is exact.
-// LN: fp32 mean and variance over the channels, eps from the caller.
+// Rounding points kept exactly as the JAX bodies (geglu_ff.py:89-97, 112,
+// 135, 160-162): h = bf16(acc_h) + bf16 b1h and g likewise (bf16 adds);
+// a = bf16(fp32(h) * gelu_erf(fp32(g))); the second product accumulates in
+// fp32, then bf16(acc) + b2 (+ x, a bf16 add); K4 then z = y W3^T in fp32,
+// bf16(z) + b3, + res.  gelu uses the exact erf (erff): the TPU kernel's
+// Abramowitz-Stegun erf existed only because Mosaic has no erf, and the JAX
+// plain path is exact.  LN: fp32 mean and variance over the channels, eps
+// from the caller, one bf16 rounding after the affine.  Splitting the FF at
+// `a` changes no number: the TPU kernel rounds `a` to bf16 at that point.
 //
-// What bounds it on an H100: at the main-path shapes (24576 x 320, inner
-// 1280; 6144 x 640, inner 2560) ~60 GFLOP against a few tens of MB, so the
-// tensor cores (~0.06 ms).  The TPU kernel kept W1 and W2 resident in VMEM
-// (2.5 MB at c = 320, 9.8 MB at c = 640); here the weights stream from the
-// 50 MB L2 through shared memory in 64-wide inner chunks, and the
-// (tokens x c) fp32 accumulator lives in registers, which caps the token
-// tile at 32 rows (8 warps: 2 row groups x 4 column groups).  mma.sync
-// m16n8k16 with synchronous staging; TMA/wgmma pipelining is later work.
+// Bound on an H100: 6 n c inner FLOPs (+ 2 n c^2 for K4) against
+// 2 (2 n c + 3 c inner) bytes: tensor-core bound, 0.061 ms at (6144, 640,
+// inner 2560) and (24576, 320, inner 1280).  The design adds the
+// intermediate `a` (n x inner bf16), written once by the up kernel and read
+// once by the down kernel: 2 n inner 2 bytes, 63 MB at 6144 x 2560 and 126
+// MB at 24576 x 1280 (the down kernel runs right after the up kernel, so
+// much of it is served from the 50 MB L2).  The bound does not count it.
+//
+// Design.  The earlier body fused both products in one kernel with a
+// 32-token CTA that re-streamed every weight from L2 (1.9 GB of L2 traffic
+// per call at c = 640); a larger token tile cannot hold its (tokens x c)
+// fp32 accumulator at c = 640, so here the FF is two GEMMs with 128-token
+// tiles:
+//   up:   a[128 x BN] tile; per 64-wide k chunk two wgmma streams from the
+//         same A tile, one against W1 rows [j0, j0+BN) (hidden), one
+//         against rows [inner+j0, ...) (gate), so element e of h pairs with
+//         element e of g in registers and the GEGLU runs in the epilogue.
+//         Modes 1, 2: c <= 320, so the CTA keeps its whole 128 x c A panel
+//         in shared memory (80 KB at c = 320), normalises it in place once
+//         (each consumer warp 16 rows: x read with 16-byte loads, fp32
+//         statistics, written in the TMA swizzle), and only W1 streams.
+//         A CTA takes `tiles` neighbouring column tiles of one row block
+//         (ops/kernels/geglu_ff.py::plan) and normalises its rows once for
+//         all of them, so a row block is normalised inner / (BN tiles)
+//         times: 128 c elements against tiles * 128 * 2 BN * c * 2 FLOPs,
+//         under 1 % of the work, and no separate LN launch.  (The pass is
+//         latency-bound, four rows in flight per warp; the plan weighs it.)
+//         Mode 0 takes `tiles` per CTA too: its ring runs on from one tile
+//         into the next, so the first fill is paid once.
+//   down: out[128 x BN] tile = a W2^T over k = inner.  Modes 0, 1: BN from
+//         {64, 128, 320} chosen per shape on the host (ops/kernels/
+//         geglu_ff.py::plan) to fill the 132 SMs.  Mode 2: BN = c (whole
+//         rows, 160 fp32 accumulators a thread at c = 320); y = bf16(acc) +
+//         b2 + x goes to shared memory as bf16 in the TMA swizzle, W3
+//         streams through a two-stage ring and the same accumulator takes
+//         z = y W3^T.
+// Both kernels: 384 threads, one producer warp (setmaxnreg 40) issuing TMA
+// copies (cp.async.bulk.tensor, 128-byte swizzle, 64-wide k boxes) into a
+// ring of 3-6 stages with full/empty mbarriers, and two consumer
+// warpgroups (setmaxnreg 232), 64 rows each, issuing wgmma.mma_async
+// m64n128k16 / m64n64k16 (bf16 in, fp32 accumulate) from shared memory with
+// descriptors in the same 128-byte swizzle, one commit group in flight.
+// One CTA per SM (up to 208 KB of shared memory).  The tensor maps of the
+// activations change address every call, so the host encodes all of them
+// per call (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, as the
+// build links no -lcuda): four or five encodes a call, a few microseconds
+// of host time.
+// The epilogues store straight from the accumulator fragments.
 //
 // Layout (torch Linear layout, (out, in), contiguous, bf16 unless noted):
-//   x (n, C); w1 (2 * inner, C) rows [hidden | gate]; b1 (2 * inner);
-//   w2 (C, inner); b2 (C); gamma/beta fp32 (C); w3 (C, C); b3 (C);
-//   res (n, C); out (n, C).  n % 32 == 0, inner % 64 == 0, C % 64 == 0.
+//   x (n, c); w1 (2 inner, c) rows [hidden | gate]; b1 (2 inner);
+//   a (n, inner); w2 (c, inner); b2 (c); gamma/beta fp32 (c); w3 (c, c);
+//   b3 (c); res (n, c); out (n, c).  Every operand is K-major, as wgmma
+//   wants both; nothing is transposed.
+// Coverage: n % 128 == 0, inner % 64 == 0, c % 64 == 0, c <= 704 (mode 0)
+// or c <= 320 (modes 1, 2).
+// Registers and spills (-Xptxas -v, printed by chip_smoke.py phase 2):
+// every instantiation 168 registers at entry (the launch bound's share of
+// 384 threads; setmaxnreg then moves them from the producer warpgroup to
+// the consumers) and 0 bytes of spills.
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <math.h>
 
 #include "common.cuh"
 
 namespace svl {
+namespace ff {
 
-constexpr int FF_BM = 32;        // tokens per CTA
-constexpr int FF_IC = 64;        // inner columns per chunk
-constexpr int FF_KS = 64;        // k slab of the staged W1 / W3 tiles
-constexpr int FF_THREADS = 256;  // 8 warps
-constexpr int FF_PAD = 8;        // row padding (bf16) against bank conflicts
+constexpr int BM = 128;        // tokens per CTA (two consumer warpgroups)
+constexpr int BK = 64;         // k per stage: one 128-byte swizzle row
+constexpr int THREADS = 384;   // producer warpgroup + two consumers
+constexpr int TILE_A = BM * BK * 2;           // 16 KB
+constexpr int SMEM_BUDGET = 208 * 1024;       // tiles; + alignment, barriers
+constexpr int SMEM_EXTRA = 1024 + 256;
 
 __device__ __forceinline__ float gelu_erf(float z) {
   return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// --------------------------------------------------------------------- TMA
+
+// One box of a 2-D tensor map (coordinates innermost first) into shared
+// memory; completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Byte offset of element (row, col) of a tile of 128-byte rows in the
+// 128-byte swizzle TMA writes (16-byte unit index XOR row % 8; the tile
+// starts 1024-byte aligned).  col < 64 (bf16).
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Generic-proxy stores to shared memory made visible to wgmma / TMA.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// Descriptor of a K-major operand tile in the 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused (1).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+// One k16 step of a 64 x BN accumulator (BN a multiple of 64): m64n128
+// products over 128-row blocks of the B tile, m64n64 for a 64-row rest.
+// The n128 fragment is two n64 fragments side by side, so acc[32 q ...]
+// always holds columns [64 q, 64 q + 64).
+template <int BN>
+__device__ __forceinline__ void mma_k16(float* acc, uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int q = 0; q < BN / 128; ++q) wgmma_n128(acc + q * 64, da, db + q * 1024);
+  if constexpr (BN % 128 != 0)
+    wgmma_n64(acc + (BN / 128) * 64, da, db + (BN / 128) * 1024);
+}
+
+// One 64-wide k chunk: four k16 steps, the descriptors advanced by 32 bytes
+// (2 in their 16-byte units) inside the swizzled 128-byte rows.
+template <int BN>
+__device__ __forceinline__ void mma_chunk(float* acc, uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) mma_k16<BN>(acc, da + 2 * kk, db + 2 * kk);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+  fence_acc<N>(d);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LayerNorm of 16 rows (r0 ...) of the 128 x C A panel, four rows in
+// flight (their loads issued together: the pass is latency-bound): x rows
+// read with 16-byte loads (a lane takes vectors lane, lane + 32), fp32 mean
+// and variance, affine in fp32, one bf16 rounding, written into the panel's
+// C / 64 swizzled 128 x 64 chunks.  Per row the plain version's
+// correctly rounded sqrt(var + eps), then one reciprocal; per element
+// (x - mean) * (1 / sd) * gamma + beta.
 template <int C>
-struct FFSmem {
-  static constexpr int XS = C + FF_PAD;       // x / LN(x) / y tile stride
-  static constexpr int WS = FF_KS + FF_PAD;   // staged W1 slab stride
-  static constexpr int AS = FF_IC + FF_PAD;   // a tile stride
-  static constexpr int W2S = FF_IC + FF_PAD;  // staged W2 chunk / W3 slab
-  static constexpr int X_ELEMS = FF_BM * XS;
-  static constexpr int W1_ELEMS = 2 * FF_IC * WS;
-  static constexpr int A_ELEMS = FF_BM * AS;
-  static constexpr int W2_ELEMS = C * W2S;
-  static constexpr int BYTES =
-      (X_ELEMS + W1_ELEMS + A_ELEMS + W2_ELEMS) * (int)sizeof(bf16);
+__device__ __forceinline__ void ln_rows(unsigned char* panel, const bf16* x,
+                                       const float* gamma, const float* beta,
+                                       int m0, int r0, int lane, float eps) {
+  constexpr int NV = C / 8, VPL = (NV + 31) / 32, RG = 4;
+  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  const float4* b4 = reinterpret_cast<const float4*>(beta);
+  for (int i0 = 0; i0 < 16; i0 += RG) {
+    float v[RG][VPL][8], mean[RG], rsd[RG];  // rsd: 1 / sqrt(var + eps)
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      const uint4* xr =
+          reinterpret_cast<const uint4*>(x + (size_t)(m0 + r0 + i0 + i) * C);
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        const int idx = lane + 32 * j;
+        if (idx < NV) {
+          const uint4 u = xr[idx];
+          const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[i][j][k] = __bfloat162float(e[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j)
+        if (lane + 32 * j < NV) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) sum += v[i][j][k];
+        }
+      mean[i] = sum;
+    }
+#pragma unroll
+    for (int i = 0; i < RG; ++i) mean[i] = warp_sum(mean[i]) * (1.f / C);
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      float var = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j)
+        if (lane + 32 * j < NV) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            v[i][j][k] -= mean[i];
+            var += v[i][j][k] * v[i][j][k];
+          }
+        }
+      rsd[i] = var;
+    }
+#pragma unroll
+    for (int i = 0; i < RG; ++i)
+      rsd[i] = 1.f / __fsqrt_rn(warp_sum(rsd[i]) / C + eps);
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      const int idx = lane + 32 * j;
+      if (idx < NV) {
+        const float4 ga = g4[2 * idx], gb = g4[2 * idx + 1];
+        const float4 ba = b4[2 * idx], bb = b4[2 * idx + 1];
+        const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+        const float bt[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+        for (int i = 0; i < RG; ++i) {
+          uint32_t o[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            o[k] = pack_bf16x2(
+                v[i][j][2 * k] * rsd[i] * gm[2 * k] + bt[2 * k],
+                v[i][j][2 * k + 1] * rsd[i] * gm[2 * k + 1] + bt[2 * k + 1]);
+          *reinterpret_cast<uint4*>(panel + (idx >> 3) * TILE_A +
+                                    swz(r0 + i0 + i, (idx & 7) * 8)) =
+              make_uint4(o[0], o[1], o[2], o[3]);
+        }
+      }
+    }
+  }
+}
+
+// --------------------------------------------------------------- up kernel
+
+// CLN = 0: mode 0, A streams with W1; CLN = C: modes 1, 2, the LN'd A
+// panel (C / 64 chunks) stays resident and only W1 streams.
+template <int BN, int CLN>
+struct UpPlan {
+  static constexpr int TILE_W = BN * BK * 2;
+  static constexpr int STAGE = (CLN ? 0 : TILE_A) + 2 * TILE_W;
+  static constexpr int PANEL = CLN / 64 * TILE_A;
+  static constexpr int S0 = (SMEM_BUDGET - PANEL) / STAGE;
+  static constexpr int STAGES = S0 > 6 ? 6 : S0;
+  static constexpr int BYTES = PANEL + STAGES * STAGE + SMEM_EXTRA;
+  static_assert(STAGES >= 3, "ring too shallow");
 };
 
-// rows x 64 columns of a row-major bf16 matrix (row stride ld) into shared
-// memory with row stride sld, in 16-byte vectors.
-__device__ __forceinline__ void stage64(bf16* dst, int sld, const bf16* src,
-                                        size_t ld, int rows) {
-  for (int i = threadIdx.x; i < rows * 8; i += FF_THREADS) {
-    const int r = i >> 3, c8 = i & 7;
-    *reinterpret_cast<uint4*>(dst + r * sld + c8 * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c8 * 8);
-  }
-}
+// a = bf16(h * gelu(g)), [h; g] = P(x) W1^T + b1: a CTA takes `tiles`
+// neighbouring 128 x BN tiles of a in one row block (one LN of its rows for
+// all of them; the ring runs on across tiles, so the next tile's loads
+// overlap this one's epilogue); grid (inner / (BN tiles), n / 128).
+template <int BN, int CLN>
+__global__ void __launch_bounds__(THREADS, 1)
+    geglu_up_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_w1,
+                    const bf16* __restrict__ x, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, const bf16* __restrict__ b1,
+                    bf16* __restrict__ a, int c, int inner, int tiles,
+                    float eps) {
+  using P = UpPlan<BN, CLN>;
+  constexpr bool LN = CLN > 0;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t ring = base + P::PANEL;
+  const uint32_t bars = ring + P::STAGES * P::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (P::STAGES + s); };
 
-template <int C, int MODE>
-__global__ void __launch_bounds__(FF_THREADS)
-    geglu_ff_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const bf16* __restrict__ w1,
-                    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                    const bf16* __restrict__ b2, const bf16* __restrict__ w3,
-                    const bf16* __restrict__ b3, const bf16* __restrict__ res,
-                    bf16* __restrict__ out, int n, int inner, float eps) {
-  using S = FFSmem<C>;
-  constexpr int NT = C / 32;  // 8-column output tiles per warp (C/4 cols)
-  extern __shared__ __align__(16) unsigned char ff_smem[];
-  bf16* xs = reinterpret_cast<bf16*>(ff_smem);
-  bf16* w1s = xs + S::X_ELEMS;
-  bf16* as = w1s + S::W1_ELEMS;
-  bf16* w2s = as + S::A_ELEMS;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp & 1, wc = warp >> 1;  // 2 row groups x 4 col groups
-  const int row0 = blockIdx.x * FF_BM;
-
-  // ---- prologue: x tile, or LN(x) in fp32 rounded to bf16
-  if (MODE == 0) {
-    for (int i = tid; i < FF_BM * (C / 8); i += FF_THREADS) {
-      const int r = i / (C / 8), c8 = i % (C / 8);
-      *reinterpret_cast<uint4*>(xs + r * S::XS + c8 * 8) =
-          *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * C + c8 * 8);
+  const int nk = LN ? CLN / BK : c / BK;
+  const int jb = blockIdx.x * tiles * BN, m0 = blockIdx.y * BM;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
     }
-  } else {
-    for (int r = warp; r < FF_BM; r += FF_THREADS / 32) {
-      const bf16* xr = x + (size_t)(row0 + r) * C;
-      float sum = 0.f;
-      for (int c = lane; c < C; c += 32) sum += __bfloat162float(xr[c]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float mean = sum / C;
-      float var = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float dv = __bfloat162float(xr[c]) - mean;
-        var += dv * dv;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
-      const float rstd = rsqrtf(var / C + eps);
-      for (int c = lane; c < C; c += 32) {
-        const float ln = (__bfloat162float(xr[c]) - mean) * rstd * gamma[c] + beta[c];
-        xs[r * S::XS + c] = __float2bfloat16_rn(ln);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      if (!LN) tma_prefetch(&tm_x);
+      tma_prefetch(&tm_w1);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int j0 = jb; j0 < jb + tiles * BN; j0 += BN)
+        for (int it = 0; it < nk; ++it) {
+          mbar_wait(empty(s), ph ^ 1);
+          mbar_expect_tx(full(s), P::STAGE);
+          const uint32_t st = ring + s * P::STAGE;
+          const int k0 = it * BK;
+          if (!LN) tma_load(st, &tm_x, k0, m0, full(s));
+          const uint32_t wt = st + (LN ? 0 : TILE_A);
+          tma_load(wt, &tm_w1, k0, j0, full(s));
+          tma_load(wt + P::TILE_W, &tm_w1, k0, inner + j0, full(s));
+          if (++s == P::STAGES) { s = 0; ph ^= 1; }
+        }
+    }
+  } else {  // consumers: rows [64 cw, 64 cw + 64) of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    if constexpr (LN) {
+      ln_rows<CLN>(gbase, x, gamma, beta, m0, cw * 64 + wq * 16, lane, eps);
+      fence_async_smem();
+      named_sync(2 + cw, 128);
+    }
+    const int t = lane & 3, row0 = m0 + cw * 64 + wq * 16 + (lane >> 2);
+    int s = 0, prev = 0;
+    uint32_t ph = 0;
+    for (int j0 = jb; j0 < jb + tiles * BN; j0 += BN) {
+      float h[BN / 2], g[BN / 2];
+      zero_acc<BN / 2>(h);
+      zero_acc<BN / 2>(g);
+      for (int it = 0; it < nk; ++it) {
+        mbar_wait(full(s), ph);
+        const uint32_t st = ring + s * P::STAGE;
+        const uint32_t at = LN ? base + it * TILE_A : st;
+        const uint64_t da = desc_sw128(at + cw * 64 * 128);
+        const uint32_t wt = st + (LN ? 0 : TILE_A);
+        wgmma_fence();
+        mma_chunk<BN>(h, da, desc_sw128(wt));
+        mma_chunk<BN>(g, da, desc_sw128(wt + P::TILE_W));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (it > 0 && lane == 0) mbar_arrive(empty(prev));
+        prev = s;
+        if (++s == P::STAGES) { s = 0; ph ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_acc<BN / 2>(h);
+      fence_acc<BN / 2>(g);
+      if (lane == 0) mbar_arrive(empty(prev));
 
-  for (int ic0 = 0; ic0 < inner; ic0 += FF_IC) {
-    // ---- phase 1: h, g (32 x 64 each) = x (32 x C) . W1 chunk^T
-    float hacc[2][4], gacc[2][4];
+      // fragment: h[4 q + 2 r + e] at row 16 wq + lane / 4 + 8 r, column
+      // 8 q + 2 (lane % 4) + e of this warpgroup's 64 x BN block
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int q = 0; q < BN / 8; ++q) {
+        const int col = j0 + q * 8 + 2 * t;
+        const __nv_bfloat162 bh = *reinterpret_cast<const __nv_bfloat162*>(b1 + col);
+        const __nv_bfloat162 bg =
+            *reinterpret_cast<const __nv_bfloat162*>(b1 + inner + col);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) hacc[nt][e] = gacc[nt][e] = 0.f;
-    for (int k0 = 0; k0 < C; k0 += FF_KS) {
-      __syncthreads();
-      stage64(w1s, S::WS, w1 + (size_t)ic0 * C + k0, C, FF_IC);
-      stage64(w1s + FF_IC * S::WS, S::WS, w1 + (size_t)(inner + ic0) * C + k0,
-              C, FF_IC);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FF_KS; kk += 16) {
-        uint32_t a[4];
-        load_a_frag(a, xs, S::XS, wr * 16, k0 + kk, lane);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          uint32_t b0, b1;
-          load_b_frag(b0, b1, w1s, S::WS, wc * 16 + nt * 8, kk, lane);
-          mma_16816(hacc[nt], a, b0, b1);
-          load_b_frag(b0, b1, w1s + FF_IC * S::WS, S::WS, wc * 16 + nt * 8, kk,
-                      lane);
-          mma_16816(gacc[nt], a, b0, b1);
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * q + 2 * r;
+          const float h0 = bf16r(bf16r(h[i]) + __low2float(bh));
+          const float h1 = bf16r(bf16r(h[i + 1]) + __high2float(bh));
+          const float g0 = bf16r(bf16r(g[i]) + __low2float(bg));
+          const float g1 = bf16r(bf16r(g[i + 1]) + __high2float(bg));
+          *reinterpret_cast<uint32_t*>(a + (size_t)(row0 + 8 * r) * inner + col) =
+              pack_bf16x2(h0 * gelu_erf(g0), h1 * gelu_erf(g1));
         }
       }
-    }
-    // a = bf16(h * gelu(g)) into shared memory
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = wc * 16 + nt * 8 + 2 * t;
-      const float bh0 = __bfloat162float(b1[ic0 + col]);
-      const float bh1 = __bfloat162float(b1[ic0 + col + 1]);
-      const float bg0 = __bfloat162float(b1[inner + ic0 + col]);
-      const float bg1 = __bfloat162float(b1[inner + ic0 + col + 1]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float h0 = bf16r(bf16r(hacc[nt][2 * r]) + bh0);
-        const float h1 = bf16r(bf16r(hacc[nt][2 * r + 1]) + bh1);
-        const float g0 = bf16r(bf16r(gacc[nt][2 * r]) + bg0);
-        const float g1 = bf16r(bf16r(gacc[nt][2 * r + 1]) + bg1);
-        *reinterpret_cast<uint32_t*>(as + (wr * 16 + g + 8 * r) * S::AS + col) =
-            pack_bf16x2(h0 * gelu_erf(g0), h1 * gelu_erf(g1));
-      }
-    }
-    // W2[:, ic0 : ic0 + 64] (C rows)
-    stage64(w2s, S::W2S, w2 + ic0, inner, C);
-    __syncthreads();
-    // ---- phase 2: acc (32 x C) += a (32 x 64) . W2 chunk^T
-#pragma unroll
-    for (int kk = 0; kk < FF_IC; kk += 16) {
-      uint32_t a[4];
-      load_a_frag(a, as, S::AS, wr * 16, kk, lane);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        load_b_frag(b0, b1, w2s, S::W2S, wc * (C / 4) + nt * 8, kk, lane);
-        mma_16816(acc[nt], a, b0, b1);
-      }
-    }
-  }
-
-  // ---- epilogue: y = bf16(acc) + b2 (+ x)
-  float y[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = wc * (C / 4) + nt * 8 + 2 * t;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + wr * 16 + g + ((e >> 1) << 3);
-      float v = bf16r(bf16r(acc[nt][e]) + __bfloat162float(b2[col + (e & 1)]));
-      if (MODE >= 1) v = bf16r(v + __bfloat162float(x[(size_t)row * C + col + (e & 1)]));
-      y[nt][e] = v;
-    }
-  }
-
-  if (MODE == 2) {
-    // y into the x tile (free since the last phase 1), then z = y . W3^T
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = wc * (C / 4) + nt * 8 + 2 * t;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        *reinterpret_cast<uint32_t*>(xs + (wr * 16 + g + 8 * r) * S::XS + col) =
-            pack_bf16x2(y[nt][2 * r], y[nt][2 * r + 1]);
-        acc[nt][2 * r] = acc[nt][2 * r + 1] = 0.f;
-      }
-    }
-    for (int k0 = 0; k0 < C; k0 += FF_KS) {
-      __syncthreads();
-      stage64(w2s, S::W2S, w3 + k0, C, C);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FF_KS; kk += 16) {
-        uint32_t a[4];
-        load_a_frag(a, xs, S::XS, wr * 16, k0 + kk, lane);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          uint32_t b0, b1;
-          load_b_frag(b0, b1, w2s, S::W2S, wc * (C / 4) + nt * 8, kk, lane);
-          mma_16816(acc[nt], a, b0, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = wc * (C / 4) + nt * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + wr * 16 + g + ((e >> 1) << 3);
-        const float z = bf16r(bf16r(acc[nt][e]) + __bfloat162float(b3[col + (e & 1)]));
-        y[nt][e] = z + __bfloat162float(res[(size_t)row * C + col + (e & 1)]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = wc * (C / 4) + nt * 8 + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + wr * 16 + g + 8 * r;
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * C + col) =
-          pack_bf16x2(y[nt][2 * r], y[nt][2 * r + 1]);
     }
   }
 }
 
-template <int C, int MODE>
-static int launch(const bf16* x, const float* gamma, const float* beta,
-                  const bf16* w1, const bf16* b1, const bf16* w2,
-                  const bf16* b2, const bf16* w3, const bf16* b3,
-                  const bf16* res, bf16* out, int n, int inner, float eps,
-                  cudaStream_t stream) {
-  constexpr int bytes = FFSmem<C>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      geglu_ff_kernel<C, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// ------------------------------------------------------------- down kernel
+
+template <int BN, int MODE>
+struct DownPlan {
+  static constexpr int BOX = BN <= 256 ? BN : BN / 2;  // TMA box rows <= 256
+  static constexpr int TILE_B = BN * BK * 2;
+  static constexpr int STAGE = TILE_A + TILE_B;
+  static constexpr int S0 = SMEM_BUDGET / STAGE;
+  static constexpr int STAGES = S0 > 6 ? 6 : S0;
+  // mode 2 tail, over the drained ring: the y panel, then two W3 stages
+  static constexpr int YP = BN / 64 * TILE_A;
+  static constexpr int TAIL = MODE == 2 ? YP + 2 * TILE_B : 0;
+  static constexpr int TILES =
+      STAGES * STAGE > TAIL ? STAGES * STAGE : TAIL;
+  static constexpr int BYTES = TILES + SMEM_EXTRA;
+  static_assert(STAGES >= 3 && TILES <= SMEM_BUDGET, "shared memory plan");
+};
+
+// out = bf16(a W2^T) + b2 (mode 1: + x); mode 2 (BN = c): y = that + x,
+// out = (bf16(y W3^T) + b3) + res.  One 128 x BN tile of out per CTA; grid
+// (c / BN, n / 128).
+template <int BN, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+    geglu_down_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_w2,
+                      const __grid_constant__ CUtensorMap tm_w3,
+                      const bf16* __restrict__ b2, const bf16* __restrict__ x,
+                      const bf16* __restrict__ b3, const bf16* __restrict__ res,
+                      bf16* __restrict__ out, int c, int inner) {
+  using P = DownPlan<BN, MODE>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + P::TILES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (P::STAGES + s); };
+  auto tfull = [&](int s) { return bars + 8 * (2 * P::STAGES + s); };
+  auto tempty = [&](int s) { return bars + 8 * (2 * P::STAGES + 2 + s); };
+  const uint32_t tail_go = bars + 8 * (2 * P::STAGES + 4);
+
+  const int nk = inner / BK;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(tfull(s), 1);
+      mbar_init(tempty(s), 8);
+    }
+    mbar_init(tail_go, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      tma_prefetch(&tm_a);
+      tma_prefetch(&tm_w2);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int it = 0; it < nk; ++it) {
+        mbar_wait(empty(s), ph ^ 1);
+        mbar_expect_tx(full(s), P::STAGE);
+        const uint32_t st = base + s * P::STAGE;
+        tma_load(st, &tm_a, it * BK, m0, full(s));
+#pragma unroll
+        for (int b = 0; b < BN / P::BOX; ++b)
+          tma_load(st + TILE_A + b * P::BOX * 128, &tm_w2, it * BK,
+                   n0 + b * P::BOX, full(s));
+        if (++s == P::STAGES) { s = 0; ph ^= 1; }
+      }
+      if constexpr (MODE == 2) {
+        // W3 streams once the consumers have drained the ring
+        mbar_wait(tail_go, 0);
+        for (int kc = 0; kc < BN / BK; ++kc) {
+          const int ts = kc & 1;
+          mbar_wait(tempty(ts), ((kc >> 1) & 1) ^ 1);
+          mbar_expect_tx(tfull(ts), P::TILE_B);
+          const uint32_t st = base + P::YP + ts * P::TILE_B;
+#pragma unroll
+          for (int b = 0; b < BN / P::BOX; ++b)
+            tma_load(st + b * P::BOX * 128, &tm_w3, kc * BK, b * P::BOX,
+                     tfull(ts));
+        }
+      }
+    }
+  } else {  // consumers: rows [64 cw, 64 cw + 64) of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    float acc[BN / 2];
+    zero_acc<BN / 2>(acc);
+    int s = 0, prev = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < nk; ++it) {
+      mbar_wait(full(s), ph);
+      const uint32_t st = base + s * P::STAGE;
+      wgmma_fence();
+      mma_chunk<BN>(acc, desc_sw128(st + cw * 64 * 128), desc_sw128(st + TILE_A));
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (it > 0 && lane == 0) mbar_arrive(empty(prev));
+      prev = s;
+      if (++s == P::STAGES) { s = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_acc<BN / 2>(acc);
+
+    // fragment: acc[4 q + 2 r + e] at row 16 wq + lane / 4 + 8 r, column
+    // 8 q + 2 (lane % 4) + e of this warpgroup's 64 x BN block
+    const int t = lane & 3, prow = cw * 64 + wq * 16 + (lane >> 2);
+    const int row0 = m0 + prow;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int col = n0 + q * 8 + 2 * t;
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(b2 + col);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * q + 2 * r;
+        const size_t off = (size_t)(row0 + 8 * r) * c + col;
+        float v0 = bf16r(bf16r(acc[i]) + __low2float(bb));
+        float v1 = bf16r(bf16r(acc[i + 1]) + __high2float(bb));
+        if constexpr (MODE >= 1) {
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + off);
+          v0 = bf16r(v0 + __low2float(xv));
+          v1 = bf16r(v1 + __high2float(xv));
+        }
+        if constexpr (MODE < 2) {
+          *reinterpret_cast<uint32_t*>(out + off) = pack_bf16x2(v0, v1);
+        } else {
+          acc[i] = v0;
+          acc[i + 1] = v1;
+        }
+      }
+    }
+
+    if constexpr (MODE == 2) {
+      // both warpgroups are done with the ring: W3 may stream, y may land
+      named_sync(1, 256);
+      if (threadIdx.x == 128) mbar_arrive(tail_go);
+#pragma unroll
+      for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * q + 2 * r, col = q * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(gbase + (col >> 6) * TILE_A +
+                                       swz(prow + 8 * r, col & 63)) =
+              pack_bf16x2(acc[i], acc[i + 1]);
+        }
+      fence_async_smem();
+      named_sync(2 + cw, 128);
+      zero_acc<BN / 2>(acc);
+      for (int kc = 0; kc < BN / BK; ++kc) {
+        const int ts = kc & 1;
+        mbar_wait(tfull(ts), (kc >> 1) & 1);
+        wgmma_fence();
+        mma_chunk<BN>(acc, desc_sw128(base + kc * TILE_A + cw * 64 * 128),
+                      desc_sw128(base + P::YP + ts * P::TILE_B));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kc > 0 && lane == 0) mbar_arrive(tempty(ts ^ 1));
+      }
+      wgmma_wait<0>();
+      fence_acc<BN / 2>(acc);
+#pragma unroll
+      for (int q = 0; q < BN / 8; ++q) {
+        const int col = q * 8 + 2 * t;
+        const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(b3 + col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * q + 2 * r;
+          const size_t off = (size_t)(row0 + 8 * r) * c + col;
+          const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(res + off);
+          const float z0 = bf16r(bf16r(acc[i]) + __low2float(bb));
+          const float z1 = bf16r(bf16r(acc[i + 1]) + __high2float(bb));
+          *reinterpret_cast<uint32_t*>(out + off) =
+              pack_bf16x2(z0 + __low2float(rv), z1 + __high2float(rv));
+        }
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A rows x cols row-major bf16 matrix read in boxes of 64 columns (128
+// bytes, the swizzle span) x box_rows rows.
+static bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
+                   int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, int CLN>
+static int launch_up(const CUtensorMap& tx, const CUtensorMap& tw,
+                     const bf16* x, const float* gamma, const float* beta,
+                     const bf16* b1, bf16* a, int n, int c, int inner,
+                     int tiles, float eps, cudaStream_t stream) {
+  constexpr int bytes = UpPlan<BN, CLN>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      geglu_up_kernel<BN, CLN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  geglu_ff_kernel<C, MODE><<<n / FF_BM, FF_THREADS, bytes, stream>>>(
-      x, gamma, beta, w1, b1, w2, b2, w3, b3, res, out, n, inner, eps);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  geglu_up_kernel<BN, CLN>
+      <<<dim3(inner / (BN * tiles), n / BM), THREADS, bytes, stream>>>(
+          tx, tw, x, gamma, beta, b1, a, c, inner, tiles, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN, int MODE>
+static int launch_down(const CUtensorMap& ta, const CUtensorMap& tw2,
+                       const CUtensorMap& tw3, const bf16* b2, const bf16* x,
+                       const bf16* b3, const bf16* res, bf16* out, int n,
+                       int c, int inner, cudaStream_t stream) {
+  constexpr int bytes = DownPlan<BN, MODE>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      geglu_down_kernel<BN, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  geglu_down_kernel<BN, MODE><<<dim3(c / BN, n / BM), THREADS, bytes, stream>>>(
+      ta, tw2, tw3, b2, x, b3, res, out, c, inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static bool covered(int n, int c, int inner, bool ln) {
+  return n > 0 && n % BM == 0 && inner > 0 && inner % BK == 0 && c > 0 &&
+         c % 64 == 0 && c <= (ln ? 320 : 704);
+}
+
+}  // namespace ff
 }  // namespace svl
 
-// mode 0: K5 geglu_ff; 1: K3 ln_geglu_ff; 2: K4 ln_geglu_ff_proj.  Returns
-// 0 on success, a cudaError_t code after a failed launch, or -1 for a shape
-// this build does not cover: c must be a multiple of 64, at most 704 for
-// mode 0 and 320 for the LN modes (the JAX site gates: weights <= 12 MB,
-// c <= 320); n % 32 == 0; inner % 64 == 0.
-extern "C" int svl_geglu_ff_fwd(const void* x, const void* gamma,
-                                const void* beta, const void* w1,
-                                const void* b1, const void* w2, const void* b2,
-                                const void* w3, const void* b3,
-                                const void* res, void* out, int n, int c,
-                                int inner, float eps, int mode, void* stream) {
+// a (n, inner) = bf16(h * gelu(g)), [h; g] = P(x) W1^T + b1, P = LayerNorm
+// (gamma, beta, eps) if ln else the identity; bn (64 or 128, dividing
+// inner) the column tile, tiles (dividing inner / bn) the tiles a CTA takes.  Returns 0, a cudaError_t code, or -1 for a shape
+// this build does not cover (n % 128, inner % 64, c % 64 == 0, c <= 704,
+// or c <= 320 with ln).
+extern "C" int svl_geglu_up(const void* x, const void* gamma, const void* beta,
+                            const void* w1, const void* b1, void* a, int n,
+                            int c, int inner, float eps, int ln, int bn,
+                            int tiles, void* stream) {
+  using namespace svl::ff;
   using svl::bf16;
-  if (n % svl::FF_BM != 0 || inner % svl::FF_IC != 0 || mode < 0 || mode > 2)
+  if (!covered(n, c, inner, ln) || (bn != 64 && bn != 128) || inner % bn ||
+      tiles < 1 || (inner / bn) % tiles)
     return -1;
-  const bf16* xx = static_cast<const bf16*>(x);
-  const float* gg = static_cast<const float*>(gamma);
-  const float* bb = static_cast<const float*>(beta);
-  const bf16* w1p = static_cast<const bf16*>(w1);
+  CUtensorMap tx{}, tw{};
+  if ((!ln && !encode(&tx, x, n, c, BM)) || !encode(&tw, w1, 2 * inner, c, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const float* gp = static_cast<const float*>(gamma);
+  const float* bp = static_cast<const float*>(beta);
   const bf16* b1p = static_cast<const bf16*>(b1);
-  const bf16* w2p = static_cast<const bf16*>(w2);
+  bf16* ap = static_cast<bf16*>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SVL_UP(BN, C) \
+  return launch_up<BN, C>(tx, tw, xp, gp, bp, b1p, ap, n, c, inner, tiles, \
+                          eps, s)
+#define SVL_UP_BN(C) \
+  if (bn == 128) SVL_UP(128, C); \
+  SVL_UP(64, C)
+  if (!ln) { SVL_UP_BN(0); }
+  switch (c) {
+    case 64: SVL_UP_BN(64);
+    case 128: SVL_UP_BN(128);
+    case 192: SVL_UP_BN(192);
+    case 256: SVL_UP_BN(256);
+    case 320: SVL_UP_BN(320);
+    default: return -1;
+  }
+#undef SVL_UP_BN
+#undef SVL_UP
+}
+
+// out (n, c) from a (n, inner): mode 0 bf16(a W2^T) + b2; mode 1 that + x;
+// mode 2 (bn == c) y = that + x, out = (bf16(y W3^T) + b3) + res.  bn, the
+// column tile of modes 0 and 1, is 64, 128 or 320 and divides c.  Returns
+// as svl_geglu_up.
+extern "C" int svl_geglu_down(const void* a, const void* w2, const void* b2,
+                              const void* x, const void* w3, const void* b3,
+                              const void* res, void* out, int n, int c,
+                              int inner, int mode, int bn, void* stream) {
+  using namespace svl::ff;
+  using svl::bf16;
+  if (mode < 0 || mode > 2 || !covered(n, c, inner, mode > 0)) return -1;
+  if (mode == 2 ? bn != c
+                : ((bn != 64 && bn != 128 && bn != 320) || c % bn))
+    return -1;
+  const int box = bn <= 256 ? bn : bn / 2;
+  CUtensorMap ta{}, tw2{}, tw3{};
+  if (!encode(&ta, a, n, inner, BM) || !encode(&tw2, w2, c, inner, box) ||
+      (mode == 2 && !encode(&tw3, w3, c, c, box)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bf16* b2p = static_cast<const bf16*>(b2);
-  const bf16* w3p = static_cast<const bf16*>(w3);
+  const bf16* xp = static_cast<const bf16*>(x);
   const bf16* b3p = static_cast<const bf16*>(b3);
   const bf16* rp = static_cast<const bf16*>(res);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SVL_ARGS xx, gg, bb, w1p, b1p, w2p, b2p, w3p, b3p, rp, op, n, inner, eps, s
-#define SVL_LN_CASE(CV)                                            \
-  case CV:                                                         \
-    if (mode == 0) return svl::launch<CV, 0>(SVL_ARGS);            \
-    if (mode == 1) return svl::launch<CV, 1>(SVL_ARGS);            \
-    return svl::launch<CV, 2>(SVL_ARGS);
-#define SVL_CASE(CV) \
-  case CV:           \
-    if (mode == 0) return svl::launch<CV, 0>(SVL_ARGS); \
-    return -1;
+#define SVL_DOWN(BN, MODE)                                                    \
+  return launch_down<BN, MODE>(ta, tw2, tw3, b2p, xp, b3p, rp, op, n, c,     \
+                               inner, s)
+#define SVL_DOWN_BN(MODE)              \
+  if (bn == 64) SVL_DOWN(64, MODE);    \
+  if (bn == 128) SVL_DOWN(128, MODE);  \
+  SVL_DOWN(320, MODE)
+  if (mode == 0) { SVL_DOWN_BN(0); }
+  if (mode == 1) { SVL_DOWN_BN(1); }
   switch (c) {
-    SVL_LN_CASE(64) SVL_LN_CASE(128) SVL_LN_CASE(192) SVL_LN_CASE(256)
-    SVL_LN_CASE(320)
-    SVL_CASE(384) SVL_CASE(448) SVL_CASE(512) SVL_CASE(576) SVL_CASE(640)
-    SVL_CASE(704)
+    case 64: SVL_DOWN(64, 2);
+    case 128: SVL_DOWN(128, 2);
+    case 192: SVL_DOWN(192, 2);
+    case 256: SVL_DOWN(256, 2);
+    case 320: SVL_DOWN(320, 2);
     default: return -1;
   }
-#undef SVL_CASE
-#undef SVL_LN_CASE
-#undef SVL_ARGS
-  return -1;
+#undef SVL_DOWN_BN
+#undef SVL_DOWN
 }

@@ -1,4 +1,4 @@
-"""K3 / K4 / K5: fused GEGLU feed-forward (CUDA C++, ``csrc/geglu_ff.cu``).
+"""K3 / K4 / K5: the GEGLU feed-forward (CUDA C++, ``csrc/geglu_ff.cu``).
 
 Replaces ``seervideoldm_tpu/ops/pallas/geglu_ff.py``:
 
@@ -7,16 +7,26 @@ Replaces ``seervideoldm_tpu/ops/pallas/geglu_ff.py``:
 - K4 ``ln_geglu_ff_proj``: res + proj_out(x + FF(LN(x))), the whole
   transformer-site tail.
 
-One kernel body with a compile-time mode covers all three, keeping the
-TPU kernels' bf16 rounding points.  On the H100 it is tensor-core bound;
-the weights the TPU kept resident in VMEM stream from L2 through shared
-memory in 64-wide inner chunks (see the source note).
+On the H100 each is two GEMM kernels (wgmma fed by a TMA ring; see the
+source note), launched back to back on the current stream: the up kernel
+writes ``a = bf16(h * gelu(g))`` (n, inner), with the LayerNorm of modes 1
+and 2 as its prologue, and the down kernel reads it back and applies the
+epilogue of the mode (+ b2, + x, and for K4 the proj_out tail).  The split
+keeps the TPU kernels' bf16 rounding points: ``a`` is rounded to bf16 there
+too.  ``geglu_up_plain`` / ``geglu_down_plain`` are the two halves' plain
+versions (their composition is the plain version of each mode, bit for
+bit), ``geglu_up`` / ``geglu_down`` run one half alone (the card checks
+hold each against its plain version), and ``plan`` picks the column tiles
+per shape.  One call of a public wrapper is one launch in its counter,
+although it makes two CUDA launches: the counters count site calls, as the
+per-step launch counts of the main paths expect.
 
 Weights are taken in torch Linear layout, ``(out, in)``: ``w1`` (2 * inner,
 c) with rows [hidden | gate], ``w2`` (c, inner), ``w3`` (c, c).  The
-wrappers run the plain versions for CPU tensors and the kernel for CUDA
-tensors; there is no other path.  ``feed_forward`` is the FF site of the
-shapes no kernel takes (the plain chain on either device).
+wrappers run the plain versions for CPU tensors and the kernels for CUDA
+tensors; there is no other path, and a CUDA shape the kernels do not cover
+(``covers``) raises.  ``feed_forward`` is the FF site of the shapes no
+kernel takes (the plain chain on either device).
 
 Backward: the JAX package computes the GEGLU gradients outside any Pallas
 kernel (an XLA chain rule that recomputes the intermediates from the saved
@@ -28,6 +38,7 @@ inputs that need one, so a frozen site pays for no weight-gradient GEMM.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,6 +51,13 @@ LN_EPS = 1e-5  # ops/norms.LayerNorm default (torch parity)
 # by 256, and only c <= 320 takes the LN-fused forms.
 W_BUDGET_BYTES = 12 * 1024 * 1024
 LN_FUSE_MAX_C = 320
+# What the CUDA kernels cover (csrc/geglu_ff.cu): 128-token tiles, 64-wide
+# k chunks; c <= 704 for mode 0 (the weight budget's widest c), <= 320 for
+# the LN modes (the A panel kept in shared memory).
+TILE_M, TILE_K, KERNEL_MAX_C = 128, 64, 704
+DOWN_TILES = (64, 128, 320)   # column tiles of the down kernel, modes 0, 1
+SMS = 132                     # H100 SXM streaming multiprocessors
+UP_FIXED, UP_FIXED_LN = 0.6, 1.35   # an up CTA's fixed cost, in tiles (plan)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +96,65 @@ def ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
     return (z + b3.to(x.dtype)) + res
 
 
+def geglu_up_plain(x, gamma, beta, w1, b1, ln):
+    """The up kernel's plain version: ``a = bf16(h * gelu(g))`` with
+    ``[h; g] = P(x) W1 + b1``, P the LayerNorm if ``ln`` else the identity;
+    the rounding points of ``geglu_ff_plain``."""
+    if ln:
+        x = _layer_norm(x, gamma, beta)
+    inner = w1.shape[0] // 2
+    pre = torch.matmul(x, w1.t()).to(x.dtype) + b1.to(x.dtype)
+    h, g = pre[..., :inner], pre[..., inner:]
+    return (h.float() * _gelu(g.float())).to(x.dtype)
+
+
+def geglu_down_plain(a, w2, b2, x, w3, b3, res, mode):
+    """The down kernel's plain version: ``bf16(a W2) + b2``; mode 1 adds
+    ``x``; mode 2 adds ``x`` and applies the proj_out tail (fp32
+    accumulate, bf16 bias add, + ``res``)."""
+    out = torch.matmul(a, w2.t()).to(a.dtype) + b2.to(a.dtype)
+    if mode == 0:
+        return out
+    y = out + x
+    if mode == 1:
+        return y
+    z = torch.matmul(y.float(), w3.to(y.dtype).float().t()).to(x.dtype)
+    return (z + b3.to(x.dtype)) + res
+
+
+def covers(mode: int, n: int, c: int, inner: int) -> bool:
+    """Whether the CUDA kernels of ``mode`` take (n, c, inner): n a
+    multiple of 128, c and inner of 64, c <= 704 (mode 0) or 320."""
+    max_c = KERNEL_MAX_C if mode == 0 else LN_FUSE_MAX_C
+    return (n > 0 and n % TILE_M == 0 and 0 < c <= max_c and c % 64 == 0
+            and inner > 0 and inner % TILE_K == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, c: int, inner: int, mode: int) -> dict:
+    """Column tiles of the two kernels for one covered shape.  Up: tiles
+    of 128 columns of ``a`` (64 when inner % 128 != 0); a CTA takes ``t``
+    neighbouring tiles of one row block, the divisor of the tile count with
+    the least ceil(CTAs / SMs) * (t + f): waves times a CTA's time in tiles
+    plus its fixed cost f, the ring's first fill and the epilogue (0.6 of a
+    tile), and for the LN modes the LayerNorm of its rows (1.35), which it
+    then pays once for all its tiles (f fitted to the sweep of every t at
+    the main-path shapes on an H100, PERF.md).  Down: whole rows (c) for
+    mode 2; else the widest tile of ``DOWN_TILES`` dividing c that still
+    gives every SM a CTA, or the narrowest if none does (the sweep's best
+    or within 6 % of it at every main-path shape, PERF.md)."""
+    up = 128 if inner % 128 == 0 else 64
+    rows, cols = n // TILE_M, inner // up
+    fixed = UP_FIXED_LN if mode else UP_FIXED
+    tiles = min((t for t in range(1, cols + 1) if cols % t == 0),
+                key=lambda t: -(-rows * (cols // t) // SMS) * (t + fixed))
+    fits = [bn for bn in DOWN_TILES if c % bn == 0]
+    full = [bn for bn in fits if rows * (c // bn) >= SMS]
+    down = c if mode == 2 else max(full) if full else min(fits)
+    return {"up_bn": up, "up_tiles": tiles, "down_bn": down,
+            "up_ctas": rows * (cols // tiles), "down_ctas": rows * (c // down)}
+
+
 def geglu_ff_supported(n: int, c: int, inner: int, x: torch.Tensor) -> bool:
     """The site gate of ``geglu_ff.py::geglu_ff_supported``: bf16 (any
     dtype for a CPU tensor, which takes the plain version), inner % 256 ==
@@ -114,37 +191,118 @@ _NAMES = {0: "geglu_ff", 1: "ln_geglu_ff", 2: "ln_geglu_ff_proj",
 KERNEL_MODES = (0, 1, 2)   # mode 3 is the plain chain on every device
 
 
-def _launch(mode: int, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
-    what = _NAMES[mode]
-    n, c = x.shape
-    inner = w2.shape[1]
+_LIB = None
+
+
+def _lib():
+    """The loaded ``csrc/geglu_ff.cu`` library, its C signatures set once."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("geglu_ff")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.svl_geglu_up.argtypes = [ptr] * 6 + [i32] * 3 + [
+            ctypes.c_float, i32, i32, i32, ptr]
+        lib.svl_geglu_up.restype = i32
+        lib.svl_geglu_down.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        lib.svl_geglu_down.restype = i32
+        _LIB = lib
+    return _LIB
+
+
+def _as(t, dtype):
+    """``t`` as a contiguous ``dtype`` tensor, itself when it already is
+    one (no dispatch: the wrappers' host time is on the sampling path)."""
+    if t is None or (t.dtype == dtype and t.is_contiguous()):
+        return t
+    return t.detach().to(dtype).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(what: str, mode: int, x, n: int, c: int, inner: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what}: kernel takes bf16, got {x.dtype}")
-    max_c = 704 if mode == 0 else LN_FUSE_MAX_C
-    if c % 64 or c > max_c or n % 32 or inner % 64:
-        raise ValueError(f"{what}: shape n={n} c={c} inner={inner} not covered")
-    bf = lambda t: t.detach().to(torch.bfloat16).contiguous()  # noqa: E731
-    f32 = lambda t: t.detach().to(torch.float32).contiguous()  # noqa: E731
-    x = x.contiguous()
-    args = [x, f32(gamma) if gamma is not None else None,
-            f32(beta) if beta is not None else None, bf(w1), bf(b1), bf(w2),
-            bf(b2), bf(w3) if w3 is not None else None,
-            bf(b3) if b3 is not None else None,
-            res.contiguous() if res is not None else None]
-    out = torch.empty_like(x)
-    lib = build.load("geglu_ff")
-    fn = lib.svl_geglu_ff_fwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ptrs = [build.ptr(a) if a is not None else None for a in args]
-    code = fn(*ptrs, build.ptr(out), n, c, inner, LN_EPS, mode,
-              build.stream_of(x))
+    if not covers(mode, n, c, inner):
+        raise ValueError(f"{what}: shape n={n} c={c} inner={inner} not "
+                         "covered (n % 128, c % 64, inner % 64 == 0; c <= "
+                         f"{KERNEL_MAX_C if mode == 0 else LN_FUSE_MAX_C})")
+
+
+def _up_launch(what, x, gamma, beta, w1, b1, ln: bool, bn: int, tiles: int,
+               stream):
+    n, c = x.shape
+    inner = w1.shape[0] // 2
+    bf, f32 = torch.bfloat16, torch.float32
+    x, gamma, beta = _as(x, bf), _as(gamma, f32), _as(beta, f32)
+    w1, b1 = _as(w1, bf), _as(b1, bf)
+    a = torch.empty(n, inner, dtype=bf, device=x.device)
+    lib = _lib()
+    code = lib.svl_geglu_up(x.data_ptr(), _ptr(gamma), _ptr(beta),
+                            w1.data_ptr(), b1.data_ptr(), a.data_ptr(), n, c,
+                            inner, LN_EPS, int(ln), bn, tiles, stream)
     build.check(lib, code, what)
+    return a
+
+
+def _down_launch(what, a, w2, b2, x, w3, b3, res, mode: int, bn: int,
+                 stream):
+    n, inner = a.shape
+    c = w2.shape[0]
+    bf = torch.bfloat16
+    a, w2, b2, x = _as(a, bf), _as(w2, bf), _as(b2, bf), _as(x, bf)
+    w3, b3, res = _as(w3, bf), _as(b3, bf), _as(res, bf)
+    out = torch.empty(n, c, dtype=bf, device=a.device)
+    lib = _lib()
+    code = lib.svl_geglu_down(a.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                              _ptr(x), _ptr(w3), _ptr(b3), _ptr(res),
+                              out.data_ptr(), n, c, inner, mode, bn, stream)
+    build.check(lib, code, what)
+    return out
+
+
+def _launch(mode: int, x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
+    what = _NAMES[mode]
+    n, c = x.shape
+    inner = w2.shape[1]
+    _check(what, mode, x, n, c, inner)
+    p = plan(n, c, inner, mode)
+    stream = build.stream_of(x)
+    a = _up_launch(what, x, gamma, beta, w1, b1, mode > 0, p["up_bn"],
+                   p["up_tiles"], stream)
+    out = _down_launch(what, a, w2, b2, x, w3, b3, res, mode, p["down_bn"],
+                       stream)
     _WRAPPERS[mode].launches += 1
     return out
+
+
+def geglu_up(x, gamma, beta, w1, b1, ln: bool):
+    """The up kernel alone (its plain version for a CPU tensor): ``a``
+    (n, inner).  Not a site: it counts no launch."""
+    if x.device.type == "cpu":
+        return geglu_up_plain(x, gamma, beta, w1, b1, ln)
+    n, c = x.shape
+    inner = w1.shape[0] // 2
+    _check("geglu_up", int(ln), x, n, c, inner)
+    p = plan(n, c, inner, int(ln))
+    return _up_launch("geglu_up", x, gamma, beta, w1, b1, ln, p["up_bn"],
+                      p["up_tiles"], build.stream_of(x))
+
+
+def geglu_down(a, w2, b2, x, w3, b3, res, mode: int):
+    """The down kernel alone (its plain version for a CPU tensor): (n, c)
+    from ``a``.  Not a site: it counts no launch."""
+    if a.device.type == "cpu":
+        return geglu_down_plain(a, w2, b2, x, w3, b3, res, mode)
+    n, inner = a.shape
+    c = w2.shape[0]
+    _check("geglu_down", mode, a, n, c, inner)
+    return _down_launch("geglu_down", a, w2, b2, x, w3, b3, res, mode,
+                        plan(n, c, inner, mode)["down_bn"],
+                        build.stream_of(a))
 
 
 def _compute(mode: int, *tensors):

@@ -10,7 +10,8 @@ Small shapes of each kernel's main-path form, bf16 inputs from a seed,
 tolerance 2e-2 abs + 2e-2 rel on bf16 outputs (as ``chip_smoke.py``); for
 the backward kernels (K7, K8) the same bound and a relative L2 error of at
 most 1e-2 on each of dq, dk, dv, at odd shapes: n not a multiple of 64, n != m, a fully
-masked tail tile, a non-contiguous ``grad_output``, d = 80.  K6 and K9 (the
+masked tail tile, a non-contiguous ``grad_output``, d = 80.  K3-K5 also
+as their two halves, the up and the down kernel, each alone.  K6 and K9 (the
 pre-rotated and in-kernel-trig modes of the SWAT kernels) the same, with
 ``rot_dim`` 0 and 32.  K10 (the softmax calibration): the final scores and
 the row sums within 1e-5 relative of its plain version, from 0 passes up.
@@ -69,18 +70,28 @@ def test_swat_kernel(gen, d):
                                               True, 8))
 
 
-@pytest.mark.parametrize("mode,c", [(0, 64), (0, 640), (1, 320), (2, 128)])
-def test_geglu_kernel(gen, mode, c):
-    from seervideoldm_tpu_torch.ops.kernels import geglu_ff as K
-
-    n, inner = 512, 4 * c
+def _geglu_inputs(gen, n, c):
+    inner = 4 * c
     x = _randn(gen, n, c)
     w1, b1 = _randn(gen, 2 * inner, c, scale=c ** -0.5), _randn(gen, 2 * inner)
     w2, b2 = _randn(gen, c, inner, scale=inner ** -0.5), _randn(gen, c)
     gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
     beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
     w3, b3 = _randn(gen, c, c, scale=c ** -0.5), _randn(gen, c)
-    res = _randn(gen, n, c)
+    return x, gamma, beta, w1, b1, w2, b2, w3, b3, _randn(gen, n, c)
+
+
+# K3-K5 (each an up and a down kernel): the narrow and full UNet widths,
+# the training path's token counts (2560, 3072 at c = 640; 10240 at c =
+# 320), and the widest c mode 0 takes
+@pytest.mark.parametrize("mode,c,n", [(0, 64, 512), (0, 640, 512),
+                                      (1, 320, 512), (2, 128, 512),
+                                      (0, 640, 2560), (0, 640, 3072),
+                                      (0, 704, 512), (1, 320, 10240)])
+def test_geglu_kernel(gen, mode, c, n):
+    from seervideoldm_tpu_torch.ops.kernels import geglu_ff as K
+
+    x, gamma, beta, w1, b1, w2, b2, w3, b3, res = _geglu_inputs(gen, n, c)
     if mode == 0:
         got, want = K.geglu_ff(x, w1, b1, w2, b2), K.geglu_ff_plain(
             x, w1, b1, w2, b2)
@@ -92,6 +103,19 @@ def test_geglu_kernel(gen, mode, c):
         want = K.ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2, b2, w3,
                                         b3, res)
     _close(got, want)
+
+
+@pytest.mark.parametrize("mode,c", [(0, 640), (1, 320), (2, 320), (2, 64)])
+def test_geglu_halves_kernel(gen, mode, c):
+    """The up and down kernels alone against their plain versions (the
+    down kernel fed the plain ``a``)."""
+    from seervideoldm_tpu_torch.ops.kernels import geglu_ff as K
+
+    x, gamma, beta, w1, b1, w2, b2, w3, b3, res = _geglu_inputs(gen, 1024, c)
+    a = K.geglu_up_plain(x, gamma, beta, w1, b1, mode > 0)
+    _close(K.geglu_up(x, gamma, beta, w1, b1, mode > 0), a)
+    _close(K.geglu_down(a, w2, b2, x, w3, b3, res, mode),
+           K.geglu_down_plain(a, w2, b2, x, w3, b3, res, mode))
 
 
 @pytest.mark.parametrize("rows,reps", [(256, 0), (256, 1), (256, 2),
