@@ -11,8 +11,9 @@ no result line):
 1. device: CUDA present, compute capability (9, 0); prints the card's name
    and power limit as nvidia-smi reports them;
 2. build: compiles the four CUDA sources under ``seervideoldm_tpu_torch/
-   csrc`` with nvcc for sm_90a, all at once, and prints the build time and
-   each kernel's registers and spills (``-Xptxas -v``);
+   csrc`` with nvcc for sm_90a, all at once, and prints the build time,
+   each kernel's registers and spills (``-Xptxas -v``) and the shared
+   memory a CTA of the attention forward takes in each configuration;
 3. kernel checks: each of K1-K5 (forward) and K7, K8 (backward) at the
    shapes both main paths give it at 256 px -- sampling (CFG batch 2, under
    ``no_grad``) and training (batch 1, called under ``enable_grad`` on
@@ -24,7 +25,13 @@ no result line):
    K6 (pre-rotated, ``rot_dim`` 0, and in-kernel trig, ``rot_dim`` 32) and
    K9 (both modes) at the shapes of the sequence-parallel path and at the
    256 / 512 px shapes; times the kernel, the plain version and one library
-   call computing the same function; K3-K5, each an up kernel (``a =
+   call computing the same function (for the attentions PyTorch's fused
+   SDPA on 4-D views under the flash backend, or the memory-efficient one
+   where flash refuses the shape, named on the row; a backward's is
+   autograd through that call; SWAT's on window-partitioned inputs made
+   outside the timed call, without rotation), and the bound: bytes over
+   the HBM rate, products over the bf16 tensor rate and, for a softmax,
+   one MUFU ex2 per visible score at K10's rate; K3-K5, each an up kernel (``a =
    bf16(h * gelu(g))``, LayerNorm prologue) and a down kernel (``a W2 +
    b2`` and the mode's epilogue), also as those two halves alone against
    their plain versions, the down kernel fed the plain ``a``, with each
@@ -97,6 +104,8 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
@@ -111,10 +120,9 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 ATOL, RTOL = 2e-2, 2e-2    # bf16 outputs, kernel vs plain version
 REF_RTOL = 5e-2            # relative L2, bf16 UNet on the card vs fp32 CPU
 # Backward kernels vs plain backward, dq, dk, dv each: the forward's
-# elementwise bound (bf16 outputs: one ulp at |x| in [4, 8) is 0.03, and the
-# kernel rounds p and dS to bf16 as tensor-core operands where the plain
-# version keeps fp32, so an entry that is a cancelling sum of up to 4096
-# products of size ~1 carries ~1e-2 of absolute error), and a relative L2
+# elementwise bound (bf16 outputs: one ulp at |x| in [4, 8) is 0.03; the
+# kernel takes p and dS as bf16 hi + lo pairs, about 16 of fp32's
+# mantissa bits, where the plain version keeps fp32), and a relative L2
 # bound over the whole tensor, which the rounding noise averages out of.
 BWD_REL_L2 = 1e-2
 LSE_ATOL = 1e-3            # natural-log lse of bf16 scores, fp32 both sides
@@ -231,10 +239,59 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, exps: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: the larger of the bytes over the memory
+    rate and the operations over their peak rate, the tensor cores' FLOPs
+    and, for a softmax, one MUFU ex2 per exponential (``exps``) at K10's
+    rate (``k10_ex2_rate``)."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, exps / k10_ex2_rate() if exps else 0.0)
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def fused_sdpa(q, k, v, scale: float, causal: bool):
+    """The library yardstick of the attention kernels: one
+    ``F.scaled_dot_product_attention`` call on 4-D views (1, B, n, d) of
+    (B, n, d) tensors, the layout its fused backends take (a 3-D call falls
+    back to the unfused math path).  Returns (call, backend, context): the
+    flash backend where it takes the shape, else the memory-efficient one;
+    ``context()`` allows that backend alone, so a refusal raises instead of
+    falling to the math path."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(q4, k4, v4, scale=scale,
+                                              is_causal=causal)
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                call()
+        except RuntimeError:
+            continue
+        return call, backend.name, lambda b=backend: sdpa_kernel(b)
+    raise SmokeFailure(f"no fused SDPA backend takes {tuple(q4.shape)}")
+
+
+def fused_sdpa_grad(q, k, v, g, scale: float, causal: bool):
+    """The backward yardstick: autograd through ``fused_sdpa`` (forward +
+    backward) on copies of q, k, v that require a gradient."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    call, backend, context = fused_sdpa(*leaves, scale, causal)
+    g4 = g.unsqueeze(0)
+
+    def grads():
+        return torch.autograd.grad(call(), leaves, g4)
+
+    with context():
+        grads()
+    return grads, backend, context
 
 
 # ----------------------------------------------------------- kernel checks
@@ -280,7 +337,6 @@ def _as_path_calls(case: dict, inputs, grad: bool) -> dict:
 
 def case_flash(gen, batch, n, d, causal=False, grad=False):
     import torch
-    import torch.nn.functional as F
 
     from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
 
@@ -288,21 +344,21 @@ def case_flash(gen, batch, n, d, causal=False, grad=False):
     q, k, v = (_randn((batch, n, d), gen, bf) for _ in range(3))
     scale = d ** -0.5
     pairs = n * (n + 1) // 2 if causal else n * n
+    library, backend, context = fused_sdpa(q, k, v, scale, causal)
     return _as_path_calls(dict(
         name="flash_attention", kernel=lambda: K.flash_attention(q, k, v, scale, causal),
         plain=lambda: K.flash_attention_plain(q, k, v, scale, causal),
-        library=lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale, is_causal=causal),
-        flops=4.0 * batch * pairs * d,
+        library=library, library_backend=backend, library_context=context,
+        flops=4.0 * batch * pairs * d, exps=float(batch * pairs),
         # q, k, v read, o written (bf16); the autograd forward also writes lse
         nbytes=4.0 * batch * n * d * 2 + (4.0 * batch * n if grad else 0.0),
+        plan=K.plan(batch, n, n, d, causal),
         shape=f"({batch}, {n}, {d}){' causal' if causal else ''}"),
         (q, k, v), grad)
 
 
 def case_swat(gen, batch, f, h, d, grad=False):
     import torch
-    import torch.nn.functional as F
 
     from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
     from seervideoldm_tpu_torch.ops.rotary import rotary_tables
@@ -315,15 +371,19 @@ def case_swat(gen, batch, f, h, d, grad=False):
     qw, kw, vw = (window_partition(t, ws) for t in (q, k, v))
     tokens = f * ws * ws
     windows = batch * (h // ws) ** 2
+    library, backend, context = fused_sdpa(qw, kw, vw, scale, True)
     return _as_path_calls(dict(
         name="swat_attention_tables",
         kernel=lambda: K.swat_attention_tables(q, k, v, cos, sin, scale, True, ws),
         plain=lambda: K.swat_attention_tables_plain(q, k, v, cos, sin, scale, True, ws),
-        library=lambda: F.scaled_dot_product_attention(
-            qw, kw, vw, scale=scale, is_causal=True),
+        library=library, library_backend=backend, library_context=context,
+        library_note="SDPA on window-partitioned q, k, v made outside the "
+                     "timed call; no rotation",
         flops=4.0 * windows * d * tokens * (tokens + 1) / 2,
+        exps=windows * tokens * (tokens + 1) / 2,
         nbytes=(4.0 * q.numel() * 2 + 2.0 * cos.numel() * 4
                 + (4.0 * batch * f * h * h if grad else 0.0)),
+        plan=K.plan(batch, f, h, h, d),
         shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal"), (q, k, v), grad)
 
 
@@ -334,7 +394,6 @@ def case_flash_bwd(gen, batch, n, d, causal=False, m=None):
     import math
 
     import torch
-    import torch.nn.functional as F
 
     from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
 
@@ -342,7 +401,7 @@ def case_flash_bwd(gen, batch, n, d, causal=False, m=None):
     q, g = (_randn((batch, n, d), gen, bf) for _ in range(2))
     k, v = (_randn((batch, m, d), gen, bf) for _ in range(2))
     scale = d ** -0.5
-    out, lse = K._launch_fwd(q, k, v, scale, causal, want_lse=True)
+    _, lse = K._launch_fwd(q, k, v, scale, causal, want_lse=True)
 
     def lse_err():
         sub = slice(0, min(batch, 4))
@@ -353,22 +412,18 @@ def case_flash_bwd(gen, batch, n, d, causal=False, m=None):
         want = torch.logsumexp(logits, dim=-1)
         return float((lse[sub] * math.log(2.0) - want).abs().max())
 
-    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
-
-    def library():
-        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale,
-                                           is_causal=causal)
-        return torch.autograd.grad(o, (ql, kl, vl), g)
-
+    library, backend, context = fused_sdpa_grad(q, k, v, g, scale, causal)
     pairs = n * (n + 1) // 2 if causal else n * m
     return dict(
         name="flash_attention_bwd",
-        kernel=lambda: K.flash_attention_bwd(q, k, v, out, lse, g, scale, causal),
+        kernel=lambda: K.flash_attention_bwd(q, k, v, lse, g, scale, causal),
         plain=lambda: K.flash_attention_bwd_plain(q, k, v, g, scale, causal),
-        library=library, lse_err=lse_err, backward=True,
-        flops=10.0 * batch * pairs * d,
-        # q, k, v, o, g read, dq, dk, dv written (bf16); lse read (fp32)
-        nbytes=2.0 * batch * d * (4 * n + 4 * m) + 4.0 * batch * n,
+        library=library, library_backend=backend, library_context=context,
+        lse_err=lse_err, backward=True,
+        # p recomputed once per visible score
+        flops=10.0 * batch * pairs * d, exps=float(batch * pairs),
+        # q, k, v, g read, dq, dk, dv written (bf16); lse read (fp32)
+        nbytes=2.0 * batch * d * (3 * n + 4 * m) + 4.0 * batch * n,
         shape=f"({batch}, {n}{'' if m == n else f' x {m}'}, {d})"
               f"{' causal' if causal else ''}")
 
@@ -380,7 +435,6 @@ def case_swat_bwd(gen, batch, f, h, d):
     import math
 
     import torch
-    import torch.nn.functional as F
 
     from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
     from seervideoldm_tpu_torch.ops.rotary import rotary_tables
@@ -390,7 +444,7 @@ def case_swat_bwd(gen, batch, f, h, d):
     q, k, v, g = (_randn((batch, f, h, h, d), gen, bf) for _ in range(4))
     cos, sin = rotary_tables(f, h, h, d, min(32, d), device="cuda")
     scale = d ** -0.5
-    out, lse = K._launch_fwd(q, k, v, cos, sin, scale, True, ws, want_lse=True)
+    _, lse = K._launch_fwd(q, k, v, cos, sin, scale, True, ws, want_lse=True)
     tokens = f * ws * ws
     windows = batch * (h // ws) ** 2
 
@@ -403,26 +457,25 @@ def case_swat_bwd(gen, batch, f, h, d):
         got = window_partition(lse[:1, ..., None], ws)[..., 0] * math.log(2.0)
         return float((got - want).abs().max())
 
-    ql, kl, vl = (window_partition(t, ws).clone().requires_grad_()
-                  for t in (q, k, v))
-    gl = window_partition(g, ws)
-
-    def library():
-        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale,
-                                           is_causal=True)
-        return torch.autograd.grad(o, (ql, kl, vl), gl)
-
+    library, backend, context = fused_sdpa_grad(
+        *(window_partition(t, ws) for t in (q, k, v, g)), scale, True)
     return dict(
         name="swat_attention_tables_bwd",
-        kernel=lambda: K.swat_attention_tables_bwd(q, k, v, cos, sin, out, lse,
-                                                   g, scale, True, ws),
+        kernel=lambda: K.swat_attention_tables_bwd(q, k, v, cos, sin, lse, g,
+                                                   scale, True, ws),
         plain=lambda: K.swat_attention_tables_bwd_plain(q, k, v, cos, sin, g,
                                                         scale, True, ws),
-        library=library, lse_err=lse_err, backward=True,
+        library=library, library_backend=backend, library_context=context,
+        library_note="autograd through SDPA on window-partitioned q, k, v "
+                     "made outside the timed call; no rotation",
+        lse_err=lse_err, backward=True,
         # 5 products x 2 * tokens^2 * d per window, times (f + 1) / (2 f):
-        # the share of 64 x 64 tiles on or below the causal diagonal
+        # the share of 64 x 64 tiles on or below the causal diagonal; p
+        # recomputed once per visible score
         flops=10.0 * windows * tokens * tokens * d * (f + 1) / (2.0 * f),
-        nbytes=8.0 * q.numel() * 2 + 2.0 * cos.numel() * 4 + 4.0 * lse.numel(),
+        exps=windows * tokens * (tokens + 1) / 2,
+        # q, k, v, g read, dq, dk, dv written (bf16); tables, lse read
+        nbytes=7.0 * q.numel() * 2 + 2.0 * cos.numel() * 4 + 4.0 * lse.numel(),
         shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal")
 
 
@@ -430,7 +483,6 @@ def case_swat6(gen, batch, f, h, d, rot_dim, grad=False):
     """K6 against its plain version; library yardstick: SDPA on pre-rotated,
     window-partitioned inputs."""
     import torch
-    import torch.nn.functional as F
 
     from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
     from seervideoldm_tpu_torch.ops.windows import window_partition
@@ -441,13 +493,17 @@ def case_swat6(gen, batch, f, h, d, rot_dim, grad=False):
     qw, kw, vw = (window_partition(t, ws) for t in (q, k, v))
     tokens = f * ws * ws
     windows = batch * (h // ws) ** 2
+    library, backend, context = fused_sdpa(qw, kw, vw, scale, True)
     return _as_path_calls(dict(
         name="swat_attention",
         kernel=lambda: K.swat_attention(q, k, v, scale, True, ws, rot_dim),
         plain=lambda: K.swat_attention_plain(q, k, v, scale, True, ws, rot_dim),
-        library=lambda: F.scaled_dot_product_attention(
-            qw, kw, vw, scale=scale, is_causal=True),
+        library=library, library_backend=backend, library_context=context,
+        library_note="SDPA on window-partitioned q, k, v made outside the "
+                     "timed call; no rotation",
         flops=4.0 * windows * d * tokens * (tokens + 1) / 2,
+        exps=windows * tokens * (tokens + 1) / 2,
+        plan=K.plan(batch, f, h, h, d),
         # q, k, v read, o written (bf16), no tables; lse when it writes one
         nbytes=4.0 * q.numel() * 2 + (4.0 * batch * f * h * h if grad else 0.0),
         shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal rot_dim {rot_dim}"),
@@ -461,7 +517,6 @@ def case_swat6_bwd(gen, batch, f, h, d, rot_dim):
     import math
 
     import torch
-    import torch.nn.functional as F
 
     from seervideoldm_tpu_torch.ops.kernels import swat_attention as K
     from seervideoldm_tpu_torch.ops.rotary import rotary_tables
@@ -470,8 +525,8 @@ def case_swat6_bwd(gen, batch, f, h, d, rot_dim):
     bf, ws = torch.bfloat16, 8
     q, k, v, g = (_randn((batch, f, h, h, d), gen, bf) for _ in range(4))
     scale = d ** -0.5
-    out, lse = K._launch_swat_fwd(q, k, v, scale, True, ws, rot_dim,
-                                  want_lse=True)
+    _, lse = K._launch_swat_fwd(q, k, v, scale, True, ws, rot_dim,
+                                want_lse=True)
     tokens = f * ws * ws
     windows = batch * (h // ws) ** 2
 
@@ -487,25 +542,22 @@ def case_swat6_bwd(gen, batch, f, h, d, rot_dim):
         got = window_partition(lse[:1, ..., None], ws)[..., 0] * math.log(2.0)
         return float((got - want).abs().max())
 
-    ql, kl, vl = (window_partition(t, ws).clone().requires_grad_()
-                  for t in (q, k, v))
-    gl = window_partition(g, ws)
-
-    def library():
-        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale,
-                                           is_causal=True)
-        return torch.autograd.grad(o, (ql, kl, vl), gl)
-
+    library, backend, context = fused_sdpa_grad(
+        *(window_partition(t, ws) for t in (q, k, v, g)), scale, True)
     return dict(
         name="swat_attention_bwd", lse_atol=LSE_TRIG_ATOL if rot_dim else
         LSE_ATOL,
-        kernel=lambda: K.swat_attention_bwd(q, k, v, out, lse, g, scale, True,
-                                            ws, rot_dim),
+        kernel=lambda: K.swat_attention_bwd(q, k, v, lse, g, scale, True, ws,
+                                            rot_dim),
         plain=lambda: K.swat_attention_bwd_plain(q, k, v, g, scale, True, ws,
                                                  rot_dim),
-        library=library, lse_err=lse_err, backward=True,
+        library=library, library_backend=backend, library_context=context,
+        library_note="autograd through SDPA on window-partitioned q, k, v "
+                     "made outside the timed call; no rotation",
+        lse_err=lse_err, backward=True,
         flops=10.0 * windows * tokens * tokens * d * (f + 1) / (2.0 * f),
-        nbytes=8.0 * q.numel() * 2 + 4.0 * lse.numel(),
+        exps=windows * tokens * (tokens + 1) / 2,
+        nbytes=7.0 * q.numel() * 2 + 4.0 * lse.numel(),
         shape=f"({batch}, {f}, {h}, {h}, {d}) ws 8 causal rot_dim {rot_dim}")
 
 
@@ -717,8 +769,13 @@ def check_case(case: dict) -> dict:
         row["ok"] = row["ok"] and row["up_ok"] and row["down_ok"]
     row["ms"] = time_ms(case["kernel"])
     row["plain_ms"] = time_ms(case["plain"], iters=5, warmup=1)
-    row["library_ms"] = time_ms(case["library"])
-    row["bound_ms"], row["bound_by"] = bound(case["flops"], case["nbytes"])
+    with case.get("library_context", contextlib.nullcontext)():
+        row["library_ms"] = time_ms(case["library"])
+    for key in ("library_backend", "library_note", "plan"):
+        if key in case:
+            row[key] = case[key]
+    row["bound_ms"], row["bound_by"] = bound(case["flops"], case["nbytes"],
+                                             case.get("exps", 0.0))
     return row
 
 
@@ -799,6 +856,14 @@ def phase_build() -> None:
             print(f"build {name}: {kernel}: {info}", flush=True)
     print(f"build: {len(reports)} sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as fa
+
+    for d in (40, 80, 160):  # the UNet's head dims
+        for cwg in fa.cwg_choices(d):
+            nbytes, stages = fa.fwd_smem(d, cwg)
+            print(f"build smem: attention forward (K1, K2, K6) d {d}, "
+                  f"{cwg} consumer warpgroups: {nbytes} bytes a CTA, "
+                  f"{stages} ring stages", flush=True)
 
 
 def phase_reference() -> None:
@@ -1453,6 +1518,7 @@ def phase_parallel(card: str) -> dict:
 
 # ------------------------------------------------------------ floor budget
 
+@functools.lru_cache(maxsize=None)
 def _max_sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1611,12 +1677,11 @@ def phase_floor_budget(card: str) -> tuple[dict, dict]:
 
 # kernel-name fragments -> category of the step breakdown (first match wins)
 KERNEL_CATEGORIES = (
-    ("port: flash_attention (K2)", ("flash_fwd_kernel",)),
-    ("port: swat_attention_tables (K1; K6 a mode of it)", ("swat_fwd_kernel",)),
+    ("port: flash_attention (K2)", ("flash_fwd_wgmma_kernel",)),
+    ("port: swat_attention_tables (K1; K6 a mode of it)",
+     ("swat_fwd_wgmma_kernel",)),
     ("port: flash_attention_bwd (K8)", ("flash_bwd_",)),
     ("port: swat_attention_tables_bwd (K7)", ("swat_bwd_",)),
-    # the rowsum(g * o) prologue is one kernel that K7 and K8 both launch
-    ("port: delta prologue (K7 + K8)", ("delta_kernel",)),
     ("port: geglu_ff (K3/K4/K5)", ("geglu_up_kernel", "geglu_down_kernel")),
     ("convolution (cuDNN)", ("cudnn", "fprop", "implicit_gemm", "winograd",
                              "conv2d", "nchwtonhwc", "nhwctonchw")),
@@ -1767,11 +1832,13 @@ def main() -> int:
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
+            library_backend=row.get("library_backend"),
             shape=row["shape"], tol=row["tol"], ok=row["ok"],
             main_path_shapes=[
-                {key: r[key] for key in ("path", "shape", "max_abs_err", "ms",
-                                         "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")} for r in shapes]))
+                {key: r.get(key) for key in (
+                    "path", "shape", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "library_backend")}
+                for r in shapes]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

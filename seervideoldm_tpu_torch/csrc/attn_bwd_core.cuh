@@ -1,16 +1,22 @@
 // Attention backward over one 64 x 64 (query x key) tile, per warp, with
 // mma.sync.
 //
-// Shared by flash_attention.cu (K8) and swat_attention.cu (K7).  The forward
-// kernels save lse = m + log2(l) per query row (log2 domain), so the
-// backward needs no online softmax: p = exp2(s * scale_log2 - lse) exactly.
-// delta = rowsum(g * o) comes from a small prologue kernel (delta_kernel).
-// Two deterministic kernels, no atomics:
+// Shared by flash_attention.cu (K8) and swat_attention.cu (K7, K9); the
+// forward kernels are in attn_fwd_hopper.cuh.  The forward kernels save
+// lse = m + log2(l) per query row (log2 domain), so the backward needs no
+// online softmax: p = exp2(s * scale_log2 - lse) exactly.  Two
+// deterministic kernels, no atomics, the dq kernel first:
 //
 //   dq kernel     one CTA per 64-query tile, 16 query rows per warp; Q and G
 //                 live in registers as A fragments, K/V tiles stream through
-//                 shared memory.  Per 16-key chunk: s = q k^T, dp = g v^T,
-//                 ds = p * (dp - delta) * scale, dq += ds k.
+//                 shared memory.  Pass 1 (delta_tile): delta = rowsum(p * dp)
+//                 over every visible key in fp32, as the TPU kernels form it
+//                 (rowsum(g * o) over the bf16 forward output, whose p was
+//                 rounded to bf16 for P V, is off by ~1e-3 relative, which
+//                 the cancellation in dp - delta carries into dq and dk);
+//                 written out for the dk/dv kernel.  Pass 2 (dq_tile), per
+//                 16-key chunk: s = q k^T, dp = g v^T, ds = p * (dp - delta)
+//                 * scale, dq += ds k.  With dq not wanted, pass 1 alone.
 //   dk/dv kernel  one CTA per 64-key tile, 16 keys per warp; K and V live in
 //                 registers as A fragments, Q/G tiles stream.  It computes
 //                 the TRANSPOSED scores s^T = k q^T directly, so the C
@@ -19,19 +25,51 @@
 //
 // Rounding points: q, k, v, g are bf16 inputs (for K7, q and k are rotated
 // in fp32 and rounded to bf16 on load, as in the forward).  s, p, dp, delta
-// and ds are fp32; p and ds are rounded to bf16 only as operands of their
-// products (p^T g, ds k, ds^T q); every accumulator is fp32.  The TPU
-// kernels ran those products on fp32 operands; tensor cores need bf16.
+// and ds are fp32, and so, nearly, are the operands of p^T g, ds k and
+// ds^T q, which the TPU kernels run on fp32 p and ds: tensor cores take
+// bf16, so each of p and ds enters as a pair hi = bf16(x), lo = bf16(x -
+// hi), two MMAs against the same bf16 B operand (split_bf16x2), which keeps
+// about 16 of fp32's 24 mantissa bits.  The pair is formed one 16-key chunk
+// at a time, from the chunk's fp32 values in registers.  Every accumulator
+// is fp32.
 //
 // Masked elements (key >= kv_len, key > query when causal) and rows whose
 // lse is not finite (padding rows are given lse = +inf) have p = 0 exactly.
 #pragma once
 
-#include "attn_core.cuh"
+#include <math.h>
+
+#include "common.cuh"
 
 namespace svl {
 
+constexpr int ATT_BQ = 64;       // query rows of a tile (4 warps x 16)
+constexpr int ATT_BK = 64;       // keys of a tile
+constexpr int ATT_THREADS = 128;
+
 constexpr int BWD_MAX_D = 80;  // widest head dim the backward is built for
+
+// Two fp32 values as a bf16 pair hi (returned, lo element in the low half)
+// and the rounded remainder lo = bf16(x - hi): hi + lo holds x to about 16
+// mantissa bits, so a product taken as two MMAs, hi and lo against the
+// same B operand, carries an fp32 operand's precision to that depth.
+__device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1,
+                                                 uint32_t& lo) {
+  const uint32_t hi = pack_bf16x2(x0, x1);
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  lo = pack_bf16x2(x0 - __low2float(h), x1 - __high2float(h));
+  return hi;
+}
+
+// The A fragment of a 16-key chunk from the fp32 C fragments of its two
+// 8-key halves v[0], v[1], as hi and lo (split_bf16x2).
+__device__ __forceinline__ void split_frag(const float v[2][4], uint32_t hi[4],
+                                           uint32_t lo[4]) {
+  hi[0] = split_bf16x2(v[0][0], v[0][1], lo[0]);
+  hi[1] = split_bf16x2(v[0][2], v[0][3], lo[1]);
+  hi[2] = split_bf16x2(v[1][0], v[1][1], lo[2]);
+  hi[3] = split_bf16x2(v[1][2], v[1][3], lo[3]);
+}
 
 // lse as saved by the forward -> the value the backward subtracts: a row
 // with no visible key (lse = -inf) must give p = 0, not inf
@@ -47,54 +85,91 @@ struct DqState {
   float lse[2], delta[2];   // of rows g, g+8
 };
 
-// ks, vs: K and V tiles as rows [ATT_BK][DP + 8]; kt: K transposed
-// [DP][ATT_BK + 8].  row0: absolute index of this warp's first query row;
-// key0: absolute index of the tile's first key.
+// p and dp of one 16-key chunk (keys 16 c16 ... of the tile) for this
+// warp's 16 query rows, as the C fragments of its two 8-key halves.  ks,
+// vs: K and V tiles as rows [ATT_BK][DP + 8]; row0: absolute index of the
+// warp's first query row; key0: of the tile's first key.
+template <int DP>
+__device__ __forceinline__ void p_dp_chunk(const DqState<DP>& st,
+                                           const bf16* ks, const bf16* vs,
+                                           float scale_log2, int row0,
+                                           int key0, int kv_len, bool causal,
+                                           int c16, int lane, float p[2][4],
+                                           float dp[2][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  float s[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[h][e] = dp[h][e] = 0.f;
+    const int nt = 2 * c16 + h;
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc) {
+      uint32_t b0, b1;
+      load_b_frag(b0, b1, ks, DP + 8, nt * 8, kc * 16, lane);
+      mma_16816(s[h], st.qf[kc], b0, b1);
+      load_b_frag(b0, b1, vs, DP + 8, nt * 8, kc * 16, lane);
+      mma_16816(dp[h], st.gf[kc], b0, b1);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int row = row0 + g + (r << 3);
+      const int col = key0 + (2 * c16 + h) * 8 + 2 * t + (e & 1);
+      const bool masked = col >= kv_len || (causal && col > row);
+      p[h][e] = masked ? 0.f : exp2f(s[h][e] * scale_log2 - st.lse[r]);
+    }
+}
+
+// Pass 1 of the dq kernel over one key tile: this thread's share of
+// rowsum(p * dp) for its rows g, g + 8, added to dsum.
+template <int DP>
+__device__ __forceinline__ void delta_tile(const DqState<DP>& st,
+                                           const bf16* ks, const bf16* vs,
+                                           float scale_log2, int row0,
+                                           int key0, int kv_len, bool causal,
+                                           int lane, float dsum[2]) {
+#pragma unroll
+  for (int c16 = 0; c16 < ATT_BK / 16; ++c16) {
+    float p[2][4], dp[2][4];
+    p_dp_chunk<DP>(st, ks, vs, scale_log2, row0, key0, kv_len, causal, c16,
+                   lane, p, dp);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dsum[e >> 1] += p[h][e] * dp[h][e];
+  }
+}
+
+// Pass 2 of the dq kernel over one key tile.  kt: K transposed
+// [DP][ATT_BK + 8]; the rest as p_dp_chunk.
 template <int DP>
 __device__ __forceinline__ void dq_tile(DqState<DP>& st, const bf16* ks,
                                         const bf16* kt, const bf16* vs,
                                         float scale, float scale_log2,
                                         int row0, int key0, int kv_len,
                                         bool causal, int lane) {
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int c16 = 0; c16 < ATT_BK / 16; ++c16) {
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[h][e] = dp[h][e] = 0.f;
-      const int nt = 2 * c16 + h;
-#pragma unroll
-      for (int kc = 0; kc < DP / 16; ++kc) {
-        uint32_t b0, b1;
-        load_b_frag(b0, b1, ks, DP + 8, nt * 8, kc * 16, lane);
-        mma_16816(s[h], st.qf[kc], b0, b1);
-        load_b_frag(b0, b1, vs, DP + 8, nt * 8, kc * 16, lane);
-        mma_16816(dp[h], st.gf[kc], b0, b1);
-      }
-    }
-    float ds[2][4];
+    float p[2][4], dp[2][4], ds[2][4];
+    p_dp_chunk<DP>(st, ks, vs, scale_log2, row0, key0, kv_len, causal, c16,
+                   lane, p, dp);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int row = row0 + g + (r << 3);
-        const int col = key0 + (2 * c16 + h) * 8 + 2 * t + (e & 1);
-        const bool masked = col >= kv_len || (causal && col > row);
-        const float p =
-            masked ? 0.f : exp2f(s[h][e] * scale_log2 - st.lse[r]);
-        ds[h][e] = p * (dp[h][e] - st.delta[r]) * scale;
-      }
-    const uint32_t a[4] = {
-        pack_bf16x2(ds[0][0], ds[0][1]), pack_bf16x2(ds[0][2], ds[0][3]),
-        pack_bf16x2(ds[1][0], ds[1][1]), pack_bf16x2(ds[1][2], ds[1][3])};
+      for (int e = 0; e < 4; ++e)
+        ds[h][e] = p[h][e] * (dp[h][e] - st.delta[e >> 1]) * scale;
+    uint32_t a_hi[4], a_lo[4];
+    split_frag(ds, a_hi, a_lo);
 #pragma unroll
     for (int nt = 0; nt < DP / 8; ++nt) {
       uint32_t b0, b1;
       load_b_frag(b0, b1, kt, ATT_BK + 8, nt * 8, c16 * 16, lane);
-      mma_16816(st.acc[nt], a, b0, b1);
+      mma_16816(st.acc[nt], a_hi, b0, b1);
+      mma_16816(st.acc[nt], a_lo, b0, b1);
     }
   }
 }
@@ -149,19 +224,18 @@ __device__ __forceinline__ void dkv_tile(DkvState<DP>& st, const bf16* qs,
         pT[h][e] = p;
         dsT[h][e] = p * (dpT[h][e] - delta_s[qi]) * scale;
       }
-    const uint32_t ap[4] = {
-        pack_bf16x2(pT[0][0], pT[0][1]), pack_bf16x2(pT[0][2], pT[0][3]),
-        pack_bf16x2(pT[1][0], pT[1][1]), pack_bf16x2(pT[1][2], pT[1][3])};
-    const uint32_t ads[4] = {
-        pack_bf16x2(dsT[0][0], dsT[0][1]), pack_bf16x2(dsT[0][2], dsT[0][3]),
-        pack_bf16x2(dsT[1][0], dsT[1][1]), pack_bf16x2(dsT[1][2], dsT[1][3])};
+    uint32_t ap_hi[4], ap_lo[4], ads_hi[4], ads_lo[4];
+    split_frag(pT, ap_hi, ap_lo);
+    split_frag(dsT, ads_hi, ads_lo);
 #pragma unroll
     for (int nt = 0; nt < DP / 8; ++nt) {
       uint32_t b0, b1;
       load_b_frag(b0, b1, gt, ATT_BQ + 8, nt * 8, c16 * 16, lane);
-      mma_16816(st.dv[nt], ap, b0, b1);
+      mma_16816(st.dv[nt], ap_hi, b0, b1);
+      mma_16816(st.dv[nt], ap_lo, b0, b1);
       load_b_frag(b0, b1, qt, ATT_BQ + 8, nt * 8, c16 * 16, lane);
-      mma_16816(st.dk[nt], ads, b0, b1);
+      mma_16816(st.dk[nt], ads_hi, b0, b1);
+      mma_16816(st.dk[nt], ads_lo, b0, b1);
     }
   }
 }
@@ -199,44 +273,6 @@ __device__ __forceinline__ void store_acc(float acc[DP / 8][4], int row0,
       }
     }
   }
-}
-
-// delta[row] = sum_c g[row][c] * o[row][c] in fp32, rows of d bf16 values
-// (d % 8 == 0): eight lanes per row, 16-byte loads.
-__global__ void delta_kernel(const bf16* __restrict__ g,
-                             const bf16* __restrict__ o,
-                             float* __restrict__ delta, long long rows,
-                             int d) {
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x / 8) + threadIdx.x / 8;
-  const int sub = threadIdx.x & 7;
-  float acc = 0.f;
-  if (row < rows) {
-    for (int c8 = sub; c8 * 8 < d; c8 += 8) {
-      const uint4 gv = *reinterpret_cast<const uint4*>(g + row * d + c8 * 8);
-      const uint4 ov = *reinterpret_cast<const uint4*>(o + row * d + c8 * 8);
-      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
-      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 a = __bfloat1622float2(gp[j]);
-        const float2 b = __bfloat1622float2(op[j]);
-        acc += a.x * b.x + a.y * b.y;
-      }
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  if (row < rows && sub == 0) delta[row] = acc;
-}
-
-static inline void launch_delta(const bf16* g, const bf16* o, float* delta,
-                                long long rows, int d, cudaStream_t stream) {
-  const int threads = 256, rows_per_block = threads / 8;
-  const unsigned blocks =
-      (unsigned)((rows + rows_per_block - 1) / rows_per_block);
-  delta_kernel<<<blocks, threads, 0, stream>>>(g, o, delta, rows, d);
 }
 
 }  // namespace svl

@@ -8,19 +8,36 @@
 // cannot, so this kernel streams K/V in 64-key tiles with an online softmax
 // and covers both TPU forms with one code path.
 //
-// What bounds it on an H100: at the main-path shape (192 x 1024 x 40,
-// non-causal) the work is ~32 GFLOP against ~63 MB of q/k/v/o, so tensor
-// core throughput bounds it (~0.03 ms at 989 TFLOP/s).  This first version
-// uses mma.sync m16n8k16 from registers, one CTA of 4 warps per (batch*head,
-// 64-query tile), synchronous tile loads; wgmma/TMA pipelining is later
-// work.  d = 40 and 80 are zero-padded to 48 and 80 in shared memory only.
+// What bounds it on an H100 (d = 40, non-causal): at (192, 1024, 40) the
+// products are 32.2 GFLOP (0.0326 ms at 989 TFLOP/s), q/k/v/o 63 MB
+// (0.0188 ms at 3.35 TB/s), and the softmax one MUFU ex2 per score, 201 M
+// at 0.2391 ps each (K10's calibration on the card): 0.0481 ms.  So the
+// exponential unit bounds it, then the tensor cores; at (192, 4096, 40)
+// 0.770 ms against 0.521.  The design (attn_fwd_hopper.cuh): a CTA of 2
+// or 3 consumer warpgroups (the host's plan) holds one 64-row query tile
+// each, a producer warp streams 64-key K/V tiles through a TMA ring (one
+// 3-D tensor map (d, rows, batch) each for q, k, v, boxes of 64 columns x
+// 64 rows, zero fill past d and past the last row), wgmma computes S and
+// P V, and the softmax of one warpgroup overlaps the products of another.  d is padded to 64 columns (128-byte rows): at
+// d = 40, S takes 3 k steps of 16 where 2.5 would do and P V computes 64
+// columns for 40 (1.4x the products, 0.046 ms), below the MUFU bound.
 //
 // Layout: q (B, n, d), k/v (B, m, d), o (B, n, d), bf16, contiguous, d a
-// multiple of 8 (16-byte rows).  Causal = top-left tril (key <= query);
-// key tiles wholly above the diagonal are skipped.
+// multiple of 8 (16-byte rows).  Causal = top-left tril (key <= query, n ==
+// m); key tiles wholly above the diagonal are skipped.
 #include "attn_bwd_core.cuh"
+#include "attn_fwd_hopper.cuh"
 
 namespace svl {
+
+template <int DPAD, int CWG>
+__global__ void __launch_bounds__(128 * (CWG + 1), 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const hat::Problem pb) {
+  hat::attn_fwd_body<DPAD, CWG, false, ROT_NONE>(&tq, &tk, &tv, pb);
+}
 
 // Rows [r0, r0 + ATT_BK) of a (rows, d) bf16 array into shared memory: as
 // a [ATT_BK][DP + 8] tile when ROWS, transposed into a [DP][ATT_BK + 8]
@@ -48,50 +65,15 @@ __device__ __forceinline__ void load_rows(bf16* rows, bf16* trans,
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(ATT_THREADS)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int n, int m, int d,
-                     float scale_log2, int causal) {
-  __shared__ __align__(16) bf16 ks[ATT_BK * (DP + 8)];
-  __shared__ __align__(16) bf16 vt[DP * (ATT_BK + 8)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * ATT_BQ;
-  const bf16* qb = q + bh * n * d;
-  const bf16* kb = k + bh * m * d;
-  const bf16* vb = v + bh * m * d;
-
-  // the Q tile passes through the K buffer into registers
-  load_rows<DP, true, false>(ks, nullptr, qb, q0, n, d);
-  __syncthreads();
-  AttnState<DP> st;
-  attn_init<DP>(st, ks, warp, lane);
-
-  const int kend = causal ? min(m, q0 + ATT_BQ) : m;
-  for (int key0 = 0; key0 < kend; key0 += ATT_BK) {
-    __syncthreads();
-    load_rows<DP, true, false>(ks, nullptr, kb, key0, m, d);
-    load_rows<DP, false, true>(nullptr, vt, vb, key0, m, d);
-    __syncthreads();
-    attn_tile<DP>(st, ks, vt, scale_log2, q0 + warp * 16, key0, m,
-                  causal != 0, lane);
-  }
-  bf16* ob = o + bh * n * d;
-  float* lb = lse == nullptr ? nullptr : lse + bh * n;
-  attn_store<DP>(
-      st, q0 + warp * 16, n, d, [&](int row) { return ob + (size_t)row * d; },
-      [&](int row) { return lb == nullptr ? nullptr : lb + row; }, lane);
-}
-
-template <int DP>
-static void launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                   float* lse, int batch, int n, int m, int d,
-                   float scale_log2, int causal, cudaStream_t stream) {
-  dim3 grid((n + ATT_BQ - 1) / ATT_BQ, batch);
-  flash_fwd_kernel<DP><<<grid, ATT_THREADS, 0, stream>>>(
-      q, k, v, o, lse, n, m, d, scale_log2, causal);
+// A (rows, d) slab of `batch` bf16 rows as a 3-D tensor map (d, rows,
+// batch), boxes of 64 columns x 64 rows.
+static bool encode_rows(CUtensorMap* map, const void* p, int batch, int rows,
+                        int d) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)hat::BQ, 1};
+  return encode_bf16(map, p, 3, dims, strides, box);
 }
 
 // ---------------------------------------------------------------- K8
@@ -101,22 +83,26 @@ static void launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // The TPU kernel kept a whole K/V row plus two fp32 (kv, d) scratch buffers
 // in VMEM and recomputed the softmax from all of K; here the forward saves
 // lse, and two kernels stream 64 x 64 tiles (attn_bwd_core.cuh): the dq
-// kernel over key tiles, the dk/dv kernel over query tiles, so nothing is
-// accumulated across CTAs and the result is deterministic.
+// kernel over key tiles (delta = rowsum(p * dp) first, then dq), the dk/dv
+// kernel over query tiles, so nothing is accumulated across CTAs and the
+// result is deterministic.
 //
 // What bounds it on an H100: at the training shape (96 x 1024 x 40) the
-// five products are ~40 GFLOP against ~63 MB of q/k/v/o/g/dq/dk/dv:
-// tensor-core bound (~0.04 ms).  mma.sync m16n8k16, synchronous tile loads,
-// each tile stored both as rows and transposed; pipelining is later work.
+// five products are ~40 GFLOP (0.041 ms) against ~63 MB of q/k/v/g/dq/dk/
+// dv, and p is recomputed once per score (one MUFU ex2, 0.024 ms).
+// mma.sync m16n8k16, synchronous tile loads, each tile stored both as rows
+// and transposed; p and dS enter their products as bf16 hi + lo pairs, and
+// the dq kernel's delta pass recomputes s and dp once more; pipelining is
+// later work.
 
 template <int DP>
 __global__ void __launch_bounds__(ATT_THREADS)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ g,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int n, int m, int d,
-                        float scale, float scale_log2, int causal) {
+                        float* __restrict__ delta, bf16* __restrict__ dq,
+                        int n, int m, int d, float scale, float scale_log2,
+                        int causal) {
   __shared__ __align__(16) bf16 ks[ATT_BK * (DP + 8)];
   __shared__ __align__(16) bf16 kt[DP * (ATT_BK + 8)];
   __shared__ __align__(16) bf16 vs[ATT_BK * (DP + 8)];
@@ -142,10 +128,26 @@ __global__ void __launch_bounds__(ATT_THREADS)
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + (lane >> 2) + 8 * r;
     st.lse[r] = row < n ? bwd_lse(lse[bh * n + row]) : INFINITY;
-    st.delta[r] = row < n ? delta[bh * n + row] : 0.f;
   }
 
   const int kend = causal ? min(m, q0 + ATT_BQ) : m;
+  float dsum[2] = {0.f, 0.f};
+  for (int key0 = 0; key0 < kend; key0 += ATT_BK) {
+    __syncthreads();
+    load_rows<DP, true, false>(ks, nullptr, kb, key0, m, d);
+    load_rows<DP, true, false>(vs, nullptr, vb, key0, m, d);
+    __syncthreads();
+    delta_tile<DP>(st, ks, vs, scale_log2, row0, key0, m, causal != 0, lane,
+                   dsum);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + 8 * r;
+    st.delta[r] = quad_sum(dsum[r]);
+    if ((lane & 3) == 0 && row < n) delta[bh * n + row] = st.delta[r];
+  }
+  if (dq == nullptr) return;
+
   for (int key0 = 0; key0 < kend; key0 += ATT_BK) {
     __syncthreads();
     load_rows<DP, true, true>(ks, kt, kb, key0, m, d);
@@ -224,11 +226,11 @@ __global__ void __launch_bounds__(ATT_THREADS)
 
 template <int DP>
 static void launch_bwd(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* g, const float* lse, const float* delta,
+                       const bf16* g, const float* lse, float* delta,
                        bf16* dq, bf16* dk, bf16* dv, int batch, int n, int m,
                        int d, float scale, float scale_log2, int causal,
                        cudaStream_t stream) {
-  if (dq != nullptr) {
+  {  // always: its first pass writes delta
     dim3 grid((n + ATT_BQ - 1) / ATT_BQ, batch);
     flash_bwd_dq_kernel<DP><<<grid, ATT_THREADS, 0, stream>>>(
         q, k, v, g, lse, delta, dq, n, m, d, scale, scale_log2, causal);
@@ -243,46 +245,75 @@ static void launch_bwd(const bf16* q, const bf16* k, const bf16* v,
 }  // namespace svl
 
 // Returns 0 on success, a cudaError_t code after a failed launch, or -1 for
-// a head dim this build does not cover (d % 8 != 0 or d > 160).
-// `lse` (batch, n) fp32 may be null: it is written only when a backward
-// will need it.
+// a shape this build does not cover (d % 8 != 0, d > 160, causal with n !=
+// m, a cwg without an instantiation: hat::cwg_ok).  `lse` (batch, n) fp32
+// may be null: it is written only when a backward will need it.  `cwg`:
+// consumer warpgroups per CTA, each one 64-row query tile (ops/kernels/
+// flash_attention.py::plan).
 extern "C" int svl_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int batch, int n, int m, int d,
-                                       float scale, int causal,
+                                       float scale, int causal, int cwg,
                                        void* stream) {
-  using svl::bf16;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
-  float* ll = static_cast<float*>(lse);
+  using namespace svl;
+  const int dpad = hat::dpad_of(d);
+  if (dpad < 0 || !hat::cwg_ok(dpad, cwg) || (causal && n != m) || n <= 0 ||
+      m <= 0 || batch <= 0)
+    return -1;
+  CUtensorMap tq{}, tk{}, tv{};
+  if (!encode_rows(&tq, q, batch, n, d) || !encode_rows(&tk, k, batch, m, d) ||
+      !encode_rows(&tv, v, batch, m, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  hat::Problem pb{};
+  pb.o = static_cast<bf16*>(o);
+  pb.lse = static_cast<float*>(lse);
+  pb.rows = n;
+  pb.kv_len = m;
+  pb.d = d;
+  pb.qtiles = (n + hat::BQ - 1) / hat::BQ;
+  pb.ktiles = (m + hat::BKV - 1) / hat::BKV;
+  pb.causal = causal;
+  pb.scale_log2 = scale * 1.4426950408889634f;
+  const dim3 grid((pb.qtiles + cwg - 1) / cwg, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d % 8 != 0 || d > 160) return -1;
-  const int dp = (d + 15) / 16 * 16;
-  switch (dp) {
-#define SVL_CASE(DPV) \
-  case DPV: svl::launch<DPV>(qq, kk, vv, oo, ll, batch, n, m, d, scale_log2, causal, s); break;
-    SVL_CASE(16) SVL_CASE(32) SVL_CASE(48) SVL_CASE(64) SVL_CASE(80)
-    SVL_CASE(96) SVL_CASE(112) SVL_CASE(128) SVL_CASE(144) SVL_CASE(160)
-#undef SVL_CASE
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+#define SVL_FWD(DP, CW)                                                       \
+  if (dpad == DP && cwg == CW)                                                \
+    return hat::launch<DP, CW, &flash_fwd_wgmma_kernel<DP, CW>>(grid, tq, tk, \
+                                                                tv, pb, s);
+  SVL_FWD(64, 2) SVL_FWD(64, 3) SVL_FWD(128, 2) SVL_FWD(128, 3)
+  SVL_FWD(192, 2)
+#undef SVL_FWD
+  return -1;
 }
 
-// K8.  q/g/o/dq (batch, n, d), k/v/dk/dv (batch, m, d) bf16; lse (batch, n)
+// The dynamic shared memory a CTA of the attention forward (K1, K2, K6
+// alike) takes at head dim d with cwg consumer warpgroups, and in `stages`
+// its ring stages; -1 for a cwg without an instantiation.
+extern "C" int svl_attn_fwd_smem(int d, int cwg, int* stages) {
+  using namespace svl;
+  const int dpad = hat::dpad_of(d);
+  if (dpad < 0 || !hat::cwg_ok(dpad, cwg)) return -1;
+  hat::Problem pb{};
+  int bytes = -1;
+#define SVL_SMEM(DP, CW) \
+  if (dpad == DP && cwg == CW) hat::layout<DP, CW>(pb, bytes);
+  SVL_SMEM(64, 2) SVL_SMEM(64, 3) SVL_SMEM(128, 2) SVL_SMEM(128, 3)
+  SVL_SMEM(192, 2)
+#undef SVL_SMEM
+  *stages = pb.stages;
+  return bytes;
+}
+
+// K8.  q/g/dq (batch, n, d), k/v/dk/dv (batch, m, d) bf16; lse (batch, n)
 // fp32 as the forward wrote it; delta (batch, n) fp32 scratch.  dq may be
-// null (no dq kernel); dk and dv are null together (no dk/dv kernel).
-// Returns 0, a cudaError_t code, or -1 for a head dim the backward does
-// not cover (d % 8 != 0 or d > 80).
+// null (the dq kernel then only forms delta); dk and dv are null together
+// (no dk/dv kernel).  Returns 0, a cudaError_t code, or -1 for a head dim
+// the backward does not cover (d % 8 != 0 or d > 80).
 extern "C" int svl_flash_attention_bwd(const void* q, const void* k,
-                                       const void* v, const void* o,
-                                       const void* g, const void* lse,
-                                       void* delta, void* dq, void* dk,
-                                       void* dv, int batch, int n, int m,
-                                       int d, float scale, int causal,
+                                       const void* v, const void* g,
+                                       const void* lse, void* delta, void* dq,
+                                       void* dk, void* dv, int batch, int n,
+                                       int m, int d, float scale, int causal,
                                        void* stream) {
   using svl::bf16;
   if (d <= 0 || d % 8 != 0 || d > svl::BWD_MAX_D) return -1;
@@ -295,8 +326,6 @@ extern "C" int svl_flash_attention_bwd(const void* q, const void* k,
   const float* ll = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  svl::launch_delta(gg, static_cast<const bf16*>(o), dl,
-                    (long long)batch * n, d, s);
   switch ((d + 15) / 16 * 16) {
 #define SVL_CASE(DPV)                                                        \
   case DPV:                                                                  \

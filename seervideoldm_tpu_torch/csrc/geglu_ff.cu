@@ -16,9 +16,11 @@
 // fp32, then bf16(acc) + b2 (+ x, a bf16 add); K4 then z = y W3^T in fp32,
 // bf16(z) + b3, + res.  gelu uses the exact erf (erff): the TPU kernel's
 // Abramowitz-Stegun erf existed only because Mosaic has no erf, and the JAX
-// plain path is exact.  LN: fp32 mean and variance over the channels, eps
-// from the caller, one bf16 rounding after the affine.  Splitting the FF at
-// `a` changes no number: the TPU kernel rounds `a` to bf16 at that point.
+// plain path is exact.  LN: the TPU kernels' cen * rsqrt(var + eps), the
+// mean and centred variance summed in fp64 and rounded once to fp32 (see
+// ln_rows), eps from the caller, one bf16 rounding after the affine.
+// Splitting the FF at `a` changes no number: the TPU kernel rounds `a` to
+// bf16 at that point.
 //
 // Bound on an H100: 6 n c inner FLOPs (+ 2 n c^2 for K4) against
 // 2 (2 n c + 3 c inner) bytes: tensor-core bound, 0.061 ms at (6144, 640,
@@ -80,10 +82,9 @@
 // every instantiation 168 registers at entry (the launch bound's share of
 // 384 threads; setmaxnreg then moves them from the producer warpgroup to
 // the consumers) and 0 bytes of spills.
-#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace svl {
 namespace ff {
@@ -98,129 +99,6 @@ constexpr int SMEM_EXTRA = 1024 + 256;
 __device__ __forceinline__ float gelu_erf(float z) {
   return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
 }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarrier
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// --------------------------------------------------------------------- TMA
-
-// One box of a 2-D tensor map (coordinates innermost first) into shared
-// memory; completion counts its bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// Byte offset of element (row, col) of a tile of 128-byte rows in the
-// 128-byte swizzle TMA writes (16-byte unit index XOR row % 8; the tile
-// starts 1024-byte aligned).  col < 64 (bf16).
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
-}
-
-// Generic-proxy stores to shared memory made visible to wgmma / TMA.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ------------------------------------------------------------------- wgmma
-
-// Descriptor of a K-major operand tile in the 128-byte swizzle: rows of
-// 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused (1).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 
 // One k16 step of a 64 x BN accumulator (BN a multiple of 64): m64n128
 // products over 128-row blocks of the B tile, m64n64 for a 64-row rest.
@@ -249,7 +127,7 @@ __device__ __forceinline__ void zero_acc(float* d) {
   fence_acc<N>(d);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum_f64(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -257,11 +135,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // LayerNorm of 16 rows (r0 ...) of the 128 x C A panel, four rows in
 // flight (their loads issued together: the pass is latency-bound): x rows
-// read with 16-byte loads (a lane takes vectors lane, lane + 32), fp32 mean
-// and variance, affine in fp32, one bf16 rounding, written into the panel's
-// C / 64 swizzled 128 x 64 chunks.  Per row the plain version's
-// correctly rounded sqrt(var + eps), then one reciprocal; per element
-// (x - mean) * (1 / sd) * gamma + beta.
+// read with 16-byte loads (a lane takes vectors lane, lane + 32).  The
+// formula and rounding points of the plain version (ops/kernels/
+// geglu_ff.py::_layer_norm), so that `a` agrees with it bit for bit: the
+// mean and the centred variance summed in fp64 (exact for bf16 inputs, so
+// the warp's order of summation does not matter) and rounded once to fp32;
+// then in fp32, every step correctly rounded and none contracted into an
+// fma, cen = x - mean, rsd = 1 / sqrt(var + eps), ((cen * rsd) * gamma) +
+// beta, one bf16 rounding, written into the panel's C / 64 swizzled
+// 128 x 64 chunks.
 template <int C>
 __device__ __forceinline__ void ln_rows(unsigned char* panel, const bf16* x,
                                        const float* gamma, const float* beta,
@@ -288,34 +170,30 @@ __device__ __forceinline__ void ln_rows(unsigned char* panel, const bf16* x,
     }
 #pragma unroll
     for (int i = 0; i < RG; ++i) {
-      float sum = 0.f;
+      double sum = 0.0;
 #pragma unroll
       for (int j = 0; j < VPL; ++j)
         if (lane + 32 * j < NV) {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) sum += v[i][j][k];
+          for (int k = 0; k < 8; ++k) sum += (double)v[i][j][k];
         }
-      mean[i] = sum;
+      mean[i] = __double2float_rn(warp_sum_f64(sum) / C);
     }
 #pragma unroll
-    for (int i = 0; i < RG; ++i) mean[i] = warp_sum(mean[i]) * (1.f / C);
-#pragma unroll
     for (int i = 0; i < RG; ++i) {
-      float var = 0.f;
+      double var = 0.0;
 #pragma unroll
       for (int j = 0; j < VPL; ++j)
         if (lane + 32 * j < NV) {
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
-            v[i][j][k] -= mean[i];
-            var += v[i][j][k] * v[i][j][k];
+            v[i][j][k] = __fsub_rn(v[i][j][k], mean[i]);
+            var += (double)v[i][j][k] * (double)v[i][j][k];
           }
         }
-      rsd[i] = var;
+      const float var32 = __double2float_rn(warp_sum_f64(var) / C);
+      rsd[i] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var32, eps)));
     }
-#pragma unroll
-    for (int i = 0; i < RG; ++i)
-      rsd[i] = 1.f / __fsqrt_rn(warp_sum(rsd[i]) / C + eps);
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
       const int idx = lane + 32 * j;
@@ -326,12 +204,14 @@ __device__ __forceinline__ void ln_rows(unsigned char* panel, const bf16* x,
         const float bt[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
 #pragma unroll
         for (int i = 0; i < RG; ++i) {
+          float y[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            y[k] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][j][k], rsd[i]), gm[k]),
+                             bt[k]);
           uint32_t o[4];
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            o[k] = pack_bf16x2(
-                v[i][j][2 * k] * rsd[i] * gm[2 * k] + bt[2 * k],
-                v[i][j][2 * k + 1] * rsd[i] * gm[2 * k + 1] + bt[2 * k + 1]);
+          for (int k = 0; k < 4; ++k) o[k] = pack_bf16x2(y[2 * k], y[2 * k + 1]);
           *reinterpret_cast<uint4*>(panel + (idx >> 3) * TILE_A +
                                     swz(r0 + i0 + i, (idx & 7) * 8)) =
               make_uint4(o[0], o[1], o[2], o[3]);
@@ -387,7 +267,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);  // lane 0 of each consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -523,7 +403,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(tempty(s), 8);
     }
     mbar_init(tail_go, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -658,40 +538,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // -------------------------------------------------------------------- host
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-static EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A rows x cols row-major bf16 matrix read in boxes of 64 columns (128
 // bytes, the swizzle span) x box_rows rows.
 static bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
                    int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16(map, ptr, 2, dims, strides, box);
 }
 
 template <int BN, int CLN>

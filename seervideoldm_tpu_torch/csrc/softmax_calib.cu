@@ -9,7 +9,7 @@
 // kernel pays for its softmax, whatever its matmuls cost.
 //
 // The instruction mix is that of the port's attention kernels
-// (attn_core.cuh): exp2f of a log2(e)-scaled argument, one FMA to form it,
+// (attn_fwd_hopper.cuh): exp2f of a log2(e)-scaled argument, one FMA to form it,
 // fmaxf / add reductions within a lane and over the warp with shuffles.
 // The reciprocal of l is taken once per row and the normalisation is one
 // FMA per element.

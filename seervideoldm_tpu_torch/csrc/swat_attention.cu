@@ -1,8 +1,9 @@
 // K1: fused SWAT windowed causal spatio-temporal attention with rotary
 // tables; K6: the same kernel on pre-rotated q/k or with the rotation
 // computed in the kernel; K7 and K9: their backward (dq, dk, dv).  The
-// source of the rotation is a compile-time parameter (ROT below), so the
-// four TPU kernels are two CUDA kernels' instantiations.
+// source of the rotation is a compile-time parameter (ROT,
+// attn_fwd_hopper.cuh), so the four TPU kernels are two CUDA kernels'
+// instantiations.
 //
 // Replaces seervideoldm_tpu/ops/pallas/swat_attention.py::
 // swat_attention_tables (_swat_forward_tab, body _kernel_tab) and
@@ -11,73 +12,99 @@
 // For every ws x ws spatial window across all f frames (f * ws^2 tokens,
 // f-major: t = frame * ws^2 + row * ws + col) it rotates q and k in fp32,
 // rounds them to bf16, and computes causal (key t <= query t over the
-// flattened window) softmax attention.  The window is gathered from and
-// written back to the (B, f, h, w, d) layout with strides, so no partition
-// or reverse pass exists.
+// flattened window) softmax attention.  The window is read from and written
+// back to the (B, f, h, w, d) layout directly, so no partition or reverse
+// pass exists.
 //
-// What bounds it on an H100: at the 256px main-path shape (16 x 12 x 32 x
-// 32 x 40, ws 8, 768 tokens per window) the causal work is ~12 GFLOP
-// against ~67 MB of q/k/v/o/tables: tensor-core bound (~0.02 ms).  The TPU
-// kernel held a window's whole fp32 score matrix (768^2 x 4 = 2.4 MB) in
-// VMEM; shared memory cannot, so one CTA of 4 warps owns one query frame of
-// one window (64 tokens) and streams the key frames 0..frame through shared
-// memory with an online softmax: tiles wholly above the diagonal are never
-// visited.  mma.sync m16n8k16; rotation is done once per tile load.  K6
-// with rot_dim 0 reads no tables at all; with rot_dim > 0 it spends one
-// sincosf per rotated pair on load instead of two table reads.
+// What bounds it on an H100: at the 256 px main-path shape (16 x 12 x 32 x
+// 32 x 40, ws 8, 768 tokens per window) q/k/v/o and the tables are 67 MB
+// (0.0200 ms at 3.35 TB/s), the causal products 12.1 GFLOP (0.0122 ms),
+// and the softmax 75.6 M visible scores, one MUFU ex2 each at 0.2391 ps
+// (K10's calibration): 0.0181 ms.  Bytes and exponentials bound it about
+// equally (the rotation pass adds q and k written and read once more).
+// The TPU kernel held a window's whole fp32 score matrix (2.4 MB) in VMEM;
+// here (attn_fwd_hopper.cuh) a CTA holds 2 or 3 consecutive query frames
+// of one window, one a consumer warpgroup (the host's plan), and streams
+// the window's key frames 0 .. (its last query frame) through a TMA ring
+// once: each K/V frame is loaded once per CTA and serves every query frame
+// the CTA holds.  The loads are TMA boxes of a 5-D
+// tensor map over (d, w, h, f, B), box (64, 8, 8, 1, 1): one box is one
+// window frame, 64 tokens x 64 columns in the 128-byte swizzle, zero-filled
+// past d.  S and P V are wgmma products (see the header).
+//
+// The rotation.  K1 rotates q and k once, in rotate_qk_kernel, a
+// memory-bound pass (q, k and the tables read once, the rotated q and k
+// written once, each pair in fp32 and rounded to bf16 as the plain version
+// rounds it), and then runs the attention body unrotated (ROT_NONE), as K6
+// with rot_dim 0 does.  The fp32 tables are twice the bytes of K and V a
+// token, and a CTA sees each key frame it holds; rotating key tiles in
+// shared memory after they land made every CTA fetch the tables of every
+// such frame from L2 again, and that traffic, not the products, bounded
+// the kernel.  K6 with rot_dim > 0 computes its cos/sin (no tables), so it
+// rotates in shared memory: the producer's warps 1-3 rotate each key tile
+// once per CTA after it lands, each consumer warpgroup its query tiles.
 //
 // Layout: q/k/v/o (B, f, h, w, d) bf16 contiguous, cos/sin (f, h, w, d)
 // fp32 contiguous, ws = 8, h % 8 == w % 8 == 0, d a multiple of 8.
 #include "attn_bwd_core.cuh"
+#include "attn_fwd_hopper.cuh"
 
 namespace svl {
 
-constexpr int SW_WS = 8;  // window side; ws^2 = 64 = ATT_BQ = ATT_BK
-
-// Index, within one (f, h, w) volume, of token r (row-major in its ws x ws
-// window) of window (wy, wx) in `frame`.
-__device__ __forceinline__ size_t window_token(int frame, int wy, int wx,
-                                               int r, int h, int w) {
-  return ((size_t)frame * h + wy * SW_WS + r / SW_WS) * w + wx * SW_WS +
-         r % SW_WS;
+template <int DPAD, int CWG, int ROT>
+__global__ void __launch_bounds__(128 * (CWG + 1), 1)
+    swat_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const hat::Problem pb) {
+  hat::attn_fwd_body<DPAD, CWG, true, ROT>(&tq, &tk, &tv, pb);
 }
 
-// The source of the rotation of q and k, a compile-time parameter of the
-// loader and of every kernel below: ROT_NONE (v, g, or q/k that arrive
-// rotated: K6/K9 with rot_dim = 0), ROT_TABLES (the fp32 cos/sin tables:
-// K1/K7), ROT_TRIG (fp32 cos/sin computed from the token's position and the
-// rotary frequencies: K6/K9 with rot_dim > 0).
-constexpr int ROT_NONE = 0;
-constexpr int ROT_TABLES = 1;
-constexpr int ROT_TRIG = 2;
-
-struct RotSrc {
-  const float* cos_t;     // ROT_TABLES: (f, h, w, d)
-  const float* sin_t;
-  const float* inv_freq;  // ROT_TRIG: rot_dim / 2 fp32 frequencies
-  int rot_dim;            // ROT_TRIG: lanes >= rot_dim pass through
-};
-
-// cos and sin of the rotation of the pair (columns c, c + 1) of token `tok`
-// (its index in the (f, h, w) volume, which is also its rotary position
-// frame * h * w + row * w + col).  ROT_TRIG forms the phase as one fp32
-// product pos * inv_freq, as the plain version does, and takes the
-// full-range sincosf (phases reach 1e4 rad).
-template <int ROT>
-__device__ __forceinline__ void rot_cs(const RotSrc& rs, size_t tok, int d,
-                                       int c, float2& cs, float2& sn) {
-  if (ROT == ROT_TABLES) {
-    cs = *reinterpret_cast<const float2*>(rs.cos_t + tok * d + c);
-    sn = *reinterpret_cast<const float2*>(rs.sin_t + tok * d + c);
-  } else if (c < rs.rot_dim) {
-    float s, co;
-    sincosf((float)tok * rs.inv_freq[c >> 1], &s, &co);
-    cs = make_float2(co, co);
-    sn = make_float2(s, s);
-  } else {
-    cs = make_float2(1.f, 1.f);
-    sn = make_float2(0.f, 0.f);
+// K1's rotation pass: qr = rot(q), kr = rot(k) over (B, f, h, w, d) with
+// the (f, h, w, d) fp32 tables, t * cos + rotate_half(t) * sin in fp32 and
+// rounded to bf16 (rotate_pair).  One thread takes 8 columns of one token
+// (16-byte loads of q and k, 32-byte loads of each table), grid-stride.
+__global__ void rotate_qk_kernel(const bf16* __restrict__ q,
+                                 const bf16* __restrict__ k,
+                                 const float* __restrict__ cos_t,
+                                 const float* __restrict__ sin_t,
+                                 bf16* __restrict__ qr, bf16* __restrict__ kr,
+                                 long long vecs, long long vol_vecs) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < vecs; i += (long long)gridDim.x * blockDim.x) {
+    const long long t = i % vol_vecs;  // the vector's place in the volume
+    const float4* c4 = reinterpret_cast<const float4*>(cos_t) + 2 * t;
+    const float4* s4 = reinterpret_cast<const float4*>(sin_t) + 2 * t;
+    const float4 ca = c4[0], cb = c4[1], sa = s4[0], sb = s4[1];
+    const float2 cs[4] = {{ca.x, ca.y}, {ca.z, ca.w}, {cb.x, cb.y}, {cb.z, cb.w}};
+    const float2 sn[4] = {{sa.x, sa.y}, {sa.z, sa.w}, {sb.x, sb.y}, {sb.z, sb.w}};
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const uint4 u = reinterpret_cast<const uint4*>(which ? k : q)[i];
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&u);
+      uint32_t out[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 x = __bfloat1622float2(e[j]);
+        rotate_pair(x.x, x.y, cs[j], sn[j]);
+        out[j] = pack_bf16x2(x.x, x.y);
+      }
+      reinterpret_cast<uint4*>(which ? kr : qr)[i] =
+          make_uint4(out[0], out[1], out[2], out[3]);
+    }
   }
+}
+
+// A (B, f, h, w, d) bf16 volume as a 5-D tensor map (d, w, h, f, B), boxes
+// of one window frame: 64 columns x 8 x 8 tokens.
+static bool encode_windows(CUtensorMap* map, const void* p, int batch, int f,
+                           int h, int w, int d) {
+  const cuuint64_t dims[5] = {(cuuint64_t)d, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)f, (cuuint64_t)batch};
+  const cuuint64_t row = (cuuint64_t)d * 2;
+  const cuuint64_t strides[4] = {row, row * w, row * w * h, row * w * h * f};
+  const cuuint32_t box[5] = {64, SW_WS, SW_WS, 1, 1};
+  return encode_bf16(map, p, 5, dims, strides, box);
 }
 
 // One frame of one window (64 tokens) into shared memory: as rows
@@ -106,10 +133,7 @@ __device__ __forceinline__ void load_window_frame(
       if (ROT != ROT_NONE) {
         float2 cs, sn;
         rot_cs<ROT>(rs, tok, d, c, cs, sn);
-        const float r0 = x0 * cs.x + (-x1) * sn.x;
-        const float r1 = x1 * cs.y + x0 * sn.y;
-        x0 = r0;
-        x1 = r1;
+        rotate_pair(x0, x1, cs, sn);
       }
     }
     const __nv_bfloat16 b0 = __float2bfloat16_rn(x0);
@@ -124,62 +148,6 @@ __device__ __forceinline__ void load_window_frame(
   }
 }
 
-template <int DP, int ROT>
-__global__ void __launch_bounds__(ATT_THREADS)
-    swat_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const RotSrc rs,
-                    bf16* __restrict__ o, float* __restrict__ lse, int f,
-                    int h, int w, int d, float scale_log2, int causal) {
-  __shared__ __align__(16) bf16 ks[ATT_BK * (DP + 8)];
-  __shared__ __align__(16) bf16 vt[DP * (ATT_BK + 8)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int fq = blockIdx.x;
-  const int wins_x = w / SW_WS;
-  const int wy = blockIdx.y / wins_x, wx = blockIdx.y % wins_x;
-  const size_t base = (size_t)blockIdx.z * f * h * w * d;
-  const bf16* qb = q + base;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-
-  load_window_frame<DP, ROT, true, false>(ks, nullptr, qb, rs, fq, wy, wx, h,
-                                          w, d);
-  __syncthreads();
-  AttnState<DP> st;
-  attn_init<DP>(st, ks, warp, lane);
-
-  constexpr int T = SW_WS * SW_WS;
-  const int last = causal ? fq : f - 1;
-  for (int fk = 0; fk <= last; ++fk) {
-    __syncthreads();
-    load_window_frame<DP, ROT, true, false>(ks, nullptr, kb, rs, fk, wy, wx,
-                                            h, w, d);
-    load_window_frame<DP, ROT_NONE, false, true>(nullptr, vt, vb, rs, fk, wy,
-                                                 wx, h, w, d);
-    __syncthreads();
-    attn_tile<DP>(st, ks, vt, scale_log2, fq * T + warp * 16, fk * T, f * T,
-                  causal != 0, lane);
-  }
-  bf16* ob = o + base;
-  float* lb = lse == nullptr ? nullptr : lse + (size_t)blockIdx.z * f * h * w;
-  attn_store<DP>(
-      st, warp * 16, T, d,
-      [&](int r) { return ob + window_token(fq, wy, wx, r, h, w) * d; },
-      [&](int r) {
-        return lb == nullptr ? nullptr : lb + window_token(fq, wy, wx, r, h, w);
-      },
-      lane);
-}
-
-template <int DP, int ROT>
-static void launch(const bf16* q, const bf16* k, const bf16* v,
-                   const RotSrc& rs, bf16* o, float* lse, int batch, int f,
-                   int h, int w, int d, float scale_log2, int causal,
-                   cudaStream_t stream) {
-  dim3 grid(f, (h / SW_WS) * (w / SW_WS), batch);
-  swat_fwd_kernel<DP, ROT><<<grid, ATT_THREADS, 0, stream>>>(
-      q, k, v, rs, o, lse, f, h, w, d, scale_log2, causal);
-}
-
 // ---------------------------------------------------------------- K7
 //
 // Replaces seervideoldm_tpu/ops/pallas/swat_attention.py::
@@ -188,7 +156,8 @@ static void launch(const bf16* q, const bf16* k, const bf16* v,
 // here the forward saves lse and the two tile kernels of attn_bwd_core.cuh
 // run with the window gather of K1: q and k are rotated in fp32 on load and
 // rounded to bf16, v and g are not rotated.  The dq kernel's CTA owns
-// (query frame, window, batch*head) and visits key frames 0..fq; the dk/dv
+// (query frame, window, batch*head) and visits key frames 0..fq twice
+// (delta = rowsum(p * dp), then dq); the dk/dv
 // kernel's CTA owns (key frame, window, batch*head) and visits query frames
 // fk..f-1, so tiles above the causal diagonal are never touched.  Before
 // the store dq and dk are de-rotated in fp32 with the adjoint
@@ -197,8 +166,10 @@ static void launch(const bf16* q, const bf16* k, const bf16* v,
 // pair, so this needs no shuffle.  dv is not rotated.
 //
 // What bounds it on an H100: at the training shape (8 x 12 x 32 x 32 x 40,
-// ws 8, 768 tokens per window) the causal work is ~15 GFLOP against ~50 MB:
-// tensor-core bound (~0.015 ms).
+// ws 8, 768 tokens per window) the causal work is ~15 GFLOP (0.015 ms)
+// against ~50 MB (0.015 ms) and 37.8 M visible scores, p recomputed once
+// each (one MUFU ex2, 0.009 ms).  As K8: mma.sync, p and dS as bf16 hi +
+// lo pairs, a delta pass in the dq kernel.
 //
 // ---------------------------------------------------------------- K9
 //
@@ -218,8 +189,9 @@ __device__ __forceinline__ void derotate_pair(const RotSrc& rs, size_t tok,
   if (ROT == ROT_NONE) return;
   float2 cs, sn;
   rot_cs<ROT>(rs, tok, d, c, cs, sn);
-  const float r0 = v0 * cs.x + v1 * sn.x;
-  const float r1 = v1 * cs.y - v0 * sn.y;
+  // rounded as the plain version's t * cos - rotate_half(t) * sin
+  const float r0 = __fsub_rn(__fmul_rn(v0, cs.x), __fmul_rn(-v1, sn.x));
+  const float r1 = __fsub_rn(__fmul_rn(v1, cs.y), __fmul_rn(v0, sn.y));
   v0 = r0;
   v1 = r1;
 }
@@ -229,9 +201,9 @@ __global__ void __launch_bounds__(ATT_THREADS)
     swat_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ g,
                        const RotSrc rs, const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       bf16* __restrict__ dq, int f, int h, int w, int d,
-                       float scale, float scale_log2, int causal) {
+                       float* __restrict__ delta, bf16* __restrict__ dq,
+                       int f, int h, int w, int d, float scale,
+                       float scale_log2, int causal) {
   __shared__ __align__(16) bf16 ks[ATT_BK * (DP + 8)];
   __shared__ __align__(16) bf16 kt[DP * (ATT_BK + 8)];
   __shared__ __align__(16) bf16 vs[ATT_BK * (DP + 8)];
@@ -254,16 +226,34 @@ __global__ void __launch_bounds__(ATT_THREADS)
     load_a_frag(st.gf[kc], vs, DP + 8, warp * 16, kc * 16, lane);
   }
   zero_acc<DP>(st.acc);
+  size_t toks[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const size_t tok =
+    toks[r] =
         vol + window_token(fq, wy, wx, warp * 16 + (lane >> 2) + 8 * r, h, w);
-    st.lse[r] = bwd_lse(lse[tok]);
-    st.delta[r] = delta[tok];
+    st.lse[r] = bwd_lse(lse[toks[r]]);
   }
 
   constexpr int T = SW_WS * SW_WS;
   const int last = causal ? fq : f - 1;
+  float dsum[2] = {0.f, 0.f};
+  for (int fk = 0; fk <= last; ++fk) {
+    __syncthreads();
+    load_window_frame<DP, ROT, true, false>(ks, nullptr, k + base, rs, fk, wy,
+                                            wx, h, w, d);
+    load_window_frame<DP, ROT_NONE, true, false>(vs, nullptr, v + base, rs,
+                                                 fk, wy, wx, h, w, d);
+    __syncthreads();
+    delta_tile<DP>(st, ks, vs, scale_log2, fq * T + warp * 16, fk * T, f * T,
+                   causal != 0, lane, dsum);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    st.delta[r] = quad_sum(dsum[r]);
+    if ((lane & 3) == 0) delta[toks[r]] = st.delta[r];
+  }
+  if (dq == nullptr) return;
+
   for (int fk = 0; fk <= last; ++fk) {
     __syncthreads();
     load_window_frame<DP, ROT, true, true>(ks, kt, k + base, rs, fk, wy, wx,
@@ -356,59 +346,69 @@ __global__ void __launch_bounds__(ATT_THREADS)
 template <int DP, int ROT>
 static void launch_bwd(const bf16* q, const bf16* k, const bf16* v,
                        const bf16* g, const RotSrc& rs, const float* lse,
-                       const float* delta, bf16* dq, bf16* dk, bf16* dv,
-                       int batch, int f, int h, int w, int d, float scale,
+                       float* delta, bf16* dq, bf16* dk, bf16* dv, int batch,
+                       int f, int h, int w, int d, float scale,
                        float scale_log2, int causal, cudaStream_t stream) {
   dim3 grid(f, (h / SW_WS) * (w / SW_WS), batch);
-  if (dq != nullptr)
-    swat_bwd_dq_kernel<DP, ROT><<<grid, ATT_THREADS, 0, stream>>>(
-        q, k, v, g, rs, lse, delta, dq, f, h, w, d, scale, scale_log2, causal);
+  // always: its first pass writes delta
+  swat_bwd_dq_kernel<DP, ROT><<<grid, ATT_THREADS, 0, stream>>>(
+      q, k, v, g, rs, lse, delta, dq, f, h, w, d, scale, scale_log2, causal);
   if (dk != nullptr)
     swat_bwd_dkv_kernel<DP, ROT><<<grid, ATT_THREADS, 0, stream>>>(
         q, k, v, g, rs, lse, delta, dk, dv, f, h, w, d, scale, scale_log2,
         causal);
 }
 
-// The forward for one rotation mode, dispatched on the padded head width.
+// The forward for one rotation mode, dispatched on the padded head width
+// and the consumer warpgroups per CTA.
 template <int ROT>
 static int fwd(const void* q, const void* k, const void* v, const RotSrc& rs,
                void* o, void* lse, int batch, int f, int h, int w, int d,
-               float scale, int causal, void* stream) {
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
-  float* ll = static_cast<float*>(lse);
+               float scale, int causal, int cwg, void* stream) {
+  const int dpad = hat::dpad_of(d);
+  if (dpad < 0 || !hat::cwg_ok(dpad, cwg) || batch <= 0 || f <= 0) return -1;
+  CUtensorMap tq{}, tk{}, tv{};
+  if (!encode_windows(&tq, q, batch, f, h, w, d) ||
+      !encode_windows(&tk, k, batch, f, h, w, d) ||
+      !encode_windows(&tv, v, batch, f, h, w, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  hat::Problem pb{};
+  pb.o = static_cast<bf16*>(o);
+  pb.lse = static_cast<float*>(lse);
+  pb.rs = rs;
+  pb.rows = f * h * w;
+  pb.kv_len = f * SW_WS * SW_WS;
+  pb.d = d;
+  pb.qtiles = pb.ktiles = f;
+  pb.f = f;
+  pb.h = h;
+  pb.w = w;
+  pb.causal = causal;
+  pb.scale_log2 = scale * 1.4426950408889634f;
+  const dim3 grid((f + cwg - 1) / cwg, (h / SW_WS) * (w / SW_WS), batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
-#define SVL_CASE(DPV)                                                     \
-  case DPV:                                                               \
-    launch<DPV, ROT>(qq, kk, vv, rs, oo, ll, batch, f, h, w, d,           \
-                     scale_log2, causal, s);                              \
-    break;
-    SVL_CASE(16) SVL_CASE(32) SVL_CASE(48) SVL_CASE(64) SVL_CASE(80)
-    SVL_CASE(96) SVL_CASE(112) SVL_CASE(128) SVL_CASE(144) SVL_CASE(160)
-#undef SVL_CASE
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+#define SVL_FWD(DP, CW)                                                    \
+  if (dpad == DP && cwg == CW)                                             \
+    return hat::launch<DP, CW, &swat_fwd_wgmma_kernel<DP, CW, ROT>>(       \
+        grid, tq, tk, tv, pb, s);
+  SVL_FWD(64, 2) SVL_FWD(64, 3) SVL_FWD(128, 2) SVL_FWD(128, 3)
+  SVL_FWD(192, 2)
+#undef SVL_FWD
+  return -1;
 }
 
-// The backward for one rotation mode: the delta prologue, then the dq and
-// dk/dv kernels, dispatched on the padded head width.
+// The backward for one rotation mode: the dq kernel (delta first) and the
+// dk/dv kernel, dispatched on the padded head width.
 template <int ROT>
 static int bwd(const void* q, const void* k, const void* v, const RotSrc& rs,
-               const void* o, const void* g, const void* lse, void* delta,
-               void* dq, void* dk, void* dv, int batch, int f, int h, int w,
-               int d, float scale, int causal, void* stream) {
+               const void* g, const void* lse, void* delta, void* dq,
+               void* dk, void* dv, int batch, int f, int h, int w, int d,
+               float scale, int causal, void* stream) {
   if ((dk == nullptr) != (dv == nullptr)) return -1;
   const float scale_log2 = scale * 1.4426950408889634f;
   const bf16* gg = static_cast<const bf16*>(g);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_delta(gg, static_cast<const bf16*>(o), dl,
-               (long long)batch * f * h * w, d, s);
   switch ((d + 15) / 16 * 16) {
 #define SVL_CASE(DPV)                                                        \
   case DPV:                                                                  \
@@ -445,19 +445,38 @@ static RotSrc trig(const void* inv_freq, int rot_dim) {
 
 }  // namespace svl
 
-// K1.  Returns 0 on success, a cudaError_t code after a failed launch, or
-// -1 for a shape this build does not cover (ws != 8, h or w not a multiple
-// of 8, d % 8 != 0 or d > 160).  `lse` (batch, f, h, w) fp32 may be null:
-// it is written only when a backward will need it.
+// K1: the rotation pass into qr, kr (scratch of q's shape), then the
+// attention over qr, kr, v.  Returns 0 on success, a cudaError_t code after
+// a failed launch, or -1 for a shape this build does not cover (ws != 8, h
+// or w not a multiple of 8, d % 8 != 0 or d > 160, a cwg without an
+// instantiation: hat::cwg_ok).  `lse` (batch, f, h, w) fp32 may be null:
+// it is written only when a backward will need it.  `cwg`: consumer
+// warpgroups per CTA, each one query frame of the window (ops/kernels/
+// swat_attention.py::plan).
 extern "C" int svl_swat_attention_tab_fwd(const void* q, const void* k,
                                           const void* v, const void* cos_t,
-                                          const void* sin_t, void* o,
-                                          void* lse, int batch, int f, int h,
-                                          int w, int d, int ws, float scale,
-                                          int causal, void* stream) {
+                                          const void* sin_t, void* qr,
+                                          void* kr, void* o, void* lse,
+                                          int batch, int f, int h, int w,
+                                          int d, int ws, float scale,
+                                          int causal, int cwg, void* stream) {
+  using svl::bf16;
   if (!svl::covered(h, w, d, ws, 160)) return -1;
-  return svl::fwd<svl::ROT_TABLES>(q, k, v, svl::tables(cos_t, sin_t), o, lse,
-                                   batch, f, h, w, d, scale, causal, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long vol_vecs = (long long)f * h * w * d / 8;
+  const long long vecs = vol_vecs * batch;
+  const int threads = 256;
+  const long long blocks = (vecs + threads - 1) / threads;
+  svl::rotate_qk_kernel<<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16),
+                          threads, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<bf16*>(qr), static_cast<bf16*>(kr), vecs, vol_vecs);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return svl::fwd<svl::ROT_NONE>(qr, kr, v, svl::trig(nullptr, 0), o, lse,
+                                 batch, f, h, w, d, scale, causal, cwg,
+                                 stream);
 }
 
 // K6.  q/k/v/o (batch, f, h, w, d) bf16; rot_dim 0: q and k arrive rotated
@@ -469,31 +488,31 @@ extern "C" int svl_swat_attention_fwd(const void* q, const void* k,
                                       void* o, void* lse, int batch, int f,
                                       int h, int w, int d, int ws,
                                       int rot_dim, float scale, int causal,
-                                      void* stream) {
+                                      int cwg, void* stream) {
   if (!svl::covered(h, w, d, ws, 160)) return -1;
   if (rot_dim < 0 || rot_dim > d || rot_dim % 2 != 0) return -1;
   const svl::RotSrc rs = svl::trig(inv_freq, rot_dim);
   if (rot_dim == 0)
     return svl::fwd<svl::ROT_NONE>(q, k, v, rs, o, lse, batch, f, h, w, d,
-                                   scale, causal, stream);
+                                   scale, causal, cwg, stream);
   return svl::fwd<svl::ROT_TRIG>(q, k, v, rs, o, lse, batch, f, h, w, d,
-                                 scale, causal, stream);
+                                 scale, causal, cwg, stream);
 }
 
-// K7.  q/k/v/o/g/dq/dk/dv (batch, f, h, w, d) bf16, q and k UN-rotated;
+// K7.  q/k/v/g/dq/dk/dv (batch, f, h, w, d) bf16, q and k UN-rotated;
 // cos/sin (f, h, w, d) fp32; lse (batch, f, h, w) fp32 as the forward wrote
-// it; delta the same shape, fp32 scratch.  dq may be null; dk and dv are
-// null together.  Returns 0, a cudaError_t code, or -1 for a shape the
-// backward does not cover (ws != 8, h or w not a multiple of 8, d % 8 != 0
-// or d > 80).
+// it; delta the same shape, fp32 scratch.  dq may be null (the dq kernel
+// then only forms delta); dk and dv are null together.  Returns 0, a
+// cudaError_t code, or -1 for a shape the backward does not cover (ws !=
+// 8, h or w not a multiple of 8, d % 8 != 0 or d > 80).
 extern "C" int svl_swat_attention_tab_bwd(
     const void* q, const void* k, const void* v, const void* cos_t,
-    const void* sin_t, const void* o, const void* g, const void* lse,
-    void* delta, void* dq, void* dk, void* dv, int batch, int f, int h, int w,
-    int d, int ws, float scale, int causal, void* stream) {
+    const void* sin_t, const void* g, const void* lse, void* delta, void* dq,
+    void* dk, void* dv, int batch, int f, int h, int w, int d, int ws,
+    float scale, int causal, void* stream) {
   if (!svl::covered(h, w, d, ws, svl::BWD_MAX_D)) return -1;
-  return svl::bwd<svl::ROT_TABLES>(q, k, v, svl::tables(cos_t, sin_t), o, g,
-                                   lse, delta, dq, dk, dv, batch, f, h, w, d,
+  return svl::bwd<svl::ROT_TABLES>(q, k, v, svl::tables(cos_t, sin_t), g, lse,
+                                   delta, dq, dk, dv, batch, f, h, w, d,
                                    scale, causal, stream);
 }
 
@@ -502,15 +521,15 @@ extern "C" int svl_swat_attention_tab_bwd(
 // from in-kernel trig over `inv_freq`.
 extern "C" int svl_swat_attention_bwd(
     const void* q, const void* k, const void* v, const void* inv_freq,
-    const void* o, const void* g, const void* lse, void* delta, void* dq,
-    void* dk, void* dv, int batch, int f, int h, int w, int d, int ws,
-    int rot_dim, float scale, int causal, void* stream) {
+    const void* g, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int f, int h, int w, int d, int ws, int rot_dim, float scale,
+    int causal, void* stream) {
   if (!svl::covered(h, w, d, ws, svl::BWD_MAX_D)) return -1;
   if (rot_dim < 0 || rot_dim > d || rot_dim % 2 != 0) return -1;
   const svl::RotSrc rs = svl::trig(inv_freq, rot_dim);
   if (rot_dim == 0)
-    return svl::bwd<svl::ROT_NONE>(q, k, v, rs, o, g, lse, delta, dq, dk, dv,
+    return svl::bwd<svl::ROT_NONE>(q, k, v, rs, g, lse, delta, dq, dk, dv,
                                    batch, f, h, w, d, scale, causal, stream);
-  return svl::bwd<svl::ROT_TRIG>(q, k, v, rs, o, g, lse, delta, dq, dk, dv,
+  return svl::bwd<svl::ROT_TRIG>(q, k, v, rs, g, lse, delta, dq, dk, dv,
                                  batch, f, h, w, d, scale, causal, stream);
 }

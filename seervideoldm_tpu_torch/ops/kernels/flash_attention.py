@@ -9,7 +9,10 @@ streams K/V in 64-key tiles through shared memory with an online softmax,
 because 227 KB cannot hold the whole K/V row the TPU kept in VMEM; when a
 gradient is needed it also writes the rows' log-sum-exp, so the backward
 recomputes the probabilities exactly, tile by tile, in two kernels without
-atomics (see the source notes).
+atomics (see the source notes).  The forward is a Hopper kernel (wgmma fed
+by a TMA ring, ``csrc/attn_fwd_hopper.cuh``); ``plan`` picks how many
+consumer warpgroups a CTA has, each holding one 64-row query tile, and
+``cta_tiles`` is the kernel's map from a CTA to its query tiles.
 
 The wrapper runs the plain version for CPU tensors and the kernels for
 CUDA tensors; there is no other path.  Where a gradient is needed both go
@@ -21,6 +24,7 @@ on either.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,6 +33,73 @@ from . import build
 
 NEG_INF = torch.finfo(torch.float32).min
 BWD_MAX_D = 80  # csrc/attn_bwd_core.cuh
+FWD_MAX_D = 160  # csrc/attn_fwd_hopper.cuh: d % 8 == 0, padded to 64/128/192
+TILE = 64        # query rows / keys of a tile (SWAT: one window frame)
+SMS = 132        # H100 SXM streaming multiprocessors
+
+
+def cta_tiles(tiles: int, cwg: int, group: int) -> list:
+    """The query tiles CTA ``group`` holds, one a consumer warpgroup (None
+    past the last tile): the kernel's own map, for the tests."""
+    return [t if t < tiles else None
+            for t in range(group * cwg, (group + 1) * cwg)]
+
+
+def cwg_choices(d: int) -> tuple:
+    """Consumer warpgroups per CTA the forward kernels are built for at
+    head dim ``d``, in the plan's order of preference: three where a
+    tile's O, S and P fit their 152 registers a thread (d_pad <= 128),
+    else two (``csrc/attn_fwd_hopper.cuh::cwg_ok``)."""
+    return (3, 2) if d <= 128 else (2,)
+
+
+def choose_cwg(d: int, ctas_at) -> int:
+    """The plan's rule for K1, K2 and K6: the first of ``cwg_choices(d)``
+    that gives every SM a CTA, else the one with the most CTAs (two).
+    ``ctas_at(cwg)`` is the CTA count."""
+    options = cwg_choices(d)
+    full = [c for c in options if ctas_at(c) >= SMS]
+    return full[0] if full else min(options)
+
+
+def covers(n: int, m: int, d: int, causal: bool = False) -> bool:
+    """Whether the K2 forward kernel takes (n, m, d): d a multiple of 8 up
+    to 160, causal only with n == m."""
+    return (n > 0 and m > 0 and 0 < d <= FWD_MAX_D and d % 8 == 0
+            and (not causal or n == m))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, n: int, m: int, d: int, causal: bool = False) -> dict:
+    """The K2 launch for one covered shape: ``cwg`` consumer warpgroups
+    per CTA, each one 64-row query tile (``choose_cwg``), ``ctas`` = batch
+    x ceil(tiles / cwg)."""
+    tiles = -(-n // TILE)
+    ctas = lambda c: batch * -(-tiles // c)  # noqa: E731
+    cwg = choose_cwg(d, ctas)
+    return {"cwg": cwg, "ctas": ctas(cwg), "tiles": tiles}
+
+
+_LIB = None
+
+
+def _lib():
+    """The loaded ``csrc/flash_attention.cu`` library, its C signatures set
+    once."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("flash_attention")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.svl_flash_attention_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [
+            ctypes.c_float, i32, i32, ptr]
+        lib.svl_flash_attention_fwd.restype = i32
+        lib.svl_flash_attention_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [
+            ctypes.c_float, i32, ptr]
+        lib.svl_flash_attention_bwd.restype = i32
+        lib.svl_attn_fwd_smem.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
+        lib.svl_attn_fwd_smem.restype = i32
+        _LIB = lib
+    return _LIB
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -75,6 +146,17 @@ def flash_attention_bwd_plain(q, k, v, g, scale: float, causal: bool = False):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def fwd_smem(d: int, cwg: int) -> tuple:
+    """(dynamic shared memory bytes, ring stages) of a CTA of the forward
+    kernels (K1, K2, K6) at head dim ``d`` with ``cwg`` consumer
+    warpgroups, as the CUDA source lays it out (needs the built library)."""
+    stages = ctypes.c_int(0)
+    nbytes = _lib().svl_attn_fwd_smem(d, cwg, ctypes.byref(stages))
+    if nbytes < 0:
+        raise ValueError(f"no forward instantiation for d={d}, cwg={cwg}")
+    return nbytes, stages.value
+
+
 def _check_cuda(q, k, v, causal: bool, what: str):
     n, d = q.shape[-2:]
     m = k.shape[-2]
@@ -82,61 +164,59 @@ def _check_cuda(q, k, v, causal: bool, what: str):
         raise ValueError(f"{what}: causal needs n == m")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what}: kernel takes bf16, got {q.dtype}")
-    if d % 8 or d > 160:
+    if not covers(n, m, d, causal):
         raise ValueError(f"{what}: head dim {d} not covered "
-                         "(multiple of 8, at most 160)")
+                         f"(multiple of 8, at most {FWD_MAX_D})")
     return n, m, d
 
 
-def _launch_fwd(qf, kf, vf, scale: float, causal: bool, want_lse: bool):
+def _launch_fwd(qf, kf, vf, scale: float, causal: bool, want_lse: bool,
+                cwg: int = None):
     """The K2 launch on folded contiguous (B, n, d) / (B, m, d) bf16 CUDA
-    tensors.  Returns (out, lse or None); lse (B, n) fp32, log2 domain."""
+    tensors, ``cwg`` from ``plan`` unless given.  Returns (out, lse or
+    None); lse (B, n) fp32, log2 domain."""
     batch, n, d = qf.shape
     m = kf.shape[1]
+    if cwg is None:
+        cwg = plan(batch, n, m, d, causal)["cwg"]
     out = torch.empty_like(qf)
     lse = (torch.empty(batch, n, dtype=torch.float32, device=qf.device)
            if want_lse else None)
-    lib = build.load("flash_attention")
-    fn = lib.svl_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(build.ptr(qf), build.ptr(kf), build.ptr(vf), build.ptr(out),
-              build.ptr(lse) if want_lse else None, batch, n, m, d,
-              float(scale), int(causal), build.stream_of(qf))
+    lib = _lib()
+    code = lib.svl_flash_attention_fwd(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if want_lse else None, batch, n, m, d, float(scale),
+        int(causal), cwg, build.stream_of(qf))
     build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, out, lse, g, scale: float,
-                        causal: bool = False, need=(True, True, True)):
-    """K8 on CUDA tensors: q/out/g (B, n, d), k/v (B, m, d) bf16, ``lse``
-    (B, n) fp32 as the forward wrote it.  Returns (dq, dk, dv); an entry is
-    None where ``need`` is false and its kernel could be skipped."""
+def flash_attention_bwd(q, k, v, lse, g, scale: float, causal: bool = False,
+                        need=(True, True, True)):
+    """K8 on CUDA tensors: q/g (B, n, d), k/v (B, m, d) bf16, ``lse`` (B, n)
+    fp32 as the forward wrote it.  Returns (dq, dk, dv); an entry is None
+    where ``need`` is false and its kernel could be skipped."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     n, m, d = _check_cuda(q, k, v, causal, "flash_attention_bwd")
     if d > BWD_MAX_D:
         raise ValueError(f"flash_attention_bwd: head dim {d} not covered by "
                          f"the backward kernel (at most {BWD_MAX_D})")
-    q, k, v, out, g = (t.contiguous() for t in (q, k, v, out, g))
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     batch = q.shape[0]
     need_kv = need[1] or need[2]
     dq = torch.empty_like(q) if need[0] else None
     dk = torch.empty_like(k) if need_kv else None
     dv = torch.empty_like(v) if need_kv else None
     delta = torch.empty(batch, n, dtype=torch.float32, device=q.device)
-    lib = build.load("flash_attention")
-    fn = lib.svl_flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
-    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
-              build.ptr(g), build.ptr(lse.contiguous()), build.ptr(delta),
-              opt(dq), opt(dk), opt(dv), batch, n, m, d, float(scale),
-              int(causal), build.stream_of(q))
+    lib = _lib()
+    opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    code = lib.svl_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.contiguous().data_ptr(), delta.data_ptr(), opt(dq), opt(dk),
+        opt(dv), batch, n, m, d, float(scale), int(causal),
+        build.stream_of(q))
     build.check(lib, code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -145,7 +225,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale: float,
 class FlashAttentionFn(torch.autograd.Function):
     """softmax(q k^T * scale) v on folded (B, n, d) / (B, m, d) tensors.
     With ``kernel`` (default: on CUDA tensors) the K2 forward and the K8
-    backward, saving q, k, v, out and lse; otherwise the plain forward and
+    backward, saving q, k, v and lse; otherwise the plain forward and
     its explicit backward, saving q, k, v.  The forward's outputs are a
     saved site under ``remat: save_attn`` (``ops/remat.py``)."""
 
@@ -156,7 +236,7 @@ class FlashAttentionFn(torch.autograd.Function):
         if ctx.kernel:
             out, lse = saved_site(lambda: _launch_fwd(q, k, v, scale, causal,
                                                       want_lse=True))
-            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.save_for_backward(q, k, v, lse)
         else:
             if causal and q.shape[-2] != k.shape[-2]:
                 raise ValueError("flash_attention: causal needs n == m")
@@ -169,8 +249,8 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, g):
         need = ctx.needs_input_grad[:3]
         if ctx.kernel:
-            q, k, v, out, lse = ctx.saved_tensors
-            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.scale,
+            q, k, v, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd(q, k, v, lse, g, ctx.scale,
                                              ctx.causal, need)
         else:
             q, k, v = ctx.saved_tensors

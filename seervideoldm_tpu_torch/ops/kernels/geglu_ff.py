@@ -76,11 +76,20 @@ def geglu_ff_plain(x, w1, b1, w2, b2):
 
 
 def _layer_norm(x, gamma, beta):
+    """The LayerNorm of the TPU kernels' prologue, ``cen * rsqrt(var +
+    eps)``, with the rounding points the CUDA up kernel keeps: the mean and
+    the centred variance summed in fp64 (exact for bf16 inputs, so the
+    order of the sums does not matter) and rounded once to fp32; then in
+    fp32, each step correctly rounded, cen = x - mean, rsd = 1 / sqrt(var +
+    eps), ((cen * rsd) * gamma) + beta, one rounding to x's dtype."""
     x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, keepdim=True, unbiased=False)
-    ln = (x32 - mean) / torch.sqrt(var + LN_EPS)
-    return (ln * gamma.float() + beta.float()).to(x.dtype)
+    c = x.shape[-1]
+    mean = (x32.double().sum(dim=-1, keepdim=True) / c).float()
+    cen = x32 - mean
+    var = ((cen.double() * cen.double()).sum(dim=-1, keepdim=True)
+           / c).float()
+    rsd = torch.sqrt(var + LN_EPS).reciprocal()
+    return (cen * rsd * gamma.float() + beta.float()).to(x.dtype)
 
 
 def ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2):

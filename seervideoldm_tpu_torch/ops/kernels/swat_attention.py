@@ -8,15 +8,20 @@ Replaces ``seervideoldm_tpu/ops/pallas/swat_attention.py``:
 pre-rotated with ``rot_dim`` 0, the production call of the sequence-parallel
 path, or are rotated in the kernel from fp32 trig with ``rot_dim`` > 0) and
 ``_swat_backward`` (K9: body ``_bwd_kernel``).  K6/K9 are the K1/K7 kernels
-with another source of the rotation.  On
-the H100 both are tensor-core bound at the main path's shapes; one CTA owns
-one frame of one window and streams the visible frames of the other side
-through shared memory, because the window's 2.4 MB fp32 score matrix the
-TPU kept in VMEM does not fit there.  When a gradient is needed the forward
-also writes the rows' log-sum-exp, so the backward recomputes the
-probabilities exactly in two kernels without atomics, re-rotating q and k
-from the tables on load and de-rotating dq and dk with the adjoint before
-the store (see the source notes).
+with another source of the rotation.  The window's 2.4 MB fp32 score
+matrix the TPU kept in VMEM does not fit in shared memory, so the forward
+(a Hopper kernel, wgmma fed by a TMA ring, ``csrc/attn_fwd_hopper.cuh``)
+gives a CTA a few query frames of one window and streams the window's key
+frames past them once, each loaded once per CTA (K1 rotates q and k in one
+pass before it, K6 with ``rot_dim`` > 0 in shared memory); ``plan``
+picks the consumer warpgroups per CTA, each holding one query frame;
+``cta_tiles`` (in ``flash_attention.py``) is the kernel's map from a CTA
+to its frames.
+When a gradient is needed the forward also writes the rows' log-sum-exp,
+so the backward recomputes the probabilities exactly in two kernels
+without atomics (one CTA per frame of a window), re-rotating q and k from
+the tables on load and de-rotating dq and dk with the adjoint before the
+store (see the source notes).
 
 The wrapper runs the plain version for CPU tensors and the kernels for
 CUDA tensors; there is no other path.  Where a gradient is needed both go
@@ -27,6 +32,7 @@ their explicit plain forward and backward), so that ``remat: save_attn``
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,8 +40,60 @@ from ..rotary import inv_freq, rotary_tables, rotate_half
 from ..windows import window_partition, window_reverse
 from ..remat import needs_grad, saved_site
 from . import build
-from .flash_attention import (BWD_MAX_D, _acc_dtype, attention_bwd_f32,
+from .flash_attention import (BWD_MAX_D, FWD_MAX_D, _acc_dtype,
+                              attention_bwd_f32, choose_cwg,
                               flash_attention_plain)
+
+WS = 8  # the window side the kernels take
+
+
+def covers(f: int, h: int, w: int, d: int, ws: int) -> bool:
+    """Whether the K1 / K6 forward kernel takes the shape: ws 8, h and w
+    whole windows, d a multiple of 8 up to 160."""
+    return (ws == WS and f > 0 and h > 0 and w > 0 and h % ws == 0
+            and w % ws == 0 and 0 < d <= FWD_MAX_D and d % 8 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, f: int, h: int, w: int, d: int) -> dict:
+    """The K1 / K6 launch for one covered shape: ``cwg`` consumer
+    warpgroups per CTA, each one query frame of the window
+    (``flash_attention.choose_cwg``), ``ctas`` = batch x windows x ceil(f /
+    cwg)."""
+    windows = (h // WS) * (w // WS)
+    ctas = lambda c: batch * windows * -(-f // c)  # noqa: E731
+    cwg = choose_cwg(d, ctas)
+    return {"cwg": cwg, "ctas": ctas(cwg), "tiles": f, "windows": windows}
+
+
+_LIB = None
+
+
+def _lib():
+    """The loaded ``csrc/swat_attention.cu`` library, its C signatures set
+    once."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("swat_attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.svl_swat_attention_tab_fwd.argtypes = [ptr] * 9 + [i32] * 6 + [
+            f32, i32, i32, ptr]
+        lib.svl_swat_attention_tab_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [
+            f32, i32, ptr]
+        lib.svl_swat_attention_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [
+            f32, i32, i32, ptr]
+        lib.svl_swat_attention_bwd.argtypes = [ptr] * 10 + [i32] * 7 + [
+            f32, i32, ptr]
+        for fn in (lib.svl_swat_attention_tab_fwd,
+                   lib.svl_swat_attention_tab_bwd,
+                   lib.svl_swat_attention_fwd, lib.svl_swat_attention_bwd):
+            fn.restype = i32
+        _LIB = lib
+    return _LIB
+
+
+def _opt(t):
+    return None if t is None else t.data_ptr()
 
 
 def rotate_tables(t: torch.Tensor, cos: torch.Tensor,
@@ -78,44 +136,47 @@ def swat_attention_tables_bwd_plain(q, k, v, cos, sin, g, scale: float,
 
 def _check_cuda(q, k, v, cos, sin, ws: int, what: str) -> None:
     d = q.shape[-1]
-    if ws != 8:
-        raise ValueError(f"{what}: kernel covers ws = 8, got {ws}")
+    if ws != WS:
+        raise ValueError(f"{what}: kernel covers ws = {WS}, got {ws}")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what}: kernel takes bf16, got {q.dtype}")
     if cos.dtype != torch.float32 or sin.dtype != torch.float32:
         raise ValueError(f"{what}: tables must be fp32")
-    if d % 8 or d > 160:
+    if cos.data_ptr() % 16 or sin.data_ptr() % 16:
+        raise ValueError(f"{what}: tables must be 16-byte aligned")
+    if d % 8 or d > FWD_MAX_D:
         raise ValueError(f"{what}: head dim {d} not covered "
-                         "(multiple of 8, at most 160)")
+                         f"(multiple of 8, at most {FWD_MAX_D})")
 
 
 def _launch_fwd(q, k, v, cos, sin, scale: float, causal: bool, ws: int,
-                want_lse: bool):
-    """The K1 launch on contiguous CUDA tensors.  Returns (out, lse or
+                want_lse: bool, cwg: int = None):
+    """The K1 launch on contiguous CUDA tensors (a rotation pass, then the
+    attention), ``cwg`` from ``plan`` unless given.  Returns (out, lse or
     None); lse (B, f, h, w) fp32, log2 domain."""
     batch, f, h, w, d = q.shape
+    if cwg is None:
+        cwg = plan(batch, f, h, w, d)["cwg"]
     out = torch.empty_like(q)
+    qr, kr = torch.empty_like(q), torch.empty_like(k)  # the rotated q, k
     lse = (torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
            if want_lse else None)
-    lib = build.load("swat_attention")
-    fn = lib.svl_swat_attention_tab_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(cos),
-              build.ptr(sin), build.ptr(out),
-              build.ptr(lse) if want_lse else None, batch, f, h, w, d, ws,
-              float(scale), int(causal), build.stream_of(q))
+    lib = _lib()
+    code = lib.svl_swat_attention_tab_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(),
+        _opt(lse), batch, f, h, w, d, ws, float(scale), int(causal), cwg,
+        build.stream_of(q))
     build.check(lib, code, "swat_attention_tables")
     swat_attention_tables.launches += 1
     return out, lse
 
 
-def swat_attention_tables_bwd(q, k, v, cos, sin, out, lse, g, scale: float,
+def swat_attention_tables_bwd(q, k, v, cos, sin, lse, g, scale: float,
                               causal: bool, ws: int,
                               need=(True, True, True)):
-    """K7 on CUDA tensors: q/k/v/out/g (B, f, h, w, d) bf16 (q, k
-    UN-rotated), ``lse`` (B, f, h, w) fp32 as the forward wrote it.
+    """K7 on CUDA tensors: q/k/v/g (B, f, h, w, d) bf16 (q, k UN-rotated),
+    ``lse`` (B, f, h, w) fp32 as the forward wrote it.
     Returns (dq, dk, dv); an entry is None where ``need`` is false and its
     kernel could be skipped."""
     if q.device.type != "cuda":
@@ -126,24 +187,19 @@ def swat_attention_tables_bwd(q, k, v, cos, sin, out, lse, g, scale: float,
     if d > BWD_MAX_D:
         raise ValueError(f"swat_attention_tables_bwd: head dim {d} not "
                          f"covered by the backward kernel (at most {BWD_MAX_D})")
-    q, k, v, out, g = (t.contiguous() for t in (q, k, v, out, g))
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     cos, sin = cos.contiguous(), sin.contiguous()
     need_kv = need[1] or need[2]
     dq = torch.empty_like(q) if need[0] else None
     dk = torch.empty_like(k) if need_kv else None
     dv = torch.empty_like(v) if need_kv else None
     delta = torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
-    lib = build.load("swat_attention")
-    fn = lib.svl_swat_attention_tab_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
-    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(cos),
-              build.ptr(sin), build.ptr(out), build.ptr(g),
-              build.ptr(lse.contiguous()), build.ptr(delta), opt(dq), opt(dk),
-              opt(dv), batch, f, h, w, d, ws, float(scale), int(causal),
-              build.stream_of(q))
+    lib = _lib()
+    code = lib.svl_swat_attention_tab_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), g.data_ptr(), lse.contiguous().data_ptr(),
+        delta.data_ptr(), _opt(dq), _opt(dk), _opt(dv), batch, f, h, w, d, ws,
+        float(scale), int(causal), build.stream_of(q))
     build.check(lib, code, "swat_attention_tables_bwd")
     swat_attention_tables_bwd.launches += 1
     return dq, dk, dv
@@ -151,7 +207,7 @@ def swat_attention_tables_bwd(q, k, v, cos, sin, out, lse, g, scale: float,
 
 class SwatAttentionTablesFn(torch.autograd.Function):
     """K1 forward with the K7 backward on CUDA tensors, saving q, k, v, the
-    tables, out and lse; on CPU tensors the plain forward and its explicit
+    tables and lse; on CPU tensors the plain forward and its explicit
     backward, saving q, k, v and the tables.  cos/sin, scale, causal and
     ws get no gradient.  The forward's outputs are a saved site under
     ``remat: save_attn`` (``ops/remat.py``)."""
@@ -162,7 +218,7 @@ class SwatAttentionTablesFn(torch.autograd.Function):
         if q.device.type == "cuda":
             out, lse = saved_site(lambda: _launch_fwd(
                 q, k, v, cos, sin, scale, causal, ws, want_lse=True))
-            ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+            ctx.save_for_backward(q, k, v, cos, sin, lse)
         else:
             out, = saved_site(lambda: (swat_attention_tables_plain(
                 q, k, v, cos, sin, scale, causal, ws),))
@@ -173,10 +229,9 @@ class SwatAttentionTablesFn(torch.autograd.Function):
     def backward(ctx, g):
         need = ctx.needs_input_grad[:3]
         if g.device.type == "cuda":
-            q, k, v, cos, sin, out, lse = ctx.saved_tensors
+            q, k, v, cos, sin, lse = ctx.saved_tensors
             dq, dk, dv = swat_attention_tables_bwd(
-                q, k, v, cos, sin, out, lse, g, ctx.scale, ctx.causal, ctx.ws,
-                need)
+                q, k, v, cos, sin, lse, g, ctx.scale, ctx.causal, ctx.ws, need)
         else:
             q, k, v, cos, sin = ctx.saved_tensors
             dq, dk, dv = swat_attention_tables_bwd_plain(
@@ -278,13 +333,13 @@ def swat_attention_bwd_plain(q, k, v, g, scale: float, causal: bool, ws: int,
 
 def _check_cuda_k6(q, k, v, ws: int, rot_dim: int, what: str) -> None:
     d = q.shape[-1]
-    if ws != 8:
-        raise ValueError(f"{what}: kernel covers ws = 8, got {ws}")
+    if ws != WS:
+        raise ValueError(f"{what}: kernel covers ws = {WS}, got {ws}")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what}: kernel takes bf16, got {q.dtype}")
-    if d % 8 or d > 160:
+    if d % 8 or d > FWD_MAX_D:
         raise ValueError(f"{what}: head dim {d} not covered "
-                         "(multiple of 8, at most 160)")
+                         f"(multiple of 8, at most {FWD_MAX_D})")
     if rot_dim < 0 or rot_dim > d or rot_dim % 2:
         raise ValueError(f"{what}: rot_dim {rot_dim} must be even and in "
                          f"[0, {d}]")
@@ -297,32 +352,31 @@ def _freqs(q, rot_dim: int):
 
 
 def _launch_swat_fwd(q, k, v, scale: float, causal: bool, ws: int,
-                     rot_dim: int, want_lse: bool):
-    """The K6 launch on contiguous CUDA tensors.  Returns (out, lse or
-    None); lse (B, f, h, w) fp32, log2 domain."""
+                     rot_dim: int, want_lse: bool, cwg: int = None):
+    """The K6 launch on contiguous CUDA tensors, ``cwg`` from ``plan``
+    unless given.  Returns (out, lse or None); lse (B, f, h, w) fp32, log2
+    domain."""
     batch, f, h, w, d = q.shape
+    if cwg is None:
+        cwg = plan(batch, f, h, w, d)["cwg"]
     out = torch.empty_like(q)
     lse = (torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
            if want_lse else None)
     freqs = _freqs(q, rot_dim)
-    lib = build.load("swat_attention")
-    fn = lib.svl_swat_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
-    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), opt(freqs),
-              build.ptr(out), opt(lse), batch, f, h, w, d, ws, rot_dim,
-              float(scale), int(causal), build.stream_of(q))
+    lib = _lib()
+    code = lib.svl_swat_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _opt(freqs), out.data_ptr(),
+        _opt(lse), batch, f, h, w, d, ws, rot_dim, float(scale), int(causal),
+        cwg, build.stream_of(q))
     build.check(lib, code, "swat_attention")
     swat_attention.launches += 1
     return out, lse
 
 
-def swat_attention_bwd(q, k, v, out, lse, g, scale: float, causal: bool,
-                       ws: int, rot_dim: int, need=(True, True, True)):
-    """K9 on CUDA tensors: q/k/v/out/g (B, f, h, w, d) bf16 as the forward
-    took them, ``lse`` (B, f, h, w) fp32 as it wrote it.  Returns (dq, dk,
+def swat_attention_bwd(q, k, v, lse, g, scale: float, causal: bool, ws: int,
+                       rot_dim: int, need=(True, True, True)):
+    """K9 on CUDA tensors: q/k/v/g (B, f, h, w, d) bf16 as the forward took
+    them, ``lse`` (B, f, h, w) fp32 as it wrote it.  Returns (dq, dk,
     dv); an entry is None where ``need`` is false and its kernel could be
     skipped."""
     if q.device.type != "cuda":
@@ -335,31 +389,27 @@ def swat_attention_bwd(q, k, v, out, lse, g, scale: float, causal: bool,
     if _bwd_strip_width(w, ws) is None:
         raise ValueError(f"swat_attention_bwd: w={w} has no strip of whole "
                          f"{ws}-windows")
-    q, k, v, out, g = (t.contiguous() for t in (q, k, v, out, g))
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     need_kv = need[1] or need[2]
     dq = torch.empty_like(q) if need[0] else None
     dk = torch.empty_like(k) if need_kv else None
     dv = torch.empty_like(v) if need_kv else None
     delta = torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
     freqs = _freqs(q, rot_dim)
-    lib = build.load("swat_attention")
-    fn = lib.svl_swat_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
-    code = fn(build.ptr(q), build.ptr(k), build.ptr(v), opt(freqs),
-              build.ptr(out), build.ptr(g), build.ptr(lse.contiguous()),
-              build.ptr(delta), opt(dq), opt(dk), opt(dv), batch, f, h, w, d,
-              ws, rot_dim, float(scale), int(causal), build.stream_of(q))
+    lib = _lib()
+    code = lib.svl_swat_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _opt(freqs), g.data_ptr(),
+        lse.contiguous().data_ptr(), delta.data_ptr(), _opt(dq),
+        _opt(dk), _opt(dv), batch, f, h, w, d, ws, rot_dim, float(scale),
+        int(causal), build.stream_of(q))
     build.check(lib, code, "swat_attention_bwd")
     swat_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 class SwatAttentionFn(torch.autograd.Function):
-    """K6 forward with the K9 backward on CUDA tensors, saving q, k, v, out
-    and lse; on CPU tensors the plain forward and its explicit backward,
+    """K6 forward with the K9 backward on CUDA tensors, saving q, k, v and
+    lse; on CPU tensors the plain forward and its explicit backward,
     saving q, k, v.  scale, causal, ws and rot_dim get no gradient.  The
     forward's outputs are a saved site under ``remat: save_attn``."""
 
@@ -369,7 +419,7 @@ class SwatAttentionFn(torch.autograd.Function):
         if q.device.type == "cuda":
             out, lse = saved_site(lambda: _launch_swat_fwd(
                 q, k, v, scale, causal, ws, rot_dim, want_lse=True))
-            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.save_for_backward(q, k, v, lse)
         else:
             out, = saved_site(lambda: (swat_attention_plain(
                 q, k, v, scale, causal, ws, rot_dim),))
@@ -380,8 +430,8 @@ class SwatAttentionFn(torch.autograd.Function):
     def backward(ctx, g):
         need = ctx.needs_input_grad[:3]
         if g.device.type == "cuda":
-            q, k, v, out, lse = ctx.saved_tensors
-            dq, dk, dv = swat_attention_bwd(q, k, v, out, lse, g, *ctx.args,
+            q, k, v, lse = ctx.saved_tensors
+            dq, dk, dv = swat_attention_bwd(q, k, v, lse, g, *ctx.args,
                                             need=need)
         else:
             q, k, v = ctx.saved_tensors

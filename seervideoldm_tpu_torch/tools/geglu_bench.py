@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -99,12 +98,11 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep", action="store_true",
                         help="also time every tile choice of the plan")
     args = parser.parse_args(argv)
-    if args.tree:
-        root = os.path.abspath(args.tree)
-        cmd = [sys.executable, os.path.abspath(__file__)]
-        cmd += ["--sweep"] if args.sweep else []
-        return subprocess.run(cmd, cwd=root, check=False,
-                              env=dict(os.environ, PYTHONPATH=root)).returncode
+    if args.tree:  # imported here: the child runs in the other checkout
+        from seervideoldm_tpu_torch.tools.tree import run_in_tree
+
+        return run_in_tree(__file__, args.tree,
+                           ["--sweep"] if args.sweep else [])
     _run(args.sweep)
     return 0
 

@@ -106,7 +106,7 @@ def test_refuses_uncovered_shapes():
         K._check_cuda_k6(*(torch.zeros(1, 2, 16, 16, 8, dtype=torch.bfloat16)
                            for _ in range(3)), WS, 3, "swat_attention")
     with pytest.raises(ValueError, match="unsupported device"):
-        K.swat_attention_bwd(q, q, q, q, q, q, 1.0, True, WS, 0)
+        K.swat_attention_bwd(q, q, q, q, q, 1.0, True, WS, 0)
     assert K._bwd_strip_width(24, 8) == 8 and K._bwd_strip_width(32, 8) == 16
 
 
