@@ -13,7 +13,9 @@ no result line):
 2. build: compiles the four CUDA sources under ``seervideoldm_tpu_torch/
    csrc`` with nvcc for sm_90a, all at once, and prints the build time,
    each kernel's registers and spills (``-Xptxas -v``) and the shared
-   memory a CTA of the attention forward takes in each configuration;
+   memory a CTA of the attention forward and of the attention backward's
+   two kernels takes in each configuration (the backward's as the host's
+   ``bwd_layout`` computes it, which must agree with the source);
 3. kernel checks: each of K1-K5 (forward) and K7, K8 (backward) at the
    shapes both main paths give it at 256 px -- sampling (CFG batch 2, under
    ``no_grad``) and training (batch 1, called under ``enable_grad`` on
@@ -27,9 +29,12 @@ no result line):
    256 / 512 px shapes; times the kernel, the plain version and one library
    call computing the same function (for the attentions PyTorch's fused
    SDPA on 4-D views under the flash backend, or the memory-efficient one
-   where flash refuses the shape, named on the row; a backward's is
-   autograd through that call; SWAT's on window-partitioned inputs made
-   outside the timed call, without rotation), and the bound: bytes over
+   where flash refuses the shape, named on the row; a backward's is that
+   call's backward alone, ``autograd.grad`` of an output whose forward ran
+   outside the timed call, captured in a CUDA graph and replayed, so the
+   autograd engine's host time does not pace it; SWAT's on
+   window-partitioned inputs made outside the timed call, without
+   rotation), and the bound: bytes over
    the HBM rate, products over the bf16 tensor rate and, for a softmax,
    one MUFU ex2 per visible score at K10's rate; K3-K5, each an up kernel (``a =
    bf16(h * gelu(g))``, LayerNorm prologue) and a down kernel (``a W2 +
@@ -278,20 +283,41 @@ def fused_sdpa(q, k, v, scale: float, causal: bool):
 
 
 def fused_sdpa_grad(q, k, v, g, scale: float, causal: bool):
-    """The backward yardstick: autograd through ``fused_sdpa`` (forward +
-    backward) on copies of q, k, v that require a gradient."""
+    """The backward yardstick: the backward of ``fused_sdpa`` alone, as the
+    card runs it.  Its forward runs once, here, on copies of q, k, v that
+    require a gradient, on a side stream (where autograd then runs its
+    backward), and keeps its graph.  ``torch.autograd.grad`` of that
+    output (``retain_graph``) is captured once in a CUDA graph and held
+    against an eager call (relative L2 <= BWD_REL_L2 on each gradient);
+    the timed call replays the graph: the library's backward kernels
+    without the autograd engine's host time, which paces an eager call at
+    the smaller shapes."""
     import torch
 
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    call, backend, context = fused_sdpa(*leaves, scale, causal)
-    g4 = g.unsqueeze(0)
-
-    def grads():
-        return torch.autograd.grad(call(), leaves, g4)
-
-    with context():
-        grads()
-    return grads, backend, context
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    # every node of the autograd graph is made on the side stream, so the
+    # backward runs there alone (a node on the default stream would join
+    # it to the capture)
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        call, backend, context = fused_sdpa(*leaves, scale, causal)
+        g4 = g.unsqueeze(0)
+        with context():
+            out = call()
+        for _ in range(3):  # warm-up before the capture, on its stream
+            eager = torch.autograd.grad(out, leaves, g4, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = torch.autograd.grad(out, leaves, g4, retain_graph=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        err = float((got.float() - want.float()).norm() / want.float().norm())
+        require(err <= BWD_REL_L2, f"SDPA backward in a CUDA graph: "
+                f"relative L2 {err} from the eager call")
+    return graph.replay, backend, context
 
 
 # ----------------------------------------------------------- kernel checks
@@ -389,8 +415,8 @@ def case_swat(gen, batch, f, h, d, grad=False):
 
 def case_flash_bwd(gen, batch, n, d, causal=False, m=None):
     """K8 against the explicit plain backward; the forward kernel's lse
-    against logsumexp of the plain scores.  Library yardstick: autograd
-    through SDPA, forward + backward."""
+    against logsumexp of the plain scores.  Library yardstick: SDPA's
+    backward alone (``fused_sdpa_grad``)."""
     import math
 
     import torch
@@ -417,8 +443,14 @@ def case_flash_bwd(gen, batch, n, d, causal=False, m=None):
     return dict(
         name="flash_attention_bwd",
         kernel=lambda: K.flash_attention_bwd(q, k, v, lse, g, scale, causal),
+        kernel_with=lambda cwg: K._launch_bwd(q, k, v, lse, g, scale, causal,
+                                              (True,) * 3, cwg),
+        head_dim=d,
         plain=lambda: K.flash_attention_bwd_plain(q, k, v, g, scale, causal),
         library=library, library_backend=backend, library_context=context,
+        library_note="SDPA's backward alone: autograd.grad of an output "
+                     "whose forward ran outside the timed call, replayed "
+                     "from a CUDA graph",
         lse_err=lse_err, backward=True,
         # p recomputed once per visible score
         flops=10.0 * batch * pairs * d, exps=float(batch * pairs),
@@ -429,8 +461,8 @@ def case_flash_bwd(gen, batch, n, d, causal=False, m=None):
 
 
 def case_swat_bwd(gen, batch, f, h, d):
-    """K7 against the explicit plain backward.  Library yardstick: autograd
-    through SDPA (forward + backward) on window-partitioned inputs, no
+    """K7 against the explicit plain backward.  Library yardstick: SDPA's
+    backward alone (``fused_sdpa_grad``) on window-partitioned inputs, no
     rotary."""
     import math
 
@@ -463,11 +495,16 @@ def case_swat_bwd(gen, batch, f, h, d):
         name="swat_attention_tables_bwd",
         kernel=lambda: K.swat_attention_tables_bwd(q, k, v, cos, sin, lse, g,
                                                    scale, True, ws),
+        kernel_with=lambda cwg: K._launch_tab_bwd(
+            q, k, v, cos, sin, lse, g, scale, True, ws, (True,) * 3, cwg),
+        head_dim=d,
         plain=lambda: K.swat_attention_tables_bwd_plain(q, k, v, cos, sin, g,
                                                         scale, True, ws),
         library=library, library_backend=backend, library_context=context,
-        library_note="autograd through SDPA on window-partitioned q, k, v "
-                     "made outside the timed call; no rotation",
+        library_note="SDPA's backward alone (autograd.grad of an output "
+                     "whose forward ran outside the timed call, replayed "
+                     "from a CUDA graph) on window-partitioned q, k, v; no "
+                     "rotation",
         lse_err=lse_err, backward=True,
         # 5 products x 2 * tokens^2 * d per window, times (f + 1) / (2 f):
         # the share of 64 x 64 tiles on or below the causal diagonal; p
@@ -512,8 +549,8 @@ def case_swat6(gen, batch, f, h, d, rot_dim, grad=False):
 
 def case_swat6_bwd(gen, batch, f, h, d, rot_dim):
     """K9 against the explicit plain backward; the K6 forward's lse against
-    logsumexp of the plain scores.  Library yardstick: autograd through
-    SDPA (forward + backward) on window-partitioned inputs."""
+    logsumexp of the plain scores.  Library yardstick: SDPA's backward
+    alone (``fused_sdpa_grad``) on window-partitioned inputs."""
     import math
 
     import torch
@@ -549,11 +586,16 @@ def case_swat6_bwd(gen, batch, f, h, d, rot_dim):
         LSE_ATOL,
         kernel=lambda: K.swat_attention_bwd(q, k, v, lse, g, scale, True, ws,
                                             rot_dim),
+        kernel_with=lambda cwg: K._launch_swat_bwd(
+            q, k, v, lse, g, scale, True, ws, rot_dim, (True,) * 3, cwg),
+        head_dim=d,
         plain=lambda: K.swat_attention_bwd_plain(q, k, v, g, scale, True, ws,
                                                  rot_dim),
         library=library, library_backend=backend, library_context=context,
-        library_note="autograd through SDPA on window-partitioned q, k, v "
-                     "made outside the timed call; no rotation",
+        library_note="SDPA's backward alone (autograd.grad of an output "
+                     "whose forward ran outside the timed call, replayed "
+                     "from a CUDA graph) on window-partitioned q, k, v; no "
+                     "rotation",
         lse_err=lse_err, backward=True,
         flops=10.0 * windows * tokens * tokens * d * (f + 1) / (2.0 * f),
         exps=windows * tokens * (tokens + 1) / 2,
@@ -864,6 +906,17 @@ def phase_build() -> None:
             print(f"build smem: attention forward (K1, K2, K6) d {d}, "
                   f"{cwg} consumer warpgroups: {nbytes} bytes a CTA, "
                   f"{stages} ring stages", flush=True)
+    for d in (40, 80):  # the backward's head dims
+        for dkv in (False, True):
+            for cwg in fa.bwd_cwg_choices(d, dkv):
+                got = fa.bwd_smem(d, cwg, dkv)
+                want = fa.bwd_layout(d, cwg, dkv)
+                require(got == want, f"backward layout d {d} cwg {cwg}: the "
+                        f"source gives {got}, the host {want}")
+                print(f"build smem: attention backward (K7, K8, K9) "
+                      f"{'dk/dv' if dkv else 'dq'} kernel d {d}, {cwg} "
+                      f"consumer warpgroups: {got} bytes a CTA, "
+                      f"{fa.BWD_STAGES} ring stages", flush=True)
 
 
 def phase_reference() -> None:
@@ -1679,9 +1732,10 @@ def phase_floor_budget(card: str) -> tuple[dict, dict]:
 KERNEL_CATEGORIES = (
     ("port: flash_attention (K2)", ("flash_fwd_wgmma_kernel",)),
     ("port: swat_attention_tables (K1; K6 a mode of it)",
-     ("swat_fwd_wgmma_kernel",)),
+     ("swat_fwd_wgmma_kernel", "rotate_qk_kernel")),
     ("port: flash_attention_bwd (K8)", ("flash_bwd_",)),
-    ("port: swat_attention_tables_bwd (K7)", ("swat_bwd_",)),
+    ("port: swat_attention_tables_bwd (K7; K9 a mode of it)",
+     ("swat_bwd_",)),
     ("port: geglu_ff (K3/K4/K5)", ("geglu_up_kernel", "geglu_down_kernel")),
     ("convolution (cuDNN)", ("cudnn", "fprop", "implicit_gemm", "winograd",
                              "conv2d", "nchwtonhwc", "nhwctonchw")),

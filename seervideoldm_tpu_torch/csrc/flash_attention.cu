@@ -25,8 +25,7 @@
 // Layout: q (B, n, d), k/v (B, m, d), o (B, n, d), bf16, contiguous, d a
 // multiple of 8 (16-byte rows).  Causal = top-left tril (key <= query, n ==
 // m); key tiles wholly above the diagonal are skipped.
-#include "attn_bwd_core.cuh"
-#include "attn_fwd_hopper.cuh"
+#include "attn_bwd_hopper.cuh"
 
 namespace svl {
 
@@ -37,32 +36,6 @@ __global__ void __launch_bounds__(128 * (CWG + 1), 1)
                            const __grid_constant__ CUtensorMap tv,
                            const hat::Problem pb) {
   hat::attn_fwd_body<DPAD, CWG, false, ROT_NONE>(&tq, &tk, &tv, pb);
-}
-
-// Rows [r0, r0 + ATT_BK) of a (rows, d) bf16 array into shared memory: as
-// a [ATT_BK][DP + 8] tile when ROWS, transposed into a [DP][ATT_BK + 8]
-// tile when TRANS, or both from one read.  Rows >= n_rows and columns >= d
-// are zero.  A load with a transposed store walks the rows fastest, so that
-// those stores are contiguous.
-template <int DP, bool ROWS, bool TRANS>
-__device__ __forceinline__ void load_rows(bf16* rows, bf16* trans,
-                                          const bf16* src, int r0, int n_rows,
-                                          int d) {
-  constexpr int VPR = DP / 8;  // 16-byte vectors per padded row
-  for (int i = threadIdx.x; i < ATT_BK * VPR; i += ATT_THREADS) {
-    const int r = TRANS ? i % ATT_BK : i / VPR;
-    const int c8 = TRANS ? i / ATT_BK : i % VPR;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n_rows && c8 * 8 < d)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c8 * 8);
-    if (ROWS) *reinterpret_cast<uint4*>(rows + r * (DP + 8) + c8 * 8) = v;
-    if (TRANS) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        trans[(c8 * 8 + j) * (ATT_BK + 8) + r] = e[j];
-    }
-  }
 }
 
 // A (rows, d) slab of `batch` bf16 rows as a 3-D tensor map (d, rows,
@@ -82,164 +55,52 @@ static bool encode_rows(CUtensorMap* map, const void* p, int batch, int rows,
 // (body _bwd_kernel) and, beyond kv = 4096, the einsum form _bwd_einsum.
 // The TPU kernel kept a whole K/V row plus two fp32 (kv, d) scratch buffers
 // in VMEM and recomputed the softmax from all of K; here the forward saves
-// lse, and two kernels stream 64 x 64 tiles (attn_bwd_core.cuh): the dq
-// kernel over key tiles (delta = rowsum(p * dp) first, then dq), the dk/dv
-// kernel over query tiles, so nothing is accumulated across CTAs and the
-// result is deterministic.
+// lse, and the two Hopper kernels of attn_bwd_hopper.cuh stream 64 x 64
+// tiles: the dq kernel over key tiles (delta = rowsum(p * dp) first, then
+// dq), the dk/dv kernel over query tiles, so nothing is accumulated across
+// CTAs and the result is deterministic.
 //
 // What bounds it on an H100: at the training shape (96 x 1024 x 40) the
-// five products are ~40 GFLOP (0.041 ms) against ~63 MB of q/k/v/g/dq/dk/
-// dv, and p is recomputed once per score (one MUFU ex2, 0.024 ms).
-// mma.sync m16n8k16, synchronous tile loads, each tile stored both as rows
-// and transposed; p and dS enter their products as bf16 hi + lo pairs, and
-// the dq kernel's delta pass recomputes s and dp once more; pipelining is
-// later work.
+// five products are ~40 GFLOP (0.041 ms at 989 TFLOP/s) against ~63 MB of
+// q/k/v/g/dq/dk/dv (0.019 ms), and p is recomputed once per score (one
+// MUFU ex2, 0.024 ms), so the tensor cores bound it.  What the kernels
+// compute is more: d = 40 pads to 64 columns, p and dS enter their
+// products as hi + lo pairs (twice the products), and s and dp are formed
+// three times (the dq kernel's two passes and the dk/dv kernel), about
+// 3.4x the bound's products; all of them are wgmma fed by a TMA ring.
 
-template <int DP>
-__global__ void __launch_bounds__(ATT_THREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ g,
-                        const float* __restrict__ lse,
-                        float* __restrict__ delta, bf16* __restrict__ dq,
-                        int n, int m, int d, float scale, float scale_log2,
-                        int causal) {
-  __shared__ __align__(16) bf16 ks[ATT_BK * (DP + 8)];
-  __shared__ __align__(16) bf16 kt[DP * (ATT_BK + 8)];
-  __shared__ __align__(16) bf16 vs[ATT_BK * (DP + 8)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * ATT_BQ;
-  const bf16* kb = k + bh * m * d;
-  const bf16* vb = v + bh * m * d;
-
-  // the Q and G tiles pass through the K and V buffers into registers
-  load_rows<DP, true, false>(ks, nullptr, q + bh * n * d, q0, n, d);
-  load_rows<DP, true, false>(vs, nullptr, g + bh * n * d, q0, n, d);
-  __syncthreads();
-  DqState<DP> st;
-#pragma unroll
-  for (int kc = 0; kc < DP / 16; ++kc) {
-    load_a_frag(st.qf[kc], ks, DP + 8, warp * 16, kc * 16, lane);
-    load_a_frag(st.gf[kc], vs, DP + 8, warp * 16, kc * 16, lane);
-  }
-  zero_acc<DP>(st.acc);
-  const int row0 = q0 + warp * 16;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + (lane >> 2) + 8 * r;
-    st.lse[r] = row < n ? bwd_lse(lse[bh * n + row]) : INFINITY;
-  }
-
-  const int kend = causal ? min(m, q0 + ATT_BQ) : m;
-  float dsum[2] = {0.f, 0.f};
-  for (int key0 = 0; key0 < kend; key0 += ATT_BK) {
-    __syncthreads();
-    load_rows<DP, true, false>(ks, nullptr, kb, key0, m, d);
-    load_rows<DP, true, false>(vs, nullptr, vb, key0, m, d);
-    __syncthreads();
-    delta_tile<DP>(st, ks, vs, scale_log2, row0, key0, m, causal != 0, lane,
-                   dsum);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + (lane >> 2) + 8 * r;
-    st.delta[r] = quad_sum(dsum[r]);
-    if ((lane & 3) == 0 && row < n) delta[bh * n + row] = st.delta[r];
-  }
-  if (dq == nullptr) return;
-
-  for (int key0 = 0; key0 < kend; key0 += ATT_BK) {
-    __syncthreads();
-    load_rows<DP, true, true>(ks, kt, kb, key0, m, d);
-    load_rows<DP, true, false>(vs, nullptr, vb, key0, m, d);
-    __syncthreads();
-    dq_tile<DP>(st, ks, kt, vs, scale, scale_log2, row0, key0, m, causal != 0,
-                lane);
-  }
-  bf16* ob = dq + bh * n * d;
-  store_acc<DP>(
-      st.acc, row0, n, d, [&](int row) { return ob + (size_t)row * d; },
-      [](int, int, float&, float&) {}, lane);
+template <int DPAD, int CWG>
+__global__ void __launch_bounds__(128 * (CWG + 1), 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const hab::Problem pb) {
+  hab::dq_body<DPAD, CWG, false, ROT_NONE>(&tq, &tg, &tk, &tv, pb);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(ATT_THREADS)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ g,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int n,
-                         int m, int d, float scale, float scale_log2,
-                         int causal) {
-  __shared__ __align__(16) bf16 qs[ATT_BQ * (DP + 8)];
-  __shared__ __align__(16) bf16 qt[DP * (ATT_BQ + 8)];
-  __shared__ __align__(16) bf16 gs[ATT_BQ * (DP + 8)];
-  __shared__ __align__(16) bf16 gt[DP * (ATT_BQ + 8)];
-  __shared__ float lse_s[ATT_BQ];
-  __shared__ float delta_s[ATT_BQ];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t bh = blockIdx.y;
-  const int key0 = blockIdx.x * ATT_BK;
-  const bf16* qb = q + bh * n * d;
-  const bf16* gb = g + bh * n * d;
-
-  // this CTA's K and V tiles pass through the Q and G buffers into registers
-  load_rows<DP, true, false>(qs, nullptr, k + bh * m * d, key0, m, d);
-  load_rows<DP, true, false>(gs, nullptr, v + bh * m * d, key0, m, d);
-  __syncthreads();
-  DkvState<DP> st;
-#pragma unroll
-  for (int kc = 0; kc < DP / 16; ++kc) {
-    load_a_frag(st.kf[kc], qs, DP + 8, warp * 16, kc * 16, lane);
-    load_a_frag(st.vf[kc], gs, DP + 8, warp * 16, kc * 16, lane);
-  }
-  zero_acc<DP>(st.dk);
-  zero_acc<DP>(st.dv);
-
-  // causal (n == m, key <= query): query tiles before this key tile see
-  // none of its keys
-  for (int q0 = causal ? key0 : 0; q0 < n; q0 += ATT_BQ) {
-    __syncthreads();
-    load_rows<DP, true, true>(qs, qt, qb, q0, n, d);
-    load_rows<DP, true, true>(gs, gt, gb, q0, n, d);
-    if (threadIdx.x < ATT_BQ) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < n ? bwd_lse(lse[bh * n + row]) : INFINITY;
-      delta_s[threadIdx.x] = row < n ? delta[bh * n + row] : 0.f;
-    }
-    __syncthreads();
-    dkv_tile<DP>(st, qs, qt, gs, gt, lse_s, delta_s, scale, scale_log2,
-                 key0 + warp * 16, q0, m, causal != 0, lane);
-  }
-  bf16* dkb = dk + bh * m * d;
-  bf16* dvb = dv + bh * m * d;
-  auto keep = [](int, int, float&, float&) {};
-  store_acc<DP>(
-      st.dk, key0 + warp * 16, m, d,
-      [&](int row) { return dkb + (size_t)row * d; }, keep, lane);
-  store_acc<DP>(
-      st.dv, key0 + warp * 16, m, d,
-      [&](int row) { return dvb + (size_t)row * d; }, keep, lane);
+template <int DPAD, int CWG>
+__global__ void __launch_bounds__(128 * (CWG + 1), 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tg,
+                         const __grid_constant__ CUtensorMap tl,
+                         const __grid_constant__ CUtensorMap td,
+                         const hab::Problem pb) {
+  hab::dkv_body<DPAD, CWG, false, ROT_NONE>(&tk, &tv, &tq, &tg, &tl, &td, pb);
 }
 
-template <int DP>
-static void launch_bwd(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* g, const float* lse, float* delta,
-                       bf16* dq, bf16* dk, bf16* dv, int batch, int n, int m,
-                       int d, float scale, float scale_log2, int causal,
-                       cudaStream_t stream) {
-  {  // always: its first pass writes delta
-    dim3 grid((n + ATT_BQ - 1) / ATT_BQ, batch);
-    flash_bwd_dq_kernel<DP><<<grid, ATT_THREADS, 0, stream>>>(
-        q, k, v, g, lse, delta, dq, n, m, d, scale, scale_log2, causal);
-  }
-  if (dk != nullptr) {
-    dim3 grid((m + ATT_BK - 1) / ATT_BK, batch);
-    flash_bwd_dkv_kernel<DP><<<grid, ATT_THREADS, 0, stream>>>(
-        q, k, v, g, lse, delta, dk, dv, n, m, d, scale, scale_log2, causal);
-  }
+// (batch, n) fp32 row values as a tensor map over the batch * n values of
+// one row (a 2-D map of one row: the stride of its outer dimension only has
+// to be a multiple of 16 bytes), boxes of one 64-row tile.
+static bool encode_row_scalars(CUtensorMap* map, const void* p, int batch,
+                               int n) {
+  const cuuint64_t len = (cuuint64_t)batch * n;
+  const cuuint64_t dims[2] = {len, 1};
+  const cuuint64_t strides[1] = {(len * 4 + 15) / 16 * 16};
+  const cuuint32_t box[2] = {(cuuint32_t)hab::BQ, 1};
+  return encode_f32(map, p, 2, dims, strides, box);
 }
 
 }  // namespace svl
@@ -307,35 +168,80 @@ extern "C" int svl_attn_fwd_smem(int d, int cwg, int* stages) {
 // K8.  q/g/dq (batch, n, d), k/v/dk/dv (batch, m, d) bf16; lse (batch, n)
 // fp32 as the forward wrote it; delta (batch, n) fp32 scratch.  dq may be
 // null (the dq kernel then only forms delta); dk and dv are null together
-// (no dk/dv kernel).  Returns 0, a cudaError_t code, or -1 for a head dim
-// the backward does not cover (d % 8 != 0 or d > 80).
+// (no dk/dv kernel).  cwg_dq, cwg_dkv: consumer warpgroups a CTA of each
+// kernel (hab::cwg_ok; ops/kernels/flash_attention.py::bwd_plan).
+// Returns 0, a cudaError_t code, -1 for a shape the backward does not
+// cover (d % 8 != 0, d > 80, causal with n != m, a cwg without an
+// instantiation), or -2 when cuTensorMapEncodeTiled refuses a map.
 extern "C" int svl_flash_attention_bwd(const void* q, const void* k,
                                        const void* v, const void* g,
                                        const void* lse, void* delta, void* dq,
                                        void* dk, void* dv, int batch, int n,
                                        int m, int d, float scale, int causal,
+                                       int cwg_dq, int cwg_dkv,
                                        void* stream) {
-  using svl::bf16;
-  if (d <= 0 || d % 8 != 0 || d > svl::BWD_MAX_D) return -1;
-  if ((dk == nullptr) != (dv == nullptr)) return -1;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  const bf16* gg = static_cast<const bf16*>(g);
-  const float* ll = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  using namespace svl;
+  const int dpad = hab::dpad_of(d);
+  if (dpad < 0 || (dk == nullptr) != (dv == nullptr) || (causal && n != m) ||
+      n <= 0 || m <= 0 || batch <= 0 || !hab::cwg_ok(dpad, cwg_dq, false) ||
+      (dk != nullptr && !hab::cwg_ok(dpad, cwg_dkv, true)))
+    return -1;
+  CUtensorMap tq{}, tk{}, tv{}, tg{}, tl{}, td{};
+  if (!encode_rows(&tq, q, batch, n, d) || !encode_rows(&tg, g, batch, n, d) ||
+      !encode_rows(&tk, k, batch, m, d) || !encode_rows(&tv, v, batch, m, d) ||
+      !encode_row_scalars(&tl, lse, batch, n) ||
+      !encode_row_scalars(&td, delta, batch, n))
+    return -2;
+  hab::Problem pb{};
+  pb.lse = static_cast<const float*>(lse);
+  pb.delta = static_cast<float*>(delta);
+  pb.dq = static_cast<bf16*>(dq);
+  pb.dk = static_cast<bf16*>(dk);
+  pb.dv = static_cast<bf16*>(dv);
+  pb.n = n;
+  pb.m = m;
+  pb.d = d;
+  pb.qtiles = (n + hab::BQ - 1) / hab::BQ;
+  pb.ktiles = (m + hab::BQ - 1) / hab::BQ;
+  pb.units = batch;
+  pb.windows = 1;
+  pb.causal = causal;
+  pb.scale = scale;
+  pb.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
-#define SVL_CASE(DPV)                                                        \
-  case DPV:                                                                  \
-    svl::launch_bwd<DPV>(qq, kk, vv, gg, ll, dl, static_cast<bf16*>(dq),     \
-                         static_cast<bf16*>(dk), static_cast<bf16*>(dv),     \
-                         batch, n, m, d, scale, scale_log2, causal, s);      \
-    break;
-    SVL_CASE(16) SVL_CASE(32) SVL_CASE(48) SVL_CASE(64) SVL_CASE(80)
-#undef SVL_CASE
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  int err = -1;
+  const int dq_ctas = (pb.qtiles + cwg_dq - 1) / cwg_dq * batch;
+#define SVL_DQ(DP, CW)                                                    \
+  if (dpad == DP && cwg_dq == CW)                                         \
+    err = hab::launch<DP, CW, false, &flash_bwd_dq_kernel<DP, CW>>(       \
+        dq_ctas, pb, s, tq, tg, tk, tv);
+  SVL_DQ(64, 2) SVL_DQ(64, 3) SVL_DQ(128, 2)
+#undef SVL_DQ
+  if (err != 0 || dk == nullptr) return err;
+  const int dkv_ctas = (pb.ktiles + cwg_dkv - 1) / cwg_dkv * batch;
+#define SVL_DKV(DP, CW)                                                   \
+  if (dpad == DP && cwg_dkv == CW)                                        \
+    err = hab::launch<DP, CW, true, &flash_bwd_dkv_kernel<DP, CW>>(       \
+        dkv_ctas, pb, s, tk, tv, tq, tg, tl, td);
+  SVL_DKV(64, 2) SVL_DKV(128, 2)
+#undef SVL_DKV
+  return err;
+}
+
+// The dynamic shared memory a CTA of the backward kernels (K7, K8, K9
+// alike) takes at head dim d with cwg consumer warpgroups (dkv: the dk/dv
+// kernel, else the dq kernel); -1 for no instantiation.
+extern "C" int svl_attn_bwd_smem(int d, int cwg, int dkv) {
+  return svl::hab::smem_bytes(d, cwg, dkv != 0);
+}
+
+// The tiles of CTA `block` of the backward kernels' grid (hab::cta_tiles,
+// the map the kernels run): out = unit, own, own_end, vis, vis_end.
+extern "C" void svl_attn_bwd_cta(int block, int cwg, int dkv, int units,
+                                 int qtiles, int ktiles, int causal,
+                                 int* out) {
+  const svl::hab::CtaTiles c = svl::hab::cta_tiles(
+      block, cwg, dkv != 0, units, qtiles, ktiles, causal != 0);
+  const int vals[5] = {c.unit, c.own, c.own_end, c.vis, c.vis_end};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
 }

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the port's wgmma kernels (geglu_ff.cu,
-// and the attention forward of attn_fwd_hopper.cuh): mbarriers, TMA tensor
+// the attention forward of attn_fwd_hopper.cuh and the attention backward
+// of attn_bwd_hopper.cuh): mbarriers, TMA tensor
 // copies and their host-side tensor maps, the wgmma descriptors of the
 // 128-byte swizzle, and the wgmma instructions themselves.
 #pragma once
@@ -56,6 +57,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
       : "memory");
 }
 
@@ -209,6 +222,28 @@ static EncodeTiled encoder() {
   return fn;
 }
 
+// The CUresult of the last refused tensor map, for the wrapper's error
+// message (svl_map_status).
+static int map_status = 0;
+
+// cuTensorMapEncodeTiled needs a current context on the calling thread.
+// A backward runs on autograd's device thread, whose first runtime call
+// may come after the encode: make the device's primary context current
+// there once (cudaSetDevice does).
+static void bind_context() {
+  static thread_local bool bound = [] {
+    int dev = 0;
+    return cudaGetDevice(&dev) == cudaSuccess &&
+           cudaSetDevice(dev) == cudaSuccess;
+  }();
+  (void)bound;
+}
+
+static bool encoded(CUresult r) {
+  if (r != CUDA_SUCCESS) map_status = static_cast<int>(r);
+  return r == CUDA_SUCCESS;
+}
+
 // A rank-`rank` bf16 tensor map (dims and boxes innermost first, byte
 // strides of dims 1..rank-1), 128-byte swizzle, zero fill out of bounds.
 static bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
@@ -216,12 +251,29 @@ static bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
                         const cuuint32_t* box) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
+  bind_context();
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return encoded(fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A rank-`rank` fp32 tensor map, no swizzle (rows of per-token scalars,
+// read by plain shared-memory loads), zero fill out of bounds.
+static bool encode_f32(CUtensorMap* map, const void* ptr, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  bind_context();
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encoded(fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 }  // namespace svl

@@ -43,11 +43,12 @@
 // the kernel.  K6 with rot_dim > 0 computes its cos/sin (no tables), so it
 // rotates in shared memory: the producer's warps 1-3 rotate each key tile
 // once per CTA after it lands, each consumer warpgroup its query tiles.
+// The backward (K7, K9 with rot_dim > 0) runs the same pass
+// (swat_bwd_rotate_kernel, tables or trig) and then its body unrotated.
 //
 // Layout: q/k/v/o (B, f, h, w, d) bf16 contiguous, cos/sin (f, h, w, d)
 // fp32 contiguous, ws = 8, h % 8 == w % 8 == 0, d a multiple of 8.
-#include "attn_bwd_core.cuh"
-#include "attn_fwd_hopper.cuh"
+#include "attn_bwd_hopper.cuh"
 
 namespace svl {
 
@@ -60,24 +61,50 @@ __global__ void __launch_bounds__(128 * (CWG + 1), 1)
   hat::attn_fwd_body<DPAD, CWG, true, ROT>(&tq, &tk, &tv, pb);
 }
 
-// K1's rotation pass: qr = rot(q), kr = rot(k) over (B, f, h, w, d) with
-// the (f, h, w, d) fp32 tables, t * cos + rotate_half(t) * sin in fp32 and
-// rounded to bf16 (rotate_pair).  One thread takes 8 columns of one token
-// (16-byte loads of q and k, 32-byte loads of each table), grid-stride.
-__global__ void rotate_qk_kernel(const bf16* __restrict__ q,
-                                 const bf16* __restrict__ k,
-                                 const float* __restrict__ cos_t,
-                                 const float* __restrict__ sin_t,
-                                 bf16* __restrict__ qr, bf16* __restrict__ kr,
-                                 long long vecs, long long vol_vecs) {
+// The rotation pass: qr = rot(q), kr = rot(k) over (B, f, h, w, d), t *
+// cos + rotate_half(t) * sin in fp32 and rounded to bf16 (rotate_pair), cos
+// and sin from the (f, h, w, d) fp32 tables (ROT_TABLES: 32-byte loads of
+// each) or from the token's position and the rotary frequencies
+// (ROT_TRIG: rot_cs, the formula K6's forward rotates with in shared
+// memory, so the backward's p is recomputed on the very q and k the
+// forward's lse was formed from; lanes >= rot_dim pass through).  One
+// thread takes 8 columns of one token (16-byte loads of q and k),
+// grid-stride.
+template <int ROT>
+__device__ __forceinline__ void rotate_qk(const bf16* __restrict__ q,
+                                          const bf16* __restrict__ k,
+                                          const RotSrc& rs,
+                                          bf16* __restrict__ qr,
+                                          bf16* __restrict__ kr,
+                                          long long vecs, long long vol_vecs,
+                                          int d) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < vecs; i += (long long)gridDim.x * blockDim.x) {
     const long long t = i % vol_vecs;  // the vector's place in the volume
-    const float4* c4 = reinterpret_cast<const float4*>(cos_t) + 2 * t;
-    const float4* s4 = reinterpret_cast<const float4*>(sin_t) + 2 * t;
-    const float4 ca = c4[0], cb = c4[1], sa = s4[0], sb = s4[1];
-    const float2 cs[4] = {{ca.x, ca.y}, {ca.z, ca.w}, {cb.x, cb.y}, {cb.z, cb.w}};
-    const float2 sn[4] = {{sa.x, sa.y}, {sa.z, sa.w}, {sb.x, sb.y}, {sb.z, sb.w}};
+    float2 cs[4], sn[4];
+    bool pass_through[4] = {false, false, false, false};
+    if (ROT == ROT_TABLES) {
+      const float4* c4 = reinterpret_cast<const float4*>(rs.cos_t) + 2 * t;
+      const float4* s4 = reinterpret_cast<const float4*>(rs.sin_t) + 2 * t;
+      const float4 ca = c4[0], cb = c4[1], sa = s4[0], sb = s4[1];
+      cs[0] = make_float2(ca.x, ca.y);
+      cs[1] = make_float2(ca.z, ca.w);
+      cs[2] = make_float2(cb.x, cb.y);
+      cs[3] = make_float2(cb.z, cb.w);
+      sn[0] = make_float2(sa.x, sa.y);
+      sn[1] = make_float2(sa.z, sa.w);
+      sn[2] = make_float2(sb.x, sb.y);
+      sn[3] = make_float2(sb.z, sb.w);
+    } else {
+      const int vpt = d / 8;  // vectors a token
+      const size_t tok = (size_t)(t / vpt);
+      const int c0 = (int)(t % vpt) * 8;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pass_through[j] = c0 + 2 * j >= rs.rot_dim;
+        rot_cs<ROT_TRIG>(rs, tok, d, c0 + 2 * j, cs[j], sn[j]);
+      }
+    }
 #pragma unroll
     for (int which = 0; which < 2; ++which) {
       const uint4 u = reinterpret_cast<const uint4*>(which ? k : q)[i];
@@ -87,12 +114,48 @@ __global__ void rotate_qk_kernel(const bf16* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         float2 x = __bfloat1622float2(e[j]);
         rotate_pair(x.x, x.y, cs[j], sn[j]);
-        out[j] = pack_bf16x2(x.x, x.y);
+        out[j] = pass_through[j] ? reinterpret_cast<const uint32_t*>(&u)[j]
+                                 : pack_bf16x2(x.x, x.y);
       }
       reinterpret_cast<uint4*>(which ? kr : qr)[i] =
           make_uint4(out[0], out[1], out[2], out[3]);
     }
   }
+}
+
+// K1's rotation pass (tables).
+__global__ void rotate_qk_kernel(const bf16* __restrict__ q,
+                                 const bf16* __restrict__ k, const RotSrc rs,
+                                 bf16* __restrict__ qr, bf16* __restrict__ kr,
+                                 long long vecs, long long vol_vecs, int d) {
+  rotate_qk<ROT_TABLES>(q, k, rs, qr, kr, vecs, vol_vecs, d);
+}
+
+// K7's (tables) and K9's (trig) rotation pass: the forward's rotation of q
+// and k, once a call, before the backward body runs unrotated.
+template <int ROT>
+__global__ void swat_bwd_rotate_kernel(const bf16* __restrict__ q,
+                                       const bf16* __restrict__ k,
+                                       const RotSrc rs, bf16* __restrict__ qr,
+                                       bf16* __restrict__ kr, long long vecs,
+                                       long long vol_vecs, int d) {
+  rotate_qk<ROT>(q, k, rs, qr, kr, vecs, vol_vecs, d);
+}
+
+// Launch a rotation pass over (batch, f, h, w, d): 256 threads a block, at
+// most 16 blocks an SM.
+template <typename Kernel>
+static int launch_rotate(Kernel kernel, const void* q, const void* k,
+                         const RotSrc& rs, void* qr, void* kr, int batch,
+                         int f, int h, int w, int d, cudaStream_t s) {
+  const long long vol_vecs = (long long)f * h * w * d / 8;
+  const long long vecs = vol_vecs * batch;
+  const int threads = 256;
+  const long long blocks = (vecs + threads - 1) / threads;
+  kernel<<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), threads, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), rs,
+      static_cast<bf16*>(qr), static_cast<bf16*>(kr), vecs, vol_vecs, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A (B, f, h, w, d) bf16 volume as a 5-D tensor map (d, w, h, f, B), boxes
@@ -107,45 +170,17 @@ static bool encode_windows(CUtensorMap* map, const void* p, int batch, int f,
   return encode_bf16(map, p, 5, dims, strides, box);
 }
 
-// One frame of one window (64 tokens) into shared memory: as rows
-// [64][DP + 8] when ROWS, transposed [DP][64 + 8] when TRANS, or both from
-// one read.  ROT != ROT_NONE applies the rotation in fp32 and then rounds
-// to bf16 (t * cos + rotate_half(t) * sin, interleaved pairs:
-// rotate_half(t)[2i] = -t[2i+1], rotate_half(t)[2i+1] = t[2i]).  Columns
-// >= d are zero.  A transposed-only load walks the tokens fastest, so that
-// its shared-memory stores are contiguous.
-template <int DP, int ROT, bool ROWS, bool TRANS>
-__device__ __forceinline__ void load_window_frame(
-    bf16* rows, bf16* trans, const bf16* src, const RotSrc& rs, int frame,
-    int wy, int wx, int h, int w, int d) {
-  constexpr int PPR = DP / 2;  // bf16 pairs per padded row
-  constexpr bool TOKEN_FASTEST = TRANS && !ROWS;
-  for (int i = threadIdx.x; i < ATT_BK * PPR; i += ATT_THREADS) {
-    const int r = TOKEN_FASTEST ? i % ATT_BK : i / PPR;
-    const int c = 2 * (TOKEN_FASTEST ? i / ATT_BK : i % PPR);
-    float x0 = 0.f, x1 = 0.f;
-    if (c < d) {
-      const size_t tok = window_token(frame, wy, wx, r, h, w);
-      const __nv_bfloat162 xv =
-          *reinterpret_cast<const __nv_bfloat162*>(src + tok * d + c);
-      x0 = __low2float(xv);
-      x1 = __high2float(xv);
-      if (ROT != ROT_NONE) {
-        float2 cs, sn;
-        rot_cs<ROT>(rs, tok, d, c, cs, sn);
-        rotate_pair(x0, x1, cs, sn);
-      }
-    }
-    const __nv_bfloat16 b0 = __float2bfloat16_rn(x0);
-    const __nv_bfloat16 b1 = __float2bfloat16_rn(x1);
-    if (ROWS)
-      *reinterpret_cast<__nv_bfloat162*>(rows + r * (DP + 8) + c) =
-          __halves2bfloat162(b0, b1);
-    if (TRANS) {
-      trans[c * (ATT_BK + 8) + r] = b0;
-      trans[(c + 1) * (ATT_BK + 8) + r] = b1;
-    }
-  }
+// A (B, f, h, w) fp32 volume of per-token values (lse, delta) as a 4-D
+// tensor map (w, h, f, B), boxes of one window frame (8 x 8 tokens, in
+// token order).
+static bool encode_window_scalars(CUtensorMap* map, const void* p, int batch,
+                                  int f, int h, int w) {
+  const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)f,
+                              (cuuint64_t)batch};
+  const cuuint64_t row = (cuuint64_t)w * 4;
+  const cuuint64_t strides[3] = {row, row * h, row * h * f};
+  const cuuint32_t box[4] = {SW_WS, SW_WS, 1, 1};
+  return encode_f32(map, p, 4, dims, strides, box);
 }
 
 // ---------------------------------------------------------------- K7
@@ -153,210 +188,54 @@ __device__ __forceinline__ void load_window_frame(
 // Replaces seervideoldm_tpu/ops/pallas/swat_attention.py::
 // _swat_backward_tab (body _bwd_kernel_tab).  The TPU kernel held a
 // window's fp32 score matrix and five fp32 (tokens, d) temporaries in VMEM;
-// here the forward saves lse and the two tile kernels of attn_bwd_core.cuh
-// run with the window gather of K1: q and k are rotated in fp32 on load and
-// rounded to bf16, v and g are not rotated.  The dq kernel's CTA owns
-// (query frame, window, batch*head) and visits key frames 0..fq twice
-// (delta = rowsum(p * dp), then dq); the dk/dv
-// kernel's CTA owns (key frame, window, batch*head) and visits query frames
-// fk..f-1, so tiles above the causal diagonal are never touched.  Before
-// the store dq and dk are de-rotated in fp32 with the adjoint
-// t * cos - rotate_half(t) * sin (cos/sin are pair-constant); one thread
-// holds columns 2t, 2t+1 of a row in the mma C layout, i.e. one rotary
-// pair, so this needs no shuffle.  dv is not rotated.
+// here the forward saves lse, one rotation pass (swat_bwd_rotate_kernel,
+// tables) writes the rotated q and k once, and the two Hopper kernels of
+// attn_bwd_hopper.cuh run over them unrotated, through the 5-D window maps
+// of K1: the dq kernel's consumer owns one query frame of a window and
+// visits key frames 0 .. that frame twice (delta = rowsum(p * dp), then
+// dq); the dk/dv kernel's consumer owns one key frame and visits query
+// frames from it to f - 1, so tiles above the causal diagonal are never
+// touched.  dq and dk are de-rotated in the store epilogue with the
+// adjoint t * cos - rotate_half(t) * sin (derotate_pair; one thread holds
+// columns 2t, 2t + 1 of a row in the accumulator layout, one rotary pair),
+// reading cos / sin once an output element.  dv is not rotated.
 //
 // What bounds it on an H100: at the training shape (8 x 12 x 32 x 32 x 40,
-// ws 8, 768 tokens per window) the causal work is ~15 GFLOP (0.015 ms)
-// against ~50 MB (0.015 ms) and 37.8 M visible scores, p recomputed once
-// each (one MUFU ex2, 0.009 ms).  As K8: mma.sync, p and dS as bf16 hi +
-// lo pairs, a delta pass in the dq kernel.
+// ws 8, 768 tokens per window) the causal products are ~15 GFLOP (0.015
+// ms) against ~50 MB (0.015 ms) and 37.8 M visible scores, p recomputed
+// once each (one MUFU ex2, 0.009 ms).  The kernels run 78 of the 144
+// window tiles, padded to 64 columns, with p and dS as hi + lo pairs and
+// s and dp formed three times, as K8.
 //
 // ---------------------------------------------------------------- K9
 //
 // Replaces _swat_backward (body _bwd_kernel), the backward of K6: the same
-// two kernels with ROT = ROT_NONE (q/k arrive rotated; dq and dk leave
-// un-derotated and the caller's autograd through its pre-rotation supplies
-// the adjoint, as the TPU kernel leaves it to XLA) or ROT = ROT_TRIG (the
-// rotation and its adjoint from in-kernel fp32 trig, as the TPU body does
-// for rot_dim > 0).  Same bound as K7.
+// kernels, with no rotation pass and no adjoint for rot_dim 0 (q/k arrive
+// rotated; dq and dk leave un-derotated and the caller's autograd through
+// its pre-rotation supplies the adjoint, as the TPU kernel leaves it to
+// XLA), or with the rotation pass and the adjoint from in-kernel fp32 trig
+// (rot_dim > 0, as the TPU body does).  Same bound as K7.
 
-// The adjoint of the rotation on one pair (columns c, c + 1) of token
-// `tok`: t * cos - rotate_half(t) * sin.
-template <int ROT>
-__device__ __forceinline__ void derotate_pair(const RotSrc& rs, size_t tok,
-                                              int d, int c, float& v0,
-                                              float& v1) {
-  if (ROT == ROT_NONE) return;
-  float2 cs, sn;
-  rot_cs<ROT>(rs, tok, d, c, cs, sn);
-  // rounded as the plain version's t * cos - rotate_half(t) * sin
-  const float r0 = __fsub_rn(__fmul_rn(v0, cs.x), __fmul_rn(-v1, sn.x));
-  const float r1 = __fsub_rn(__fmul_rn(v1, cs.y), __fmul_rn(v0, sn.y));
-  v0 = r0;
-  v1 = r1;
+template <int DPAD, int CWG, int DEROT>
+__global__ void __launch_bounds__(128 * (CWG + 1), 1)
+    swat_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tg,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const hab::Problem pb) {
+  hab::dq_body<DPAD, CWG, true, DEROT>(&tq, &tg, &tk, &tv, pb);
 }
 
-template <int DP, int ROT>
-__global__ void __launch_bounds__(ATT_THREADS)
-    swat_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ g,
-                       const RotSrc rs, const float* __restrict__ lse,
-                       float* __restrict__ delta, bf16* __restrict__ dq,
-                       int f, int h, int w, int d, float scale,
-                       float scale_log2, int causal) {
-  __shared__ __align__(16) bf16 ks[ATT_BK * (DP + 8)];
-  __shared__ __align__(16) bf16 kt[DP * (ATT_BK + 8)];
-  __shared__ __align__(16) bf16 vs[ATT_BK * (DP + 8)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int fq = blockIdx.x;
-  const int wins_x = w / SW_WS;
-  const int wy = blockIdx.y / wins_x, wx = blockIdx.y % wins_x;
-  const size_t vol = (size_t)blockIdx.z * f * h * w;
-  const size_t base = vol * d;
-
-  load_window_frame<DP, ROT, true, false>(ks, nullptr, q + base, rs, fq, wy,
-                                          wx, h, w, d);
-  load_window_frame<DP, ROT_NONE, true, false>(vs, nullptr, g + base, rs, fq,
-                                               wy, wx, h, w, d);
-  __syncthreads();
-  DqState<DP> st;
-#pragma unroll
-  for (int kc = 0; kc < DP / 16; ++kc) {
-    load_a_frag(st.qf[kc], ks, DP + 8, warp * 16, kc * 16, lane);
-    load_a_frag(st.gf[kc], vs, DP + 8, warp * 16, kc * 16, lane);
-  }
-  zero_acc<DP>(st.acc);
-  size_t toks[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    toks[r] =
-        vol + window_token(fq, wy, wx, warp * 16 + (lane >> 2) + 8 * r, h, w);
-    st.lse[r] = bwd_lse(lse[toks[r]]);
-  }
-
-  constexpr int T = SW_WS * SW_WS;
-  const int last = causal ? fq : f - 1;
-  float dsum[2] = {0.f, 0.f};
-  for (int fk = 0; fk <= last; ++fk) {
-    __syncthreads();
-    load_window_frame<DP, ROT, true, false>(ks, nullptr, k + base, rs, fk, wy,
-                                            wx, h, w, d);
-    load_window_frame<DP, ROT_NONE, true, false>(vs, nullptr, v + base, rs,
-                                                 fk, wy, wx, h, w, d);
-    __syncthreads();
-    delta_tile<DP>(st, ks, vs, scale_log2, fq * T + warp * 16, fk * T, f * T,
-                   causal != 0, lane, dsum);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    st.delta[r] = quad_sum(dsum[r]);
-    if ((lane & 3) == 0) delta[toks[r]] = st.delta[r];
-  }
-  if (dq == nullptr) return;
-
-  for (int fk = 0; fk <= last; ++fk) {
-    __syncthreads();
-    load_window_frame<DP, ROT, true, true>(ks, kt, k + base, rs, fk, wy, wx,
-                                           h, w, d);
-    load_window_frame<DP, ROT_NONE, true, false>(vs, nullptr, v + base, rs,
-                                                 fk, wy, wx, h, w, d);
-    __syncthreads();
-    dq_tile<DP>(st, ks, kt, vs, scale, scale_log2, fq * T + warp * 16, fk * T,
-                f * T, causal != 0, lane);
-  }
-  bf16* ob = dq + base;
-  store_acc<DP>(
-      st.acc, warp * 16, T, d,
-      [&](int r) { return ob + window_token(fq, wy, wx, r, h, w) * d; },
-      [&](int r, int c, float& v0, float& v1) {
-        derotate_pair<ROT>(rs, window_token(fq, wy, wx, r, h, w), d, c, v0,
-                           v1);
-      },
-      lane);
-}
-
-template <int DP, int ROT>
-__global__ void __launch_bounds__(ATT_THREADS)
-    swat_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ g,
-                        const RotSrc rs, const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int f,
-                        int h, int w, int d, float scale, float scale_log2,
-                        int causal) {
-  __shared__ __align__(16) bf16 qs[ATT_BQ * (DP + 8)];
-  __shared__ __align__(16) bf16 qt[DP * (ATT_BQ + 8)];
-  __shared__ __align__(16) bf16 gs[ATT_BQ * (DP + 8)];
-  __shared__ __align__(16) bf16 gt[DP * (ATT_BQ + 8)];
-  __shared__ float lse_s[ATT_BQ];
-  __shared__ float delta_s[ATT_BQ];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int fk = blockIdx.x;
-  const int wins_x = w / SW_WS;
-  const int wy = blockIdx.y / wins_x, wx = blockIdx.y % wins_x;
-  const size_t vol = (size_t)blockIdx.z * f * h * w;
-  const size_t base = vol * d;
-
-  load_window_frame<DP, ROT, true, false>(qs, nullptr, k + base, rs, fk, wy,
-                                          wx, h, w, d);
-  load_window_frame<DP, ROT_NONE, true, false>(gs, nullptr, v + base, rs, fk,
-                                               wy, wx, h, w, d);
-  __syncthreads();
-  DkvState<DP> st;
-#pragma unroll
-  for (int kc = 0; kc < DP / 16; ++kc) {
-    load_a_frag(st.kf[kc], qs, DP + 8, warp * 16, kc * 16, lane);
-    load_a_frag(st.vf[kc], gs, DP + 8, warp * 16, kc * 16, lane);
-  }
-  zero_acc<DP>(st.dk);
-  zero_acc<DP>(st.dv);
-
-  constexpr int T = SW_WS * SW_WS;
-  for (int fq = causal ? fk : 0; fq < f; ++fq) {
-    __syncthreads();
-    load_window_frame<DP, ROT, true, true>(qs, qt, q + base, rs, fq, wy, wx,
-                                           h, w, d);
-    load_window_frame<DP, ROT_NONE, true, true>(gs, gt, g + base, rs, fq, wy,
-                                                wx, h, w, d);
-    if (threadIdx.x < ATT_BQ) {
-      const size_t tok = vol + window_token(fq, wy, wx, threadIdx.x, h, w);
-      lse_s[threadIdx.x] = bwd_lse(lse[tok]);
-      delta_s[threadIdx.x] = delta[tok];
-    }
-    __syncthreads();
-    dkv_tile<DP>(st, qs, qt, gs, gt, lse_s, delta_s, scale, scale_log2,
-                 fk * T + warp * 16, fq * T, f * T, causal != 0, lane);
-  }
-  bf16* dkb = dk + base;
-  bf16* dvb = dv + base;
-  store_acc<DP>(
-      st.dk, warp * 16, T, d,
-      [&](int r) { return dkb + window_token(fk, wy, wx, r, h, w) * d; },
-      [&](int r, int c, float& v0, float& v1) {
-        derotate_pair<ROT>(rs, window_token(fk, wy, wx, r, h, w), d, c, v0,
-                           v1);
-      },
-      lane);
-  store_acc<DP>(
-      st.dv, warp * 16, T, d,
-      [&](int r) { return dvb + window_token(fk, wy, wx, r, h, w) * d; },
-      [](int, int, float&, float&) {}, lane);
-}
-
-template <int DP, int ROT>
-static void launch_bwd(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* g, const RotSrc& rs, const float* lse,
-                       float* delta, bf16* dq, bf16* dk, bf16* dv, int batch,
-                       int f, int h, int w, int d, float scale,
-                       float scale_log2, int causal, cudaStream_t stream) {
-  dim3 grid(f, (h / SW_WS) * (w / SW_WS), batch);
-  // always: its first pass writes delta
-  swat_bwd_dq_kernel<DP, ROT><<<grid, ATT_THREADS, 0, stream>>>(
-      q, k, v, g, rs, lse, delta, dq, f, h, w, d, scale, scale_log2, causal);
-  if (dk != nullptr)
-    swat_bwd_dkv_kernel<DP, ROT><<<grid, ATT_THREADS, 0, stream>>>(
-        q, k, v, g, rs, lse, delta, dk, dv, f, h, w, d, scale, scale_log2,
-        causal);
+template <int DPAD, int CWG, int DEROT>
+__global__ void __launch_bounds__(128 * (CWG + 1), 1)
+    swat_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap tl,
+                        const __grid_constant__ CUtensorMap td,
+                        const hab::Problem pb) {
+  hab::dkv_body<DPAD, CWG, true, DEROT>(&tk, &tv, &tq, &tg, &tl, &td, pb);
 }
 
 // The forward for one rotation mode, dispatched on the padded head width
@@ -397,33 +276,72 @@ static int fwd(const void* q, const void* k, const void* v, const RotSrc& rs,
   return -1;
 }
 
-// The backward for one rotation mode: the dq kernel (delta first) and the
-// dk/dv kernel, dispatched on the padded head width.
+// The backward for one rotation mode: the rotation pass into qr, kr (ROT
+// != ROT_NONE), the dq kernel (delta first), then the dk/dv kernel, each
+// dispatched on the padded head width and its consumer warpgroups.
 template <int ROT>
 static int bwd(const void* q, const void* k, const void* v, const RotSrc& rs,
-               const void* g, const void* lse, void* delta, void* dq,
-               void* dk, void* dv, int batch, int f, int h, int w, int d,
-               float scale, int causal, void* stream) {
-  if ((dk == nullptr) != (dv == nullptr)) return -1;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const bf16* gg = static_cast<const bf16*>(g);
-  float* dl = static_cast<float*>(delta);
+               const void* g, const void* lse, void* qr, void* kr,
+               void* delta, void* dq, void* dk, void* dv, int batch, int f,
+               int h, int w, int d, float scale, int causal, int cwg_dq,
+               int cwg_dkv, void* stream) {
+  const int dpad = hab::dpad_of(d);
+  if (dpad < 0 || (dk == nullptr) != (dv == nullptr) || batch <= 0 ||
+      f <= 0 || !hab::cwg_ok(dpad, cwg_dq, false) ||
+      (dk != nullptr && !hab::cwg_ok(dpad, cwg_dkv, true)))
+    return -1;
+  if (ROT != ROT_NONE && (qr == nullptr || kr == nullptr)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
-#define SVL_CASE(DPV)                                                        \
-  case DPV:                                                                  \
-    launch_bwd<DPV, ROT>(                                                    \
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),            \
-        static_cast<const bf16*>(v), gg, rs, static_cast<const float*>(lse), \
-        dl, static_cast<bf16*>(dq), static_cast<bf16*>(dk),                  \
-        static_cast<bf16*>(dv), batch, f, h, w, d, scale, scale_log2,        \
-        causal, s);                                                          \
-    break;
-    SVL_CASE(16) SVL_CASE(32) SVL_CASE(48) SVL_CASE(64) SVL_CASE(80)
-#undef SVL_CASE
-    default: return -1;
+  if constexpr (ROT != ROT_NONE) {
+    const int err = launch_rotate(swat_bwd_rotate_kernel<ROT>, q, k, rs, qr,
+                                  kr, batch, f, h, w, d, s);
+    if (err != 0) return err;
+    q = qr;
+    k = kr;
   }
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap tq{}, tk{}, tv{}, tg{}, tl{}, td{};
+  if (!encode_windows(&tq, q, batch, f, h, w, d) ||
+      !encode_windows(&tk, k, batch, f, h, w, d) ||
+      !encode_windows(&tv, v, batch, f, h, w, d) ||
+      !encode_windows(&tg, g, batch, f, h, w, d) ||
+      !encode_window_scalars(&tl, lse, batch, f, h, w) ||
+      !encode_window_scalars(&td, delta, batch, f, h, w))
+    return -2;
+  hab::Problem pb{};
+  pb.lse = static_cast<const float*>(lse);
+  pb.delta = static_cast<float*>(delta);
+  pb.dq = static_cast<bf16*>(dq);
+  pb.dk = static_cast<bf16*>(dk);
+  pb.dv = static_cast<bf16*>(dv);
+  pb.rs = rs;
+  pb.n = pb.m = f * SW_WS * SW_WS;
+  pb.d = d;
+  pb.qtiles = pb.ktiles = f;
+  pb.f = f;
+  pb.h = h;
+  pb.w = w;
+  pb.windows = (h / SW_WS) * (w / SW_WS);
+  pb.units = pb.windows * batch;
+  pb.causal = causal;
+  pb.scale = scale;
+  pb.scale_log2 = scale * 1.4426950408889634f;
+  int err = -1;
+  const int dq_ctas = (f + cwg_dq - 1) / cwg_dq * pb.units;
+#define SVL_DQ(DP, CW)                                                    \
+  if (dpad == DP && cwg_dq == CW)                                         \
+    err = hab::launch<DP, CW, false, &swat_bwd_dq_kernel<DP, CW, ROT>>(   \
+        dq_ctas, pb, s, tq, tg, tk, tv);
+  SVL_DQ(64, 2) SVL_DQ(64, 3) SVL_DQ(128, 2)
+#undef SVL_DQ
+  if (err != 0 || dk == nullptr) return err;
+  const int dkv_ctas = (f + cwg_dkv - 1) / cwg_dkv * pb.units;
+#define SVL_DKV(DP, CW)                                                   \
+  if (dpad == DP && cwg_dkv == CW)                                        \
+    err = hab::launch<DP, CW, true, &swat_bwd_dkv_kernel<DP, CW, ROT>>(   \
+        dkv_ctas, pb, s, tk, tv, tq, tg, tl, td);
+  SVL_DKV(64, 2) SVL_DKV(128, 2)
+#undef SVL_DKV
+  return err;
 }
 
 // Shapes every entry point covers: ws 8, h and w multiples of 8, d a
@@ -460,19 +378,10 @@ extern "C" int svl_swat_attention_tab_fwd(const void* q, const void* k,
                                           int batch, int f, int h, int w,
                                           int d, int ws, float scale,
                                           int causal, int cwg, void* stream) {
-  using svl::bf16;
   if (!svl::covered(h, w, d, ws, 160)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long vol_vecs = (long long)f * h * w * d / 8;
-  const long long vecs = vol_vecs * batch;
-  const int threads = 256;
-  const long long blocks = (vecs + threads - 1) / threads;
-  svl::rotate_qk_kernel<<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16),
-                          threads, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<bf16*>(qr), static_cast<bf16*>(kr), vecs, vol_vecs);
-  const int err = static_cast<int>(cudaGetLastError());
+  const int err = svl::launch_rotate(
+      svl::rotate_qk_kernel, q, k, svl::tables(cos_t, sin_t), qr, kr, batch,
+      f, h, w, d, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   return svl::fwd<svl::ROT_NONE>(qr, kr, v, svl::trig(nullptr, 0), o, lse,
                                  batch, f, h, w, d, scale, causal, cwg,
@@ -501,35 +410,43 @@ extern "C" int svl_swat_attention_fwd(const void* q, const void* k,
 
 // K7.  q/k/v/g/dq/dk/dv (batch, f, h, w, d) bf16, q and k UN-rotated;
 // cos/sin (f, h, w, d) fp32; lse (batch, f, h, w) fp32 as the forward wrote
-// it; delta the same shape, fp32 scratch.  dq may be null (the dq kernel
-// then only forms delta); dk and dv are null together.  Returns 0, a
-// cudaError_t code, or -1 for a shape the backward does not cover (ws !=
-// 8, h or w not a multiple of 8, d % 8 != 0 or d > 80).
+// it; delta the same shape, fp32 scratch; qr, kr scratch of q's shape (the
+// rotated q and k).  dq may be null (the dq kernel then only forms delta);
+// dk and dv are null together.  cwg_dq, cwg_dkv as K8's
+// (svl_flash_attention_bwd).  Returns 0, a cudaError_t code, or -1 for a
+// shape the backward does not cover (ws != 8, h or w not a multiple of 8,
+// d % 8 != 0 or d > 80, a cwg without an instantiation), or -2 when
+// cuTensorMapEncodeTiled refuses a map.
 extern "C" int svl_swat_attention_tab_bwd(
     const void* q, const void* k, const void* v, const void* cos_t,
-    const void* sin_t, const void* g, const void* lse, void* delta, void* dq,
-    void* dk, void* dv, int batch, int f, int h, int w, int d, int ws,
-    float scale, int causal, void* stream) {
+    const void* sin_t, const void* g, const void* lse, void* qr, void* kr,
+    void* delta, void* dq, void* dk, void* dv, int batch, int f, int h, int w,
+    int d, int ws, float scale, int causal, int cwg_dq, int cwg_dkv,
+    void* stream) {
   if (!svl::covered(h, w, d, ws, svl::BWD_MAX_D)) return -1;
   return svl::bwd<svl::ROT_TABLES>(q, k, v, svl::tables(cos_t, sin_t), g, lse,
-                                   delta, dq, dk, dv, batch, f, h, w, d,
-                                   scale, causal, stream);
+                                   qr, kr, delta, dq, dk, dv, batch, f, h, w,
+                                   d, scale, causal, cwg_dq, cwg_dkv, stream);
 }
 
 // K9.  As K7 with the rotation of K6: rot_dim 0 takes rotated q/k and
-// returns dq/dk un-derotated; rot_dim > 0 rotates q/k and de-rotates dq/dk
-// from in-kernel trig over `inv_freq`.
+// returns dq/dk un-derotated (qr, kr and inv_freq may be null); rot_dim > 0
+// rotates q/k into qr, kr and de-rotates dq/dk from in-kernel trig over
+// `inv_freq`.
 extern "C" int svl_swat_attention_bwd(
     const void* q, const void* k, const void* v, const void* inv_freq,
-    const void* g, const void* lse, void* delta, void* dq, void* dk, void* dv,
-    int batch, int f, int h, int w, int d, int ws, int rot_dim, float scale,
-    int causal, void* stream) {
+    const void* g, const void* lse, void* qr, void* kr, void* delta, void* dq,
+    void* dk, void* dv, int batch, int f, int h, int w, int d, int ws,
+    int rot_dim, float scale, int causal, int cwg_dq, int cwg_dkv,
+    void* stream) {
   if (!svl::covered(h, w, d, ws, svl::BWD_MAX_D)) return -1;
   if (rot_dim < 0 || rot_dim > d || rot_dim % 2 != 0) return -1;
   const svl::RotSrc rs = svl::trig(inv_freq, rot_dim);
   if (rot_dim == 0)
-    return svl::bwd<svl::ROT_NONE>(q, k, v, rs, g, lse, delta, dq, dk, dv,
-                                   batch, f, h, w, d, scale, causal, stream);
-  return svl::bwd<svl::ROT_TRIG>(q, k, v, rs, g, lse, delta, dq, dk, dv,
-                                 batch, f, h, w, d, scale, causal, stream);
+    return svl::bwd<svl::ROT_NONE>(q, k, v, rs, g, lse, qr, kr, delta, dq, dk,
+                                   dv, batch, f, h, w, d, scale, causal,
+                                   cwg_dq, cwg_dkv, stream);
+  return svl::bwd<svl::ROT_TRIG>(q, k, v, rs, g, lse, qr, kr, delta, dq, dk,
+                                 dv, batch, f, h, w, d, scale, causal, cwg_dq,
+                                 cwg_dkv, stream);
 }

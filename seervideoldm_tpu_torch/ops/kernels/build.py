@@ -93,6 +93,9 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise on a non-zero return of a kernel's C entry point."""
     if code == -1:
         raise ValueError(f"{what}: shape not covered by the CUDA kernel")
+    if code == -2:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a map "
+                           f"(CUresult {lib.svl_map_status()})")
     if code != 0:
         msg = lib.svl_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")

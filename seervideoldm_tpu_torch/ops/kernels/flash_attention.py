@@ -9,10 +9,12 @@ streams K/V in 64-key tiles through shared memory with an online softmax,
 because 227 KB cannot hold the whole K/V row the TPU kept in VMEM; when a
 gradient is needed it also writes the rows' log-sum-exp, so the backward
 recomputes the probabilities exactly, tile by tile, in two kernels without
-atomics (see the source notes).  The forward is a Hopper kernel (wgmma fed
-by a TMA ring, ``csrc/attn_fwd_hopper.cuh``); ``plan`` picks how many
-consumer warpgroups a CTA has, each holding one 64-row query tile, and
-``cta_tiles`` is the kernel's map from a CTA to its query tiles.
+atomics (see the source notes).  Both are Hopper kernels (wgmma fed by a
+TMA ring, ``csrc/attn_fwd_hopper.cuh`` and ``attn_bwd_hopper.cuh``);
+``plan`` picks how many consumer warpgroups a forward CTA has, each
+holding one 64-row query tile, and ``cta_tiles`` is the kernel's map from
+a CTA to its query tiles; ``bwd_plan`` and ``bwd_cta_tiles`` are the same
+for the backward's dq and dk/dv kernels.
 
 The wrapper runs the plain version for CPU tensors and the kernels for
 CUDA tensors; there is no other path.  Where a gradient is needed both go
@@ -32,7 +34,7 @@ from ..remat import needs_grad, saved_site
 from . import build
 
 NEG_INF = torch.finfo(torch.float32).min
-BWD_MAX_D = 80  # csrc/attn_bwd_core.cuh
+BWD_MAX_D = 80  # csrc/attn_bwd_hopper.cuh
 FWD_MAX_D = 160  # csrc/attn_fwd_hopper.cuh: d % 8 == 0, padded to 64/128/192
 TILE = 64        # query rows / keys of a tile (SWAT: one window frame)
 SMS = 132        # H100 SXM streaming multiprocessors
@@ -80,6 +82,82 @@ def plan(batch: int, n: int, m: int, d: int, causal: bool = False) -> dict:
     return {"cwg": cwg, "ctas": ctas(cwg), "tiles": tiles}
 
 
+SMEM_MAX = 227 * 1024   # csrc/attn_fwd_hopper.cuh: a CTA's shared memory
+SMEM_FIXED = 1024 + 256  # alignment slack, barriers
+BOX = 64 * 128           # one 64-row x 64-column bf16 box
+BWD_STAGES = 4           # csrc/attn_bwd_hopper.cuh::Plan::STAGES
+
+
+def bwd_cwg_choices(d: int, dkv: bool) -> tuple:
+    """Consumer warpgroups per CTA the backward kernels are built for at
+    head dim ``d`` (``csrc/attn_bwd_hopper.cuh::cwg_ok``), in the plan's
+    order of preference: the dq kernel three where d_pad is 64 (one
+    accumulator in 160 registers a thread), else two; the dk/dv kernel
+    two (two accumulators in 240).  A ValueError for a head dim no
+    instantiation takes (not a multiple of 8, above BWD_MAX_D)."""
+    if not (0 < d <= BWD_MAX_D and d % 8 == 0):
+        raise ValueError(f"no backward instantiation for d={d}")
+    return (3, 2) if not dkv and d <= 64 else (2,)
+
+
+def bwd_layout(d: int, cwg: int, dkv: bool) -> int:
+    """Dynamic shared memory bytes of a CTA of the backward kernels, as
+    ``csrc/attn_bwd_hopper.cuh::Plan`` lays it out: the consumers' own
+    tiles (dq: Q and G, dk/dv: K and V), then BWD_STAGES ring stages (dq: K
+    and V; dk/dv: Q, G and a 1024-byte block of lse and delta)."""
+    if cwg not in bwd_cwg_choices(d, dkv):
+        raise ValueError(f"no backward instantiation for d={d}, cwg={cwg}")
+    tile = (64 if d <= 64 else 128) // 64 * BOX
+    stage = 2 * tile + (1024 if dkv else 0)
+    return SMEM_FIXED + 2 * cwg * tile + BWD_STAGES * stage
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(units: int, qtiles: int, ktiles: int, d: int,
+             causal: bool = False) -> dict:
+    """The backward's two launches for one covered shape: ``units`` CTA
+    columns (flash: batch; SWAT: windows x batch), ``qtiles`` query and
+    ``ktiles`` key tiles of 64 rows each.  For the dq and the dk/dv kernel:
+    ``cwg`` (the first of ``bwd_cwg_choices`` that gives every SM a CTA,
+    else the one with the most CTAs) and ``ctas`` (a one-dimensional grid:
+    ``bwd_cta_tiles``)."""
+    out = {}
+    for kind, tiles in (("dq", qtiles), ("dkv", ktiles)):
+        ctas = lambda c, t=tiles: units * -(-t // c)  # noqa: E731
+        options = bwd_cwg_choices(d, kind == "dkv")
+        full = [c for c in options if ctas(c) >= SMS]
+        cwg = full[0] if full else min(options)
+        out[kind] = {"cwg": cwg, "ctas": ctas(cwg)}
+    out.update(units=units, qtiles=qtiles, ktiles=ktiles, causal=causal)
+    return out
+
+
+def bwd_cta_tiles(plan: dict, kind: str, block: int) -> tuple:
+    """(unit, own tiles, visited tiles) of CTA ``block`` of the dq
+    (``kind`` "dq": own = query tiles, visited = key tiles) or dk/dv kernel
+    ("dkv": own = key tiles, visited = query tiles): the kernels' own map
+    (``csrc/attn_bwd_hopper.cuh::cta_tiles``, held against this one on the
+    card through ``bwd_cta_source``), for the tests.  The grid is
+    group-major; when causal, the groups with the most visited tiles come
+    first (dq: the last query tiles; dk/dv: the first key tiles).  A
+    consumer whose own tile is t visits, when causal, key tiles 0..t (dq)
+    or query tiles t..qtiles-1 (dk/dv)."""
+    units, cwg = plan["units"], plan[kind]["cwg"]
+    own_n = plan["qtiles"] if kind == "dq" else plan["ktiles"]
+    groups = -(-own_n // cwg)
+    gi, unit = divmod(block, units)
+    group = groups - 1 - gi if kind == "dq" and plan["causal"] else gi
+    own = [t for t in range(group * cwg, (group + 1) * cwg) if t < own_n]
+    if kind == "dq":
+        end = min(own[-1] + 1, plan["ktiles"]) if plan["causal"] else \
+            plan["ktiles"]
+        visited = list(range(end))
+    else:
+        visited = list(range(group * cwg if plan["causal"] else 0,
+                             plan["qtiles"]))
+    return unit, own, visited
+
+
 _LIB = None
 
 
@@ -94,10 +172,14 @@ def _lib():
             ctypes.c_float, i32, i32, ptr]
         lib.svl_flash_attention_fwd.restype = i32
         lib.svl_flash_attention_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [
-            ctypes.c_float, i32, ptr]
+            ctypes.c_float, i32, i32, i32, ptr]
         lib.svl_flash_attention_bwd.restype = i32
         lib.svl_attn_fwd_smem.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
         lib.svl_attn_fwd_smem.restype = i32
+        lib.svl_attn_bwd_smem.argtypes = [i32] * 3
+        lib.svl_attn_bwd_smem.restype = i32
+        lib.svl_attn_bwd_cta.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
+        lib.svl_attn_bwd_cta.restype = None
         _LIB = lib
     return _LIB
 
@@ -157,6 +239,26 @@ def fwd_smem(d: int, cwg: int) -> tuple:
     return nbytes, stages.value
 
 
+def bwd_smem(d: int, cwg: int, dkv: bool) -> int:
+    """``bwd_layout`` as the built CUDA source computes it (needs the
+    library)."""
+    nbytes = _lib().svl_attn_bwd_smem(d, cwg, int(dkv))
+    if nbytes < 0:
+        raise ValueError(f"no backward instantiation for d={d}, cwg={cwg}")
+    return nbytes
+
+
+def bwd_cta_source(plan: dict, kind: str, block: int) -> tuple:
+    """``bwd_cta_tiles`` as the built CUDA source computes it (needs the
+    library): the map the backward kernels run."""
+    out = (ctypes.c_int * 5)()
+    _lib().svl_attn_bwd_cta(block, plan[kind]["cwg"], int(kind == "dkv"),
+                            plan["units"], plan["qtiles"], plan["ktiles"],
+                            int(plan["causal"]), out)
+    unit, own, own_end, vis, vis_end = out
+    return unit, list(range(own, own_end)), list(range(vis, vis_end))
+
+
 def _check_cuda(q, k, v, causal: bool, what: str):
     n, d = q.shape[-2:]
     m = k.shape[-2]
@@ -199,12 +301,23 @@ def flash_attention_bwd(q, k, v, lse, g, scale: float, causal: bool = False,
     where ``need`` is false and its kernel could be skipped."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    n, m, d = _check_cuda(q, k, v, causal, "flash_attention_bwd")
+    _, _, d = _check_cuda(q, k, v, causal, "flash_attention_bwd")
     if d > BWD_MAX_D:
         raise ValueError(f"flash_attention_bwd: head dim {d} not covered by "
                          f"the backward kernel (at most {BWD_MAX_D})")
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
-    batch = q.shape[0]
+    return _launch_bwd(q, k, v, lse.contiguous(), g, scale, causal, need)
+
+
+def _launch_bwd(q, k, v, lse, g, scale: float, causal: bool, need,
+                cwg: tuple = None):
+    """The K8 launches on contiguous checked CUDA tensors, ``cwg`` (dq,
+    dk/dv) from ``bwd_plan`` unless given."""
+    batch, n, d = q.shape
+    m = k.shape[1]
+    if cwg is None:
+        p = bwd_plan(batch, -(-n // TILE), -(-m // TILE), d, causal)
+        cwg = (p["dq"]["cwg"], p["dkv"]["cwg"])
     need_kv = need[1] or need[2]
     dq = torch.empty_like(q) if need[0] else None
     dk = torch.empty_like(k) if need_kv else None
@@ -214,8 +327,8 @@ def flash_attention_bwd(q, k, v, lse, g, scale: float, causal: bool = False,
     opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     code = lib.svl_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.contiguous().data_ptr(), delta.data_ptr(), opt(dq), opt(dk),
-        opt(dv), batch, n, m, d, float(scale), int(causal),
+        lse.data_ptr(), delta.data_ptr(), opt(dq), opt(dk), opt(dv), batch,
+        n, m, d, float(scale), int(causal), cwg[0], cwg[1],
         build.stream_of(q))
     build.check(lib, code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -18,10 +18,12 @@ picks the consumer warpgroups per CTA, each holding one query frame;
 ``cta_tiles`` (in ``flash_attention.py``) is the kernel's map from a CTA
 to its frames.
 When a gradient is needed the forward also writes the rows' log-sum-exp,
-so the backward recomputes the probabilities exactly in two kernels
-without atomics (one CTA per frame of a window), re-rotating q and k from
-the tables on load and de-rotating dq and dk with the adjoint before the
-store (see the source notes).
+so the backward recomputes the probabilities exactly in two Hopper
+kernels without atomics (``csrc/attn_bwd_hopper.cuh``; a consumer
+warpgroup owns one frame of a window, ``swat_bwd_plan``), after one pass
+that rotates q and k as the forward did (tables, or trig for K9), and
+de-rotates dq and dk with the adjoint in the store (see the source
+notes).
 
 The wrapper runs the plain version for CPU tensors and the kernels for
 CUDA tensors; there is no other path.  Where a gradient is needed both go
@@ -41,7 +43,7 @@ from ..windows import window_partition, window_reverse
 from ..remat import needs_grad, saved_site
 from . import build
 from .flash_attention import (BWD_MAX_D, FWD_MAX_D, _acc_dtype,
-                              attention_bwd_f32, choose_cwg,
+                              attention_bwd_f32, bwd_plan, choose_cwg,
                               flash_attention_plain)
 
 WS = 8  # the window side the kernels take
@@ -66,6 +68,13 @@ def plan(batch: int, f: int, h: int, w: int, d: int) -> dict:
     return {"cwg": cwg, "ctas": ctas(cwg), "tiles": f, "windows": windows}
 
 
+def swat_bwd_plan(batch: int, f: int, h: int, w: int, d: int,
+                  causal: bool = True) -> dict:
+    """The K7 / K9 backward's launches: ``flash_attention.bwd_plan`` with
+    one unit per (window, batch*head) and one tile per frame."""
+    return bwd_plan(batch * (h // WS) * (w // WS), f, f, d, causal)
+
+
 _LIB = None
 
 
@@ -78,12 +87,12 @@ def _lib():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.svl_swat_attention_tab_fwd.argtypes = [ptr] * 9 + [i32] * 6 + [
             f32, i32, i32, ptr]
-        lib.svl_swat_attention_tab_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [
-            f32, i32, ptr]
+        lib.svl_swat_attention_tab_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [
+            f32, i32, i32, i32, ptr]
         lib.svl_swat_attention_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [
             f32, i32, i32, ptr]
-        lib.svl_swat_attention_bwd.argtypes = [ptr] * 10 + [i32] * 7 + [
-            f32, i32, ptr]
+        lib.svl_swat_attention_bwd.argtypes = [ptr] * 12 + [i32] * 7 + [
+            f32, i32, i32, i32, ptr]
         for fn in (lib.svl_swat_attention_tab_fwd,
                    lib.svl_swat_attention_tab_bwd,
                    lib.svl_swat_attention_fwd, lib.svl_swat_attention_bwd):
@@ -172,6 +181,28 @@ def _launch_fwd(q, k, v, cos, sin, scale: float, causal: bool, ws: int,
     return out, lse
 
 
+def _bwd_buffers(q, k, v, need, rotated: bool):
+    """dq, dk, dv (None where not needed), delta, and the rotated q and k
+    (scratch; None when the kernel takes q and k as they are)."""
+    batch, f, h, w, _ = q.shape
+    need_kv = need[1] or need[2]
+    dq = torch.empty_like(q) if need[0] else None
+    dk = torch.empty_like(k) if need_kv else None
+    dv = torch.empty_like(v) if need_kv else None
+    delta = torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
+    qr, kr = ((torch.empty_like(q), torch.empty_like(k)) if rotated
+              else (None, None))
+    return dq, dk, dv, delta, qr, kr
+
+
+def _bwd_cwg(q, causal: bool, cwg) -> tuple:
+    """(cwg dq, cwg dk/dv): ``swat_bwd_plan``'s unless given."""
+    if cwg is not None:
+        return tuple(cwg)
+    p = swat_bwd_plan(*q.shape, causal)
+    return p["dq"]["cwg"], p["dkv"]["cwg"]
+
+
 def swat_attention_tables_bwd(q, k, v, cos, sin, lse, g, scale: float,
                               causal: bool, ws: int,
                               need=(True, True, True)):
@@ -183,23 +214,29 @@ def swat_attention_tables_bwd(q, k, v, cos, sin, lse, g, scale: float,
         raise ValueError(
             f"swat_attention_tables_bwd: unsupported device {q.device}")
     _check_cuda(q, k, v, cos, sin, ws, "swat_attention_tables_bwd")
-    batch, f, h, w, d = q.shape
+    d = q.shape[-1]
     if d > BWD_MAX_D:
         raise ValueError(f"swat_attention_tables_bwd: head dim {d} not "
                          f"covered by the backward kernel (at most {BWD_MAX_D})")
-    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
-    cos, sin = cos.contiguous(), sin.contiguous()
-    need_kv = need[1] or need[2]
-    dq = torch.empty_like(q) if need[0] else None
-    dk = torch.empty_like(k) if need_kv else None
-    dv = torch.empty_like(v) if need_kv else None
-    delta = torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
+    q, k, v, g, cos, sin, lse = (t.contiguous()
+                                 for t in (q, k, v, g, cos, sin, lse))
+    return _launch_tab_bwd(q, k, v, cos, sin, lse, g, scale, causal, ws,
+                           need)
+
+
+def _launch_tab_bwd(q, k, v, cos, sin, lse, g, scale: float, causal: bool,
+                    ws: int, need, cwg: tuple = None):
+    """The K7 launches on contiguous checked CUDA tensors, ``cwg`` (dq,
+    dk/dv) from ``swat_bwd_plan`` unless given."""
+    batch, f, h, w, d = q.shape
+    dq, dk, dv, delta, qr, kr = _bwd_buffers(q, k, v, need, True)
     lib = _lib()
     code = lib.svl_swat_attention_tab_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), g.data_ptr(), lse.contiguous().data_ptr(),
-        delta.data_ptr(), _opt(dq), _opt(dk), _opt(dv), batch, f, h, w, d, ws,
-        float(scale), int(causal), build.stream_of(q))
+        sin.data_ptr(), g.data_ptr(), lse.data_ptr(), qr.data_ptr(),
+        kr.data_ptr(), delta.data_ptr(), _opt(dq), _opt(dk), _opt(dv), batch,
+        f, h, w, d, ws, float(scale), int(causal),
+        *_bwd_cwg(q, causal, cwg), build.stream_of(q))
     build.check(lib, code, "swat_attention_tables_bwd")
     swat_attention_tables_bwd.launches += 1
     return dq, dk, dv
@@ -389,19 +426,24 @@ def swat_attention_bwd(q, k, v, lse, g, scale: float, causal: bool, ws: int,
     if _bwd_strip_width(w, ws) is None:
         raise ValueError(f"swat_attention_bwd: w={w} has no strip of whole "
                          f"{ws}-windows")
-    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
-    need_kv = need[1] or need[2]
-    dq = torch.empty_like(q) if need[0] else None
-    dk = torch.empty_like(k) if need_kv else None
-    dv = torch.empty_like(v) if need_kv else None
-    delta = torch.empty(batch, f, h, w, dtype=torch.float32, device=q.device)
+    q, k, v, g, lse = (t.contiguous() for t in (q, k, v, g, lse))
+    return _launch_swat_bwd(q, k, v, lse, g, scale, causal, ws, rot_dim,
+                            need)
+
+
+def _launch_swat_bwd(q, k, v, lse, g, scale: float, causal: bool, ws: int,
+                     rot_dim: int, need, cwg: tuple = None):
+    """The K9 launches on contiguous checked CUDA tensors, ``cwg`` as
+    ``_launch_tab_bwd``'s."""
+    batch, f, h, w, d = q.shape
+    dq, dk, dv, delta, qr, kr = _bwd_buffers(q, k, v, need, rot_dim > 0)
     freqs = _freqs(q, rot_dim)
     lib = _lib()
     code = lib.svl_swat_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _opt(freqs), g.data_ptr(),
-        lse.contiguous().data_ptr(), delta.data_ptr(), _opt(dq),
+        lse.data_ptr(), _opt(qr), _opt(kr), delta.data_ptr(), _opt(dq),
         _opt(dk), _opt(dv), batch, f, h, w, d, ws, rot_dim, float(scale),
-        int(causal), build.stream_of(q))
+        int(causal), *_bwd_cwg(q, causal, cwg), build.stream_of(q))
     build.check(lib, code, "swat_attention_bwd")
     swat_attention_bwd.launches += 1
     return dq, dk, dv

@@ -14,9 +14,11 @@ power limit.  ``--tree DIR`` does the same for another checkout, for
 example an unpacked ``git archive`` of a parent commit, in a child process
 whose imports resolve there (``tools/tree.py``), so two versions are
 compared in one call on one card.  ``--sweep`` (a checkout with the
-forward kernels' ``cwg_choices``) adds, at each forward shape, the
-kernel's time with every count of consumer warpgroups its head dim has:
-the data the plan's order was chosen from.
+forward kernels' ``cwg_choices`` and the backward's ``bwd_plan``) adds, at
+each forward shape, the kernel's time with every count of consumer
+warpgroups its head dim has, and at each backward shape its time with
+every choice the backward plan has (the dq kernel's consumer warpgroups
+and the dk/dv kernel's): the data the plans' order was chosen from.
 """
 from __future__ import annotations
 
@@ -64,6 +66,20 @@ def _sweep(make_name: str, args: tuple) -> dict:
             for c in F.cwg_choices(d)}
 
 
+def _sweep_bwd(case: dict) -> dict:
+    """The backward's time with every (dq warpgroups, dk/dv warpgroups)
+    its plan offers at the case's head dim, on the case's own inputs
+    (``case["kernel_with"]``)."""
+    import chip_smoke as cs
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as F
+
+    d = case["head_dim"]
+    return {f"dq {c_dq}, dkv {c_kv}": cs.time_ms(
+                lambda c=(c_dq, c_kv): case["kernel_with"](c))
+            for c_dq in F.bwd_cwg_choices(d, False)
+            for c_kv in F.bwd_cwg_choices(d, True)}
+
+
 def _run(sweep: bool) -> None:
     import torch
 
@@ -89,7 +105,9 @@ def _run(sweep: bool) -> None:
         row["host_ms_per_call"] = (time.perf_counter() - t0) * 1e3 / HOST_CALLS
         torch.cuda.synchronize()
         row.update(path=path, card=card, tree=os.getcwd())
-        if sweep and not case.get("backward"):
+        if sweep and case.get("backward"):
+            row["sweep"] = _sweep_bwd(case)
+        elif sweep:
             row["sweep"] = _sweep(make.__name__, args)
         print(json.dumps({"attn_bench": row}), flush=True)
         del case
@@ -101,8 +119,8 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", default=None,
                         help="root of another checkout to time instead")
     parser.add_argument("--sweep", action="store_true",
-                        help="also time every consumer-warpgroup count of "
-                             "the forward kernels")
+                        help="also time every choice of the forward and "
+                             "backward kernels' plans")
     args = parser.parse_args(argv)
     if args.tree:  # imported here: the child runs in the other checkout
         from seervideoldm_tpu_torch.tools.tree import run_in_tree

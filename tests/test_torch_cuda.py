@@ -13,7 +13,7 @@ the backward kernels (K7, K8) the same bound and a relative L2 error of at
 most 1e-2 on each of dq, dk, dv, at odd shapes: n not a multiple of 64,
 n != m, a fully masked tail tile, a non-contiguous ``grad_output``, d =
 80; and K7, K8, K9 within 1e-3 relative L2, the fp32 precision of p and
-dS the TPU bodies keep.  K3-K5 also
+dS the TPU bodies keep, and bit-equal over two calls (deterministic).  K3-K5 also
 as their two halves, the up and the down kernel, each alone.  K6 and K9 (the
 pre-rotated and in-kernel-trig modes of the SWAT kernels) the same, with
 ``rot_dim`` 0 and 32.  K10 (the softmax calibration): the final scores and
@@ -356,6 +356,71 @@ def test_backward_keeps_fp32_precision(gen, kernel):
                               ("dq", "dk", "dv")):
         rel = float((got.float() - ref.float()).norm() / ref.float().norm())
         assert rel <= 1e-3, (name, rel)
+
+
+@pytest.mark.parametrize("kernel", ["K8", "K8 causal", "K7", "K9 rot_dim 0",
+                                    "K9 rot_dim 32"])
+def test_backward_is_deterministic(gen, kernel):
+    """Two backward calls on the same inputs give bit-equal dq, dk, dv: no
+    atomics, every output element written once by one thread, and the
+    sums in one fixed order (csrc/attn_bwd_hopper.cuh)."""
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as KF
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as KS
+    from seervideoldm_tpu_torch.ops.rotary import rotary_tables
+
+    if kernel.startswith("K8"):
+        causal = kernel.endswith("causal")
+        q, k, v, g = (_randn(gen, 6, 1000, 40) for _ in range(4))
+        _, lse = KF._launch_fwd(q, k, v, 40 ** -0.5, causal, want_lse=True)
+        call = lambda: KF.flash_attention_bwd(  # noqa: E731
+            q, k, v, lse, g, 40 ** -0.5, causal)
+    elif kernel == "K7":
+        q, k, v, g = (_randn(gen, 2, 12, 32, 32, 40) for _ in range(4))
+        cos, sin = rotary_tables(12, 32, 32, 40, 32, device="cuda")
+        _, lse = KS._launch_fwd(q, k, v, cos, sin, 40 ** -0.5, True, 8,
+                                want_lse=True)
+        call = lambda: KS.swat_attention_tables_bwd(  # noqa: E731
+            q, k, v, cos, sin, lse, g, 40 ** -0.5, True, 8)
+    else:
+        rot = int(kernel.split()[-1])
+        q, k, v, g = (_randn(gen, 2, 11, 32, 32, 40) for _ in range(4))
+        _, lse = KS._launch_swat_fwd(q, k, v, 40 ** -0.5, True, 8, rot,
+                                     want_lse=True)
+        call = lambda: KS.swat_attention_bwd(  # noqa: E731
+            q, k, v, lse, g, 40 ** -0.5, True, 8, rot)
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("d", [16, 40, 64, 80])
+def test_backward_layout_matches_the_source(gen, d):
+    """The host lays out a backward CTA's shared memory as the CUDA source
+    does, for every instantiation."""
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
+
+    for dkv in (False, True):
+        for cwg in K.bwd_cwg_choices(d, dkv):
+            assert K.bwd_smem(d, cwg, dkv) == K.bwd_layout(d, cwg, dkv)
+
+
+@pytest.mark.parametrize("qtiles,ktiles,causal", [
+    (1, 1, False), (1, 1, True), (5, 5, False), (5, 5, True),
+    (12, 12, False), (12, 12, True), (16, 12, False)])
+@pytest.mark.parametrize("d", [40, 80])
+def test_backward_grid_matches_the_source(gen, qtiles, ktiles, causal, d):
+    """``bwd_cta_tiles``, the map the CPU tests hold, is the one the CUDA
+    kernels run (``csrc/attn_bwd_hopper.cuh::cta_tiles``), for every CTA of
+    both kernels."""
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
+
+    p = K.bwd_plan(3, qtiles, ktiles, d, causal)
+    for kind in ("dq", "dkv"):
+        for block in range(p[kind]["ctas"]):
+            assert K.bwd_cta_source(p, kind, block) == K.bwd_cta_tiles(
+                p, kind, block), (kind, block)
 
 
 def test_swat_k6_refuses_odd_rot_dim_and_wide_backward(gen):
