@@ -41,6 +41,10 @@ no result line):
    b2`` and the mode's epilogue), also as those two halves alone against
    their plain versions, the down kernel fed the plain ``a``, with each
    half's time (``up_ms``, ``down_ms``) and the tile plan on the row;
+   last, the sampling-knob path's shapes (path ``knobs``): K2 at the ToMe
+   lengths (192, 512, 40) and (192, 717, 40), and the no-gradient batch-1
+   forwards of a call outside a guidance interval, K1 (8, 12, 32, 32,
+   40), K2 (96, 1024, 40), K3 / K4 (12288, 320), K5 (3072, 640);
 4. reference: one SeerUNet call at narrow widths (64/128) and the main
    path's 256 px / 12 frame / CFG-batch-2 shapes, bf16 with the kernels on
    the card against the port's plain path in fp32 on the CPU, same weights
@@ -57,6 +61,27 @@ no result line):
    zeroed just before and read just after, and every kernel must have run
    its count per step x steps;
    checks the frames (finite, (1, 10, 256, 256, 3), in [0, 1]);
+6b. sampling knobs, on phase 6's pipeline after a narrow-width reference
+   (SeerUNet 64/128 at the main path's shapes, as phase 4: one call in a
+   fully cached PAB mode, one with ToMe 0.5, one with FreeU, bf16 through
+   the kernels on the card against the plain path in fp32 on the CPU,
+   relative L2 <= 5e-2 each): (a) DPM-Solver++ 20 trailing steps;
+   (b) the zero-terminal-SNR recipe (rescaled schedule, v-prediction,
+   trailing, ``guidance_rescale`` 0.7), DDIM 30; (c) ``configs/serve.yaml``'s
+   PAB at 30 steps, the launches derived from the port's own schedule
+   (K2 at the steps that compute the spatial attention, K1 at those that
+   compute the temporal one), then two checks bit for bit: every range 1
+   against PAB off over 5 steps, and a fully cached UNet call at the same
+   (x, t) as the all-compute call before it; (d) ToMe 0.5 with FreeU
+   (1.5, 1.6, 0.9, 0.2): K2 sees 512 tokens only; (e) ``guidance_interval``
+   [0, 500]: the calls outside it run K1 and K2 at batch 1; (f) a rollout
+   to ``total_frames`` 20 (2 chunks); (g) the ``edit`` entry on a seeded
+   12-frame GIF at strength 0.6; (h) the ``inference`` entry on a
+   synthetic Something-Something-v2 val tree, 1 batch, 1 sample.  Each
+   run zeroes the launch counts just before and reads them just after,
+   counts the UNet calls, checks the frames (finite, the expected shape,
+   in [0, 1]) and prints a ``sampling_knobs`` line: run, UNet calls,
+   seconds per clip, peak GB, launches;
 7. training: the port's ``train`` entry at the same full width on a
    synthetic Something-Something-v2 tree written from a numpy seed to a
    temporary directory: 256 px, 12 frames, 2 cond frames, batch 1,
@@ -96,7 +121,11 @@ no result line):
    ``remat_launches`` line (one full-width micro-step under ``none``,
    ``save_attn`` and ``block``): ``save_attn`` launches the forward kernels
    as often as ``none``, ``block`` more;
-10. prints the ``kernels`` line, the card line and the result line.
+10. prints the ``kernels`` line (each kernel's ``launches`` summed over
+    phases 6, 6b, 7, 8 and 9, with each phase's own count beside it:
+    ``sampling_launches``, ``knobs_launches``, ``training_launches``,
+    ``parallel_launches``, ``floor_budget_launches``), the card line and
+    the result line.
 
 ``--profile PATH`` adds where one full-width DDIM step's time goes (one
 SeerUNet call's CUDA kernel time by category and the device busy share, a
@@ -147,6 +176,7 @@ TRAIN_OPT_STEPS, TRAIN_ACCUM = 4, 2
 TRAIN_SAMPLE_STEPS = 5     # DDIM steps sampled from the trained checkpoint
 E2E_STEPS = 30             # DDIM steps of the end-to-end run (the shipped
                            # configs/inference_base.yaml value)
+KNOB_DPM_STEPS = 20        # DPM-Solver++ steps of the knob phase (trailing)
 SEED = 0
 # launches of each kernel per SeerUNet call (one per DDIM step with batched
 # CFG) at 256 px: K1 at L0 temporal sites, K2 at L0 per-frame spatial
@@ -746,6 +776,17 @@ KERNEL_CASES = (
     (None, case_swat6_bwd, (8, 12, 32, 40, 32)),
     (None, case_swat6_bwd, (8, 12, 32, 80, 0)),
     (None, case_swat6_bwd, (8, 12, 32, 80, 32)),
+    # the sampling-knob path (appended, so the cases above keep their
+    # draws): K2 at the ToMe lengths of the 256 px L0 sites (ratio 0.5 and
+    # 0.3), then the no-gradient batch-1 forwards of the UNet calls
+    # outside a guidance interval
+    ("knobs", case_flash, (192, 512, 40)),
+    ("knobs", case_flash, (192, 717, 40)),
+    ("knobs", case_swat, (8, 12, 32, 40)),
+    ("knobs", case_flash, (96, 1024, 40)),
+    ("knobs", case_geglu, (1, 12288, 320)),
+    ("knobs", case_geglu, (2, 12288, 320)),
+    ("knobs", case_geglu, (0, 3072, 640)),
 )
 
 
@@ -1041,7 +1082,9 @@ def phase_train_reference() -> None:
             "train reference: K4 ran although cond_frame > 0")
 
 
-def phase_end_to_end(card: str, profile: str | None) -> dict:
+def phase_end_to_end(card: str, profile: str | None) -> tuple:
+    """Phase 6; returns (launches, pipeline, tokenizer, config) so the
+    knob phase reuses the full-width pipeline."""
     import dataclasses
 
     import numpy as np
@@ -1093,7 +1136,437 @@ def phase_end_to_end(card: str, profile: str | None) -> dict:
                 f"{per_step} x {steps} steps")
     if profile:
         profile_step(pipe, profile)
-    return launches
+    return launches, pipe, tok, cfg
+
+
+# ------------------------------------------------------- sampling knobs
+
+@contextlib.contextmanager
+def observe_sampling():
+    """Counts SeerUNet calls and records the shapes the attention kernels
+    are handed (K2: (batch, tokens) of q; K1: q's batch x heads), through
+    wrappers around ``SeerUNet.forward`` and the names ``ops/attention.py``
+    calls (one Python call each, where a global module hook would add one
+    to every module call of the UNet and pace the clip); the kernels' own
+    launch counters are untouched.  Yields a dict: ``unet_calls``,
+    ``flash``, ``swat``."""
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet
+    from seervideoldm_tpu_torch.ops import attention
+
+    seen = {"unet_calls": 0, "flash": [], "swat": []}
+    forward = SeerUNet.forward
+
+    def counted(self, *args, **kwargs):
+        seen["unet_calls"] += 1
+        return forward(self, *args, **kwargs)
+
+    real = {n: getattr(attention, n) for n in ("flash_attention",
+                                               "swat_attention_tables")}
+
+    def flash(q, *a, **k):
+        seen["flash"].append((math.prod(q.shape[:-2]), q.shape[-2]))
+        return real["flash_attention"](q, *a, **k)
+
+    def swat(q, *a, **k):
+        seen["swat"].append(q.shape[0])
+        return real["swat_attention_tables"](q, *a, **k)
+
+    SeerUNet.forward = counted
+    attention.flash_attention, attention.swat_attention_tables = flash, swat
+    try:
+        yield seen
+    finally:
+        SeerUNet.forward = forward
+        for name, fn in real.items():
+            setattr(attention, name, fn)
+
+
+@contextlib.contextmanager
+def capture_result(cls, method: str):
+    """Wraps ``cls.method``: yields a list that receives (result, seconds)
+    of every call, timed to the device's end."""
+    import torch
+
+    real = getattr(cls, method)
+    got = []
+
+    @functools.wraps(real)
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        got.append((out, time.perf_counter() - t0))
+        return out
+
+    setattr(cls, method, wrapped)
+    try:
+        yield got
+    finally:
+        setattr(cls, method, real)
+
+
+def _check_frames(what: str, samples, shape) -> None:
+    import torch
+
+    require(tuple(samples.shape) == tuple(shape),
+            f"{what}: frames shaped {tuple(samples.shape)}, expected {shape}")
+    require(bool(torch.isfinite(samples).all()), f"{what}: non-finite frames")
+    require(float(samples.min()) >= 0.0 and float(samples.max()) <= 1.0,
+            f"{what}: frames outside [0, 1]")
+    require(float(samples.std()) > 0.0, f"{what}: constant frames")
+
+
+def knob_run(card: str, run: str, call, calls: int, shape,
+             expect: dict | None = None, extra: dict | None = None):
+    """One run of the knob phase: launch counts zeroed just before and
+    read just after, the UNet calls and the frames checked, a
+    ``sampling_knobs`` line.  ``call`` returns (frames, seconds per clip
+    or None for the run's wall time).  ``expect``: launches per kernel
+    (default: ``PER_STEP`` x calls).  Returns (launches, observed)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with observe_sampling() as seen:
+        samples, clip_s = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    _check_frames(f"knobs {run}", samples, shape)
+    line = {"card": card, "run": run, "unet_calls": seen["unet_calls"],
+            "s_per_clip": clip_s if clip_s is not None else wall,
+            "run_seconds": wall, "frames": list(samples.shape),
+            "peak_mem_gb": _peak_gb(), "launches": launches}
+    line.update(extra or {})
+    print(json.dumps({"sampling_knobs": line}), flush=True)
+    require(seen["unet_calls"] == calls,
+            f"knobs {run}: {seen['unet_calls']} UNet calls, expected {calls}")
+    expect = expect or {name: per * calls for name, per in PER_STEP.items()}
+    for name, n in expect.items():
+        require(launches[name] == n, f"knobs {run}: {name} launched "
+                f"{launches[name]} times, expected {n}")
+    return launches, seen
+
+
+def _pab_expected(tables_len: int, pab_cfg) -> tuple[dict, dict]:
+    """Launches of a PAB clip from the port's own schedule: K2 at the
+    steps that compute the spatial attention, K1 at those that compute
+    the temporal one, K3-K5 at every call (the FF tails still run)."""
+    from seervideoldm_tpu_torch.diffusion.pab import build_pab_schedule
+
+    modes, idx = build_pab_schedule(tables_len, pab_cfg)
+    flags = [modes[i] for i in idx]
+    cached = {kind: sum(m[k] for m in flags)
+              for k, kind in enumerate(("spatial", "cross", "temporal"))}
+    expect = {name: per * tables_len for name, per in PER_STEP.items()}
+    expect["flash_attention"] = PER_STEP["flash_attention"] * (
+        tables_len - cached["spatial"])
+    expect["swat_attention_tables"] = PER_STEP["swat_attention_tables"] * (
+        tables_len - cached["temporal"])
+    return expect, cached
+
+
+def pab_bit_exact(pipe, tok, cfg, image, prompt) -> dict:
+    """(1) a clip with every PAB range 1 (the all-compute mode and its
+    cache at every step) against PAB off, 5 steps; (2) a fully cached
+    mode at the same (x, t) as the all-compute call before it, and that
+    call against the UNet without PAB: each equal bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from seervideoldm_tpu_torch.diffusion.pab import COMPUTE_ALL, mode_to_flags
+    from seervideoldm_tpu_torch.inference_img import generate_video
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        short = dataclasses.replace(cfg, ddim_steps=5)
+        ones = dataclasses.replace(short, pab=True, pab_spatial_range=1,
+                                   pab_cross_range=1, pab_temporal_range=1)
+        clip_ones = generate_video(pipe, tok, ones, image, prompt)[0]
+        clip_off = generate_video(pipe, tok, short, image, prompt)[0]
+        gen = torch.Generator(device=pipe.device).manual_seed(SEED + 3)
+        lat = pipe.latent_shape(cfg.resolution, cfg.resolution)[0]
+        unet_cfg = pipe.m.unet.config
+        x = torch.randn(2, cfg.num_frames, lat, lat, unet_cfg.in_channels,
+                        generator=gen, device=pipe.device).to(pipe.dtype)
+        ctx = torch.randn(2, cfg.num_frames, 77,
+                          unet_cfg.cross_attention_dim, generator=gen,
+                          device=pipe.device).to(pipe.dtype)
+        ts = torch.full((2,), 981, dtype=torch.int32, device=pipe.device)
+        cache: dict = {}
+        with torch.no_grad():
+            plain = pipe.m.unet(x, ts, ctx)
+            computed = pipe.m.unet(x, ts, ctx, pab=mode_to_flags(COMPUTE_ALL),
+                                   pab_cache=cache)
+            cached = pipe.m.unet(x, ts, ctx,
+                                 pab=mode_to_flags((True, True, True)),
+                                 pab_cache=cache)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out = {"ranges_one_equals_off_5_steps": bool(torch.equal(clip_ones,
+                                                             clip_off)),
+           "all_compute_equals_no_pab": bool(torch.equal(computed, plain)),
+           "cached_equals_all_compute": bool(torch.equal(cached, computed)),
+           "cache_entries": len(cache)}
+    for key in ("ranges_one_equals_off_5_steps", "all_compute_equals_no_pab",
+                "cached_equals_all_compute"):
+        require(out[key], f"knobs pab: {key} does not hold bit for bit")
+    return out
+
+
+def _write_config(path: str, raw: dict) -> str:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def phase_knobs(card: str, pipe, tok, cfg) -> dict:
+    """The sampling-knob phase (module docstring, phase 6b) on phase 6's
+    full-width pipeline.  Returns the launches summed over its runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from seervideoldm_tpu_torch import edit as edit_entry
+    from seervideoldm_tpu_torch import inference as inference_entry
+    from seervideoldm_tpu_torch.config import load_config, pab_config_from
+    from seervideoldm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from seervideoldm_tpu_torch.inference_img import generate_video
+    from seervideoldm_tpu_torch.pipelines.text_video import SeerPipeline
+
+    t_phase = time.perf_counter()
+    res, f1, nf = cfg.resolution, cfg.cond_frames, cfg.num_frames
+    image = np.random.RandomState(SEED).randint(0, 256, (res, res, 3),
+                                                dtype=np.uint8)
+    prompt = "push the green cup to the left"
+    clip = (1, nf - f1, res, res, 3)
+    total = {name: 0 for name in PER_STEP}
+
+    def add(launches):
+        for name in total:
+            total[name] += launches[name]
+
+    def sample(c):
+        return lambda: (generate_video(pipe, tok, c, image, prompt)[0], None)
+
+    def grid(steps, spacing="uniform", zero_snr=False):
+        return len(DiffusionSchedule.create(1000, rescale_zero_snr=zero_snr)
+                   .ddim_tables(steps, discr_method=spacing).timesteps)
+
+    # (a) DPM-Solver++, 20 trailing steps
+    c = dataclasses.replace(cfg, sampler="dpm++", ddim_steps=KNOB_DPM_STEPS,
+                            timestep_spacing="trailing")
+    add(knob_run(card, f"dpm++ {KNOB_DPM_STEPS} trailing", sample(c),
+                 grid(KNOB_DPM_STEPS, "trailing"), clip)[0])
+
+    # (b) the zero-terminal-SNR recipe on its rescaled schedule
+    c = dataclasses.replace(cfg, rescale_zero_snr=True,
+                            prediction_type="v_prediction",
+                            timestep_spacing="trailing", guidance_rescale=0.7)
+    schedule = pipe.schedule
+    pipe.schedule = DiffusionSchedule.create(1000, rescale_zero_snr=True)
+    try:
+        add(knob_run(card, "zero-snr ddim 30", sample(c),
+                     grid(cfg.ddim_steps, "trailing", True), clip)[0])
+    finally:
+        pipe.schedule = schedule
+
+    # (c) configs/serve.yaml's PAB at 30 steps; then the bit-exact checks
+    serve = load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "configs", "serve.yaml"))
+    pab_cfg = pab_config_from(serve)
+    c = dataclasses.replace(cfg, pab=True,
+                            pab_spatial_range=pab_cfg.spatial_range,
+                            pab_cross_range=pab_cfg.cross_range,
+                            pab_temporal_range=pab_cfg.temporal_range,
+                            pab_window=list(pab_cfg.window))
+    n = grid(cfg.ddim_steps)
+    expect, cached = _pab_expected(n, pab_cfg)
+    add(knob_run(card, "pab serve.yaml ddim 30", sample(c), n, clip,
+                 expect=expect,
+                 extra={"pab": dataclasses.asdict(pab_cfg),
+                        "steps_cached": cached,
+                        "bit_exact": pab_bit_exact(pipe, tok, cfg, image,
+                                                   prompt)})[0])
+
+    # (d) ToMe 0.5 with FreeU: K2 runs at the merged 512 tokens
+    unet_cfg = pipe.m.unet.config
+    pipe.m.unet.config = dataclasses.replace(
+        unet_cfg, tome_ratio=0.5, tome_min_tokens=1024,
+        freeu=(1.5, 1.6, 0.9, 0.2))
+    try:
+        launches, seen = knob_run(card, "tome 0.5 + freeu ddim 30", sample(cfg),
+                                  n, clip)
+    finally:
+        pipe.m.unet.config = unet_cfg
+    add(launches)
+    tokens = sorted({t for _, t in seen["flash"]})
+    print(json.dumps({"sampling_knobs_tome": {"k2_tokens": tokens}}),
+          flush=True)
+    require(tokens == [512], f"knobs tome: K2 saw {tokens} tokens, not 512")
+
+    # (e) guidance_interval [0, 500]: calls outside it run at batch 1
+    c = dataclasses.replace(cfg, guidance_interval=[0, 500])
+    timesteps = pipe.schedule.ddim_tables(cfg.ddim_steps).timesteps
+    outside = int((timesteps > 500).sum())
+    launches, seen = knob_run(card, "guidance_interval [0, 500] ddim 30",
+                              sample(c), n, clip,
+                              extra={"calls_at_batch_1": outside})
+    add(launches)
+    heads = pipe.m.unet.config.attention_head_dim
+    for kind, batch_1 in (("flash", lambda s: s[0] == nf * heads),
+                          ("swat", lambda s: s == heads)):
+        per_call, ones = len(seen[kind]) // n, sum(map(batch_1, seen[kind]))
+        require(per_call > 0 and ones == per_call * outside,
+                f"knobs guidance_interval: {kind} ran {ones} of "
+                f"{len(seen[kind])} times at batch 1, expected {outside} "
+                f"calls' worth")
+
+    # (f) rollout to 20 future frames: 2 chunks
+    c = dataclasses.replace(cfg, total_frames=20)
+    add(knob_run(card, "rollout total_frames 20", sample(c),
+                 -(-20 // (nf - f1)) * n, (1, 20, res, res, 3))[0])
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_knobs_")
+    try:
+        base = dict(resolution=res, cond_frames=f1, num_frames=nf,
+                    ddim_steps=cfg.ddim_steps, scale=cfg.scale, seed=SEED,
+                    mixed_precision="bf16", compute_dtype="bfloat16")
+        # (g) the edit entry on a seeded 12-frame GIF, strength 0.6
+        rng = np.random.RandomState(SEED + 4)
+        coarse = rng.randint(0, 200, (nf, 8, 8, 3)).astype(np.uint8)
+        frames = [Image.fromarray(f).resize((res, res), Image.BILINEAR)
+                  for f in coarse]
+        gif = os.path.join(tmp, "clip.gif")
+        frames[0].save(gif, save_all=True, append_images=frames[1:],
+                       duration=100)
+        conf = _write_config(os.path.join(tmp, "edit.yaml"),
+                             dict(base, output_dir=os.path.join(tmp, "edit")))
+        t_enc = int(round(0.6 * n))
+
+        def run_edit():
+            with capture_result(SeerPipeline, "edit") as got:
+                path = edit_entry.main(
+                    ["--config", conf, "--video_path", gif,
+                     "--input_text_prompts", "pour the water instead",
+                     "--edit_strength", "0.6"], device="cuda")
+            require(path is not None and os.path.exists(path),
+                    "knobs edit: the entry wrote no GIF")
+            return got[0]
+
+        add(knob_run(card, "edit entry strength 0.6", run_edit, t_enc,
+                     clip)[0])
+
+        # (h) the inference entry on a synthetic Sthv2 val tree
+        write_synthetic_sthv2(os.path.join(tmp, "data"), clips=1,
+                              frames=nf + 2, res=res)
+        conf = _write_config(os.path.join(tmp, "inference.yaml"), dict(
+            base, output_dir=os.path.join(tmp, "inference"),
+            data_dir=os.path.join(tmp, "data"), dataset="sthv2",
+            val_batch_size=1, num_samples=1, sample_iter=1, num_workers=1))
+
+        def run_inference():
+            with capture_result(SeerPipeline, "generate") as got:
+                written = inference_entry.main(["--config", conf],
+                                               device="cuda")
+            require(written == [0] and os.path.exists(os.path.join(
+                tmp, "inference", "grid-0.png")),
+                f"knobs inference: the entry wrote {written}")
+            return got[0]
+
+        add(knob_run(card, "inference entry 1 batch 1 sample",
+                     run_inference, n, clip)[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"sampling_knobs_phase": {
+        "seconds": time.perf_counter() - t_phase, "launches": total}}),
+        flush=True)
+    return total
+
+
+def phase_knob_reference() -> None:
+    """Narrow SeerUNet (64/128) at the main path's shapes, as phase 4: one
+    call in a fully cached PAB mode (the cache written by an all-compute
+    call at other inputs), one with ToMe 0.5 and one with FreeU, bf16
+    through the kernels on the card against the plain path in fp32 on the
+    CPU (relative L2 <= REF_RTOL each)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from seervideoldm_tpu_torch.diffusion.pab import COMPUTE_ALL, mode_to_flags
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet, SeerUNetConfig
+    from seervideoldm_tpu_torch.utils.device import cast_for_compute
+
+    cfg = SeerUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
+                         norm_num_groups=8, cross_attention_dim=64,
+                         attention_head_dim=2)
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(SEED + 2)
+        unet = cast_for_compute(SeerUNet(cfg), torch.bfloat16).eval()
+    ref = copy.deepcopy(unet).cpu().float()
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    x1, x2 = (torch.randn(2, 12, 32, 32, 4, generator=gen) for _ in range(2))
+    ctx = torch.randn(2, 12, 77, 64, generator=gen)
+    t1 = torch.tensor([981, 981], dtype=torch.int32)
+    t2 = torch.tensor([500, 500], dtype=torch.int32)
+
+    def both(fn):
+        with torch.no_grad():
+            got = fn(unet, lambda t: t.cuda().bfloat16()
+                     if t.is_floating_point() else t.cuda())
+            torch.cuda.synchronize()
+            want = fn(ref, lambda t: t)
+        return got.float().cpu(), want
+
+    def pab_call(model, dev):
+        cache: dict = {}
+        model(dev(x1), dev(t1), dev(ctx), pab=mode_to_flags(COMPUTE_ALL),
+              pab_cache=cache)
+        return model(dev(x2), dev(t2), dev(ctx),
+                     pab=mode_to_flags((True, True, True)), pab_cache=cache)
+
+    def with_config(**knobs):
+        def call(model, dev):
+            base = model.config
+            model.config = dataclasses.replace(base, **knobs)
+            try:
+                return model(dev(x1), dev(t1), dev(ctx))
+            finally:
+                model.config = base
+        return call
+
+    out = {}
+    for name, fn in (("pab cached (True, True, True)", pab_call),
+                     ("tome 0.5", with_config(tome_ratio=0.5,
+                                              tome_min_tokens=1024)),
+                     ("freeu (1.5, 1.6, 0.9, 0.2)",
+                      with_config(freeu=(1.5, 1.6, 0.9, 0.2)))):
+        reset_launches()
+        got, want = both(fn)
+        rel = float((got - want).norm() / want.norm())
+        out[name] = {"rel_l2_err": rel, "launches": read_launches()}
+        require(bool(torch.isfinite(got).all()),
+                f"knob reference {name}: non-finite output")
+        require(rel <= REF_RTOL, f"knob reference {name}: relative L2 "
+                f"{rel} > {REF_RTOL}")
+    print(json.dumps({"knob_reference": {
+        "what": "SeerUNet 64/128, (2, 12, 32, 32, 4) bf16 on the card vs "
+                "fp32 plain path on the CPU", "tol": REF_RTOL, **out}}),
+        flush=True)
+    require(out["tome 0.5"]["launches"]["flash_attention"] > 0,
+            "knob reference: K2 did not run under ToMe")
 
 
 def write_synthetic_sthv2(root: str, clips: int, frames: int, res: int) -> None:
@@ -1861,7 +2334,11 @@ def main() -> int:
         rows = phase_kernels()
         phase_reference()
         phase_train_reference()
-        launches = phase_end_to_end(card, args.profile)
+        launches, pipe, tok, cfg = phase_end_to_end(card, args.profile)
+        phase_knob_reference()
+        knob_launches = phase_knobs(card, pipe, tok, cfg)
+        del pipe
+        torch.cuda.empty_cache()
         train_launches = phase_training(card, args.profile)
         par_launches = phase_parallel(card)
         k10_row, fb_launches = phase_floor_budget(card)
@@ -1873,13 +2350,16 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         row, shapes = rows[name][0], rows[name]
         # each path is driven with the counts zeroed just before and read
-        # just after; `launches` is the sum over the four paths (the
-        # parallel path's: rank 0's, summed over its runs)
+        # just after; `launches` is the sum over the five paths (the
+        # parallel path's: rank 0's, summed over its runs; the knob
+        # phase's: summed over its eight runs)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(launches[name] + train_launches[name]
-                      + par_launches[name] + fb_launches[name]),
+            launches=(launches[name] + knob_launches[name]
+                      + train_launches[name] + par_launches[name]
+                      + fb_launches[name]),
             sampling_launches=launches[name],
+            knobs_launches=knob_launches[name],
             training_launches=train_launches[name],
             parallel_launches=par_launches[name],
             floor_budget_launches=fb_launches[name],

@@ -1,5 +1,7 @@
 """YAML configuration, key-compatible with the JAX package's configs (the
-port's own copy, cut to the keys the sampling and training paths read).
+port's own copy, cut to the keys the sampling and training paths read),
+with its ``pab_config_from``, ``sampler_schedule_from`` and
+``sampling_kwargs_from``.
 
 Unknown keys are kept in ``extras`` so a config written for the JAX package
 loads unchanged.  PyYAML is imported only when a file is read.
@@ -75,9 +77,18 @@ class Config:
     guidance_interval: Optional[list] = None
     guidance_rescale: float = 0.0
     pab: bool = False
+    pab_spatial_range: int = 2
+    pab_cross_range: int = 6
+    pab_temporal_range: int = 4
+    pab_window: list = field(default_factory=lambda: [0.1, 0.9])
     tome_ratio: float = 0.0
+    tome_min_tokens: int = 1024
     freeu: Optional[list] = None
     total_frames: Optional[int] = None
+    num_samples: int = 1
+    sample_iter: int = 1
+    n_rows: int = 2
+    val_batch_size: int = 1
     image_path: Optional[str] = None
     input_text_prompts: Optional[str] = None
     model_overrides: Optional[dict] = None
@@ -91,17 +102,43 @@ class Config:
 
 _FIELDS = {f.name for f in dataclasses.fields(Config)}
 
-# Options of the JAX package that this slice of the port does not run yet;
-# a config asking for one is refused rather than silently sampled without it.
+# Options of the JAX package that the port does not run yet; a config
+# asking for one is refused rather than silently run without it.
 _NOT_YET = {
-    "sampler": ("ddim",), "prediction_type": ("epsilon",),
-    "timestep_spacing": ("uniform",), "rescale_zero_snr": (False,),
-    "guidance_interval": (None,), "guidance_rescale": (0.0, 0),
-    "pab": (False,), "tome_ratio": (0.0, 0), "freeu": (None,),
-    "total_frames": (None,),
     "use_8bit_adam": (False,), "lora_rank": (0,),
     "param_dtype": ("float32", "fp32"),
 }
+
+
+def pab_config_from(cfg: Config):
+    """A ``diffusion.pab.PABConfig`` from the flat YAML knobs, or None when
+    ``pab: false``."""
+    if not cfg.pab:
+        return None
+    from .diffusion.pab import PABConfig
+
+    return PABConfig(spatial_range=int(cfg.pab_spatial_range),
+                     cross_range=int(cfg.pab_cross_range),
+                     temporal_range=int(cfg.pab_temporal_range),
+                     window=tuple(float(v) for v in cfg.pab_window))
+
+
+def sampler_schedule_from(cfg: Config):
+    """The sampler's ``DiffusionSchedule``: the reference's defaults,
+    zero-terminal-SNR rescaled under ``rescale_zero_snr``."""
+    from .diffusion.schedules import DiffusionSchedule
+
+    return DiffusionSchedule.create(1000,
+                                    rescale_zero_snr=bool(cfg.rescale_zero_snr))
+
+
+def sampling_kwargs_from(cfg: Config) -> dict:
+    """The per-call sampling knobs every entry passes to the pipeline."""
+    return dict(sampler=cfg.sampler, guidance_interval=cfg.guidance_interval,
+                prediction_type=cfg.prediction_type,
+                pab_config=pab_config_from(cfg),
+                timestep_spacing=cfg.timestep_spacing,
+                guidance_rescale=float(cfg.guidance_rescale))
 
 
 def parse_remat(value: Any) -> Any:
@@ -160,7 +197,56 @@ def validate(cfg: Config) -> Config:
         raise ValueError(f"snr_gamma must be >= 0, got {cfg.snr_gamma!r}")
     if not float(cfg.vae_scale) > 0.0:
         raise ValueError(f"vae_scale must be > 0, got {cfg.vae_scale!r}")
+    _validate_sampling(cfg)
     return cfg
+
+
+def _validate_sampling(cfg: Config) -> None:
+    """The JAX package's checks of the sampling knobs."""
+    if cfg.sampler not in ("ddim", "dpm++", "dpmpp"):
+        raise ValueError(f"sampler must be 'ddim' or 'dpm++', got "
+                         f"{cfg.sampler!r}")
+    if cfg.prediction_type not in ("epsilon", "v_prediction"):
+        raise ValueError("prediction_type must be 'epsilon' or "
+                         f"'v_prediction', got {cfg.prediction_type!r}")
+    if cfg.timestep_spacing not in ("uniform", "trailing"):
+        raise ValueError("timestep_spacing must be 'uniform' or 'trailing', "
+                         f"got {cfg.timestep_spacing!r}")
+    if cfg.rescale_zero_snr and cfg.prediction_type != "v_prediction":
+        raise ValueError("rescale_zero_snr requires prediction_type: "
+                         "v_prediction (epsilon prediction is undefined at "
+                         "the zero-SNR terminal step)")
+    if cfg.rescale_zero_snr and cfg.timestep_spacing != "trailing":
+        print("warning: rescale_zero_snr without timestep_spacing: trailing "
+              "-- sampling will never reach the terminal SNR-0 step")
+    if not 0.0 <= float(cfg.tome_ratio) < 1.0:
+        raise ValueError(f"tome_ratio must be in [0, 1), got "
+                         f"{cfg.tome_ratio!r}")
+    if int(cfg.tome_min_tokens) < 4:
+        raise ValueError(f"tome_min_tokens must be >= 4, got "
+                         f"{cfg.tome_min_tokens!r}")
+    fu = cfg.freeu
+    if fu is not None and (
+            len(fu) != 4 or not all(
+                isinstance(v, (int, float)) and not isinstance(v, bool)
+                and 0 < v <= 10 for v in fu)):
+        raise ValueError("freeu must be [b1, b2, s1, s2] with floats in "
+                         f"(0, 10], got {fu!r}")
+    if not 0.0 <= float(cfg.guidance_rescale) <= 1.0:
+        raise ValueError("guidance_rescale must be in [0, 1], got "
+                         f"{cfg.guidance_rescale!r}")
+    gi = cfg.guidance_interval
+    if gi is not None and (
+            len(gi) != 2 or not all(isinstance(v, (int, float)) for v in gi)
+            or gi[0] > gi[1]):
+        raise ValueError("guidance_interval must be [lo, hi] timesteps with "
+                         f"lo <= hi, got {gi!r}")
+    if cfg.pab:
+        if gi is not None:
+            raise ValueError("pab and guidance_interval cannot be combined: "
+                             "the interval's single-batch CFG branch "
+                             "conflicts with the CFG-batched PAB cache")
+        pab_config_from(cfg)  # raises on invalid ranges / window
 
 
 def config_from_dict(raw: dict) -> Config:

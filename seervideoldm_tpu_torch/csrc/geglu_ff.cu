@@ -13,8 +13,11 @@
 // Rounding points kept exactly as the JAX bodies (geglu_ff.py:89-97, 112,
 // 135, 160-162): h = bf16(acc_h) + bf16 b1h and g likewise (bf16 adds);
 // a = bf16(fp32(h) * gelu_erf(fp32(g))); the second product accumulates in
-// fp32, then bf16(acc) + b2 (+ x, a bf16 add); K4 then z = y W3^T in fp32,
-// bf16(z) + b3, + res.  gelu uses the exact erf (erff): the TPU kernel's
+// fp32, then bf16(acc) + b2 (+ x, a bf16 add); K4 then z = y W3^T in fp32
+// and out = bf16((z + b3) + res), one rounding: the TPU body rounds z and
+// each add to bf16, and where res cancels z an order-dependent flip of
+// bf16(z) (one ulp at |z| in [4, 8) is 0.03) then stood in an output near
+// 0 (1.5 % of the kernel checks' draws missed by it).  gelu uses the exact erf (erff): the TPU kernel's
 // Abramowitz-Stegun erf existed only because Mosaic has no erf, and the JAX
 // plain path is exact.  LN: the TPU kernels' cen * rsqrt(var + eps), the
 // mean and centred variance summed in fp64 and rounded once to fp32 (see
@@ -368,7 +371,7 @@ struct DownPlan {
 };
 
 // out = bf16(a W2^T) + b2 (mode 1: + x); mode 2 (BN = c): y = that + x,
-// out = (bf16(y W3^T) + b3) + res.  One 128 x BN tile of out per CTA; grid
+// out = bf16((y W3^T + b3) + res).  One 128 x BN tile of out per CTA; grid
 // (c / BN, n / 128).
 template <int BN, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -526,8 +529,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int i = 4 * q + 2 * r;
           const size_t off = (size_t)(row0 + 8 * r) * c + col;
           const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(res + off);
-          const float z0 = bf16r(bf16r(acc[i]) + __low2float(bb));
-          const float z1 = bf16r(bf16r(acc[i + 1]) + __high2float(bb));
+          const float z0 = acc[i] + __low2float(bb);
+          const float z1 = acc[i + 1] + __high2float(bb);
           *reinterpret_cast<uint32_t*>(out + off) =
               pack_bf16x2(z0 + __low2float(rv), z1 + __high2float(rv));
         }
@@ -630,7 +633,7 @@ extern "C" int svl_geglu_up(const void* x, const void* gamma, const void* beta,
 }
 
 // out (n, c) from a (n, inner): mode 0 bf16(a W2^T) + b2; mode 1 that + x;
-// mode 2 (bn == c) y = that + x, out = (bf16(y W3^T) + b3) + res.  bn, the
+// mode 2 (bn == c) y = that + x, out = bf16((y W3^T + b3) + res).  bn, the
 // column tile of modes 0 and 1, is 64, 128 or 320 and divides c.  Returns
 // as svl_geglu_up.
 extern "C" int svl_geglu_down(const void* a, const void* w2, const void* b2,

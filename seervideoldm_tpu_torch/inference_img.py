@@ -5,10 +5,14 @@ root ``inference_img.py``).
         --image_path img.png --input_text_prompts "push the cup left"
 
 Takes the JAX entry point's YAML keys, ``model_overrides`` included.  The
-image is replicated to ``cond_frames``, VAE-encoded, and DDIM predicts the
-remaining frames with classifier-free guidance; the cond frames and the
-prediction are written as ``<output_dir>/sample-0.gif``.  Runs on CUDA;
-``--device cpu`` runs the plain PyTorch path instead.
+image is replicated to ``cond_frames``, VAE-encoded, and the sampler
+(``sampler``: ddim or dpm++, with the JAX package's sampling knobs through
+``sampling_kwargs_from``) predicts the remaining frames with
+classifier-free guidance; with ``total_frames`` the window rolls forward
+until that many future frames exist, and a prompt split by "|" gives one
+instruction per chunk.  The cond frames and the prediction are written as
+``<output_dir>/sample-0.gif``.  Runs on CUDA; ``--device cpu`` runs the
+plain PyTorch path instead.
 
 Several ranks under torchrun (``--nproc_per_node N``) take ``mesh_shape``
 ({"data": D, "seq": S}; null = every rank on ``data``) and
@@ -27,7 +31,8 @@ from typing import Optional, Union
 
 import torch
 
-from .config import Config, config_from_dict, parse_args
+from .config import (Config, config_from_dict, parse_args,
+                     sampler_schedule_from, sampling_kwargs_from)
 from .data.transforms import image_to_model_input
 from .pipelines.loading import (load_finetuned, load_models,
                                 resolve_finetuned_dir)
@@ -49,23 +54,36 @@ def build_pipeline(cfg: Union[Config, dict], device=None):
     ckpt_dir = resolve_finetuned_dir(cfg)
     if ckpt_dir:
         load_finetuned(models, ckpt_dir)
-    return SeerPipeline(models, vae_scale=float(cfg.vae_scale)), tokenizer, cfg
+    pipe = SeerPipeline(models, schedule=sampler_schedule_from(cfg),
+                        vae_scale=float(cfg.vae_scale))
+    return pipe, tokenizer, cfg
 
 
 def generate_video(pipe: SeerPipeline, tokenizer, cfg: Config, image,
                    prompt: str):
     """``image``: a PIL image or (h, w, 3) uint8 array.  Returns (samples
-    (1, num_frames - cond_frames, res, res, 3) in [0, 1], cond frames
+    (1, num_frames - cond_frames, res, res, 3) in [0, 1], or
+    (1, total_frames, ...) under ``total_frames``, cond frames
     (1, cond_frames, res, res, 3) in [-1, 1])."""
     frame = torch.from_numpy(image_to_model_input(image, int(cfg.resolution)))
     cond = frame[None, None].repeat(1, int(cfg.cond_frames), 1, 1, 1)
-    tok, tok_uc = tokenizer([prompt or ""]), tokenizer([""])
+    prompt = prompt or ""
+    tok_uc = tokenizer([""])
     gen = torch.Generator(device=pipe.device).manual_seed(int(cfg.seed))
-    samples = pipe.generate(
-        cond, tok["input_ids"], tok["attention_mask"], tok_uc["input_ids"],
-        tok_uc["attention_mask"], num_frames=int(cfg.num_frames),
-        generator=gen, ddim_steps=int(cfg.ddim_steps),
-        guidance_scale=float(cfg.scale))
+    kw = dict(num_frames=int(cfg.num_frames), generator=gen,
+              ddim_steps=int(cfg.ddim_steps), guidance_scale=float(cfg.scale),
+              **sampling_kwargs_from(cfg))
+    if cfg.total_frames:
+        # "|"-separated segments are chained per-chunk instructions
+        prompts_tok = [tokenizer([p.strip()]) for p in prompt.split("|")]
+        samples = pipe.generate_rollout(
+            cond, prompts_tok, tok_uc["input_ids"], tok_uc["attention_mask"],
+            total_frames=int(cfg.total_frames), **kw)
+    else:
+        tok = tokenizer([prompt])
+        samples = pipe.generate(
+            cond, tok["input_ids"], tok["attention_mask"],
+            tok_uc["input_ids"], tok_uc["attention_mask"], **kw)
     return samples, cond
 
 

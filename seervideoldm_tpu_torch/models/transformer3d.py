@@ -1,5 +1,5 @@
 """Spatial, temporal and text transformer blocks of the SeerUNet (port of
-``seervideoldm_tpu/models/transformer3d.py``; PAB and ToMe left out).
+``seervideoldm_tpu/models/transformer3d.py``).
 
 - ``FeedForward``: GEGLU(dim -> 4 dim) -> Linear(4 dim -> dim), names
   ``ff.net.0.proj`` / ``ff.net.2``; the fused GEGLU kernel (K5) where the
@@ -16,6 +16,19 @@
 - ``SpatialTransformer3D``: fp32 GroupNorm -> 1x1 proj_in -> block ->
   zero-initialised 1x1 proj_out + residual; at the last temporal block with
   ``cond_frame == 0`` and c <= 320 the whole tail runs as one kernel (K4).
+
+Sampling knobs, arguments of each ``forward`` (``SeerUNet.forward`` reads
+them from its config or its caller at every call):
+
+- ``pab = (flags, cache)``: Pyramid Attention Broadcast at three sites,
+  the text block's spatial ``attn1`` and cross ``attn2`` and the temporal
+  block's ``attn1`` (``pab_residual``; the temporal block caches the
+  attention delta only, its FF tail, K4's fused ``proj_out`` included,
+  still runs).  The cache is a dict keyed by the site's qualified module
+  name (``site``, set by ``SeerUNet``), made for one sampling call;
+- ``tome = (ratio, min_tokens, sd)``: Token Merging around the spatial
+  self-attention where ``h * w >= min_tokens`` (``ops/tome.py``); the
+  attention gate sees the merged length.
 
 ``cond_frame`` is an argument of each ``forward`` (training calls with the
 number of conditioning frames, sampling with 0, on the same weights); the
@@ -34,13 +47,31 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..diffusion.pab import CROSS, SPATIAL, TEMPORAL
 from ..ops.attention import CrossAttention, WindowTemporalAttention
 from ..ops.conv import InflatedConv
 from ..ops.kernels.geglu_ff import (feed_forward, geglu_ff, geglu_ff_supported,
                                     ln_geglu_ff, ln_geglu_ff_preferred,
                                     ln_geglu_ff_proj)
 from ..ops.norms import GroupNorm, LayerNorm
+from ..ops.tome import bipartite_soft_matching_2d
 from ..parallel.activation import FrameShard
+
+
+def pab_residual(pab, key: str, kind: str, compute_fn) -> torch.Tensor:
+    """An attention's residual delta under PAB: reused from the cache when
+    this step's flag for ``kind`` says so, else computed and stored."""
+    flags, cache = pab
+    if flags[kind]:
+        if key not in cache:
+            raise ValueError(
+                f"PAB cache read before it was written ({key}): the first "
+                "sampler step must use the all-compute mode so every "
+                "attention site stores its delta before any step reuses it")
+        return cache[key]
+    delta = compute_fn()
+    cache[key] = delta
+    return delta
 
 
 class GEGLU(nn.Module):
@@ -113,16 +144,41 @@ class BasicTextTransformerBlock3D(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
+        self.site = ""  # qualified name, the PAB cache's key
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None, pab=None,
+                tome=None) -> torch.Tensor:
         """x (b, f, h, w, c); context (b, f, l, d)."""
         b, f, h, w, c = x.shape
         x = x.reshape(b * f, h * w, c)
-        x = self.attn1(self.norm1(x)) + x
+
+        def self_attn(xin):
+            xn = self.norm1(xin)
+            if tome is None or h * w < tome[1]:
+                return self.attn1(xn)
+            # matched on the block input (pre-norm), as ToMeSD does
+            merge, unmerge = bipartite_soft_matching_2d(
+                xin, h, w, int(tome[0] * h * w), sd=tome[2])
+            if merge is None:
+                return self.attn1(xn)
+            return unmerge(self.attn1(merge(xn)))
+
+        if pab is None:
+            x = self_attn(x) + x
+        else:
+            x_self = x
+            x = pab_residual(pab, f"{self.site}.attn1", SPATIAL,
+                             lambda: self_attn(x_self)) + x
         if context is not None:
             ctx = context.reshape(b * f, -1, context.shape[-1])
-            x = self.attn2(self.norm2(x), context=ctx) + x
+            if pab is None:
+                x = self.attn2(self.norm2(x), context=ctx) + x
+            else:
+                x_cross = x
+                x = pab_residual(
+                    pab, f"{self.site}.attn2", CROSS,
+                    lambda: self.attn2(self.norm2(x_cross), context=ctx)) + x
         x = ln_ff_residual(self.norm3, self.ff, x)
         return x.reshape(b, f, h, w, c)
 
@@ -140,15 +196,24 @@ class BasicTransformerBlock3D(nn.Module):
         self.ff = FeedForward(dim)
         self.norm1 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
+        self.site = ""  # qualified name, the PAB cache's key
 
     def forward(self, x: torch.Tensor, fuse_out=None,
                 cond_frame: Optional[int] = None,
-                frames: Optional[FrameShard] = None) -> torch.Tensor:
+                frames: Optional[FrameShard] = None, pab=None) -> torch.Tensor:
         """``fuse_out = (proj_out, res)``: run the site tail in the FF
         kernel; the return value is then the site's final output."""
         b, f, h, w, c = x.shape
-        x = self.attn1(self.norm1(x), frames=frames).reshape(
-            b, f * h * w, c) + x.reshape(b, f * h * w, c)
+
+        def delta():
+            return self.attn1(self.norm1(x), frames=frames).reshape(
+                b, f * h * w, c)
+
+        if pab is not None:
+            delta_t = pab_residual(pab, f"{self.site}.attn1", TEMPORAL, delta)
+        else:
+            delta_t = delta()
+        x = delta_t + x.reshape(b, f * h * w, c)
         if cond_frame is None:
             cond_frame = self.cond_frame
         if frames is not None:
@@ -196,13 +261,14 @@ class SpatialTransformer3D(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 cond_frame: Optional[int] = None,
-                frames: Optional[FrameShard] = None) -> torch.Tensor:
+                frames: Optional[FrameShard] = None, pab=None,
+                tome=None) -> torch.Tensor:
         b, f, h, w, c = x.shape
         x_in = x
         x = self.proj_in(self.norm(x))
         block = self.transformer_blocks[0]
         if self.text_frame_condition:
-            x = block(x, context=context)
+            x = block(x, context=context, pab=pab, tome=tome)
         else:
             if cond_frame is None:
                 cond_frame = self.cond_frame
@@ -211,6 +277,6 @@ class SpatialTransformer3D(nn.Module):
                     and ln_geglu_ff_preferred(b * f * h * w, inner, inner * 4, x)):
                 # proj_out + the outer residual ride the FF kernel (K4)
                 return block(x, fuse_out=(self.proj_out, x_in), cond_frame=0,
-                             frames=frames)
-            x = block(x, cond_frame=cond_frame, frames=frames)
+                             frames=frames, pab=pab)
+            x = block(x, cond_frame=cond_frame, frames=frames, pab=pab)
         return self.proj_out(x) + x_in

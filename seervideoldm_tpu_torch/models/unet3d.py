@@ -16,6 +16,13 @@ cores and feed-forwards that the forward kept (``ops/remat.py``), so no
 forward attention or GEGLU kernel runs twice.  It is an attribute read at
 call time: one built model serves every policy.
 
+Sampling knobs: ``tome_ratio`` / ``tome_min_tokens`` / ``tome_sd`` (Token
+Merging at the spatial self-attention) and ``freeu`` ((b1, b2, s1, s2) at
+the two deepest up stages) are config fields read at every call, so
+replacing ``unet.config`` switches them on the same weights;
+``forward(..., pab=flags, pab_cache=cache)`` runs a Pyramid Attention
+Broadcast step (``diffusion/pab.py``; refused under remat).
+
 Under a registered ``seq`` axis the UNet takes and returns this rank's
 frames of a ``num_frames``-frame video (``parallel.activation``): convs,
 the VAE-side layers and the per-frame attention are frame-local, GroupNorm
@@ -55,6 +62,13 @@ class SeerUNetConfig:
     norm_eps: float = 1e-5
     cross_attention_dim: int = 768
     attention_head_dim: int = 8
+    # Token Merging (ops/tome.py): merge tome_ratio of the spatial tokens
+    # around the self-attention of blocks with >= tome_min_tokens; 0 = off
+    tome_ratio: float = 0.0
+    tome_min_tokens: int = 1024
+    tome_sd: int = 2
+    # FreeU (ops/freeu.py): (b1, b2, s1, s2); None = off
+    freeu: Optional[Sequence[float]] = None
 
 
 SEER_UNET_SD15_CONFIG = SeerUNetConfig()
@@ -111,6 +125,9 @@ class SeerUNet(nn.Module):
 
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
         self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
+        for name, m in self.named_modules():
+            if hasattr(m, "site"):
+                m.site = name
 
     def _block(self, block, *args, **kwargs):
         """One top-level block; under ``remat`` with gradients on, its
@@ -125,14 +142,26 @@ class SeerUNet(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor,
                 cond_frame: Optional[int] = None,
-                num_frames: Optional[int] = None) -> torch.Tensor:
+                num_frames: Optional[int] = None,
+                pab: Optional[dict] = None,
+                pab_cache: Optional[dict] = None) -> torch.Tensor:
         """sample (b, f, h, w, 4); timesteps (b,) or scalar; context
         (b, f, l, d) FSText embeddings; ``cond_frame``: the first frames
         whose temporal FF residual is skipped (None: the constructor's).
         Under ``seq``, sample and context hold this rank's frames of a
-        ``num_frames``-frame video (required there)."""
+        ``num_frames``-frame video (required there).  ``pab``: this step's
+        PAB flags (``diffusion.pab.mode_to_flags``), with the sampling
+        call's ``pab_cache`` dict."""
         cfg = self.config
         cf = self.cond_frame if cond_frame is None else int(cond_frame)
+        if pab is not None:
+            if self.remat:
+                raise ValueError("PAB is a sampling-time feature; build the "
+                                 "UNet with remat=False")
+            if pab_cache is None:
+                raise ValueError("PAB flags need the sampling call's "
+                                 "pab_cache dict")
+            pab = (pab, pab_cache)
         frames = None
         if seq_group() is not None:
             if num_frames is None:
@@ -144,6 +173,9 @@ class SeerUNet(nn.Module):
                 raise ValueError(
                     f"this rank holds frames {frames.start}..{frames.stop} "
                     f"of {num_frames}, but the sample has {sample.shape[1]}")
+        tome = ((float(cfg.tome_ratio), int(cfg.tome_min_tokens),
+                 int(cfg.tome_sd)) if cfg.tome_ratio > 0.0 else None)
+        knobs = dict(cond_frame=cf, frames=frames, pab=pab, tome=tome)
         dtype = self.conv_in.weight.dtype
         if cfg.center_input_sample:
             sample = 2 * sample - 1.0
@@ -160,22 +192,25 @@ class SeerUNet(nn.Module):
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock3D):
                 sample, states = self._block(block, sample, emb, context,
-                                             cond_frame=cf, frames=frames)
+                                             **knobs)
             else:
                 sample, states = self._block(block, sample, emb)
             res_states += states
 
-        sample = self._block(self.mid_block, sample, emb, context,
-                             cond_frame=cf, frames=frames)
+        sample = self._block(self.mid_block, sample, emb, context, **knobs)
 
-        for block in self.up_blocks:
+        for i, block in enumerate(self.up_blocks):
             k = len(block.resnets)
             states, res_states = res_states[-k:], res_states[:-k]
+            # FreeU at the two deepest up stages: (b1, s1), then (b2, s2)
+            freeu = None
+            if cfg.freeu is not None and i < 2:
+                freeu = (float(cfg.freeu[i]), float(cfg.freeu[i + 2]))
             if isinstance(block, CrossAttnUpBlock3D):
                 sample = self._block(block, sample, states, emb, context,
-                                     cond_frame=cf, frames=frames)
+                                     freeu=freeu, **knobs)
             else:
-                sample = self._block(block, sample, states, emb)
+                sample = self._block(block, sample, states, emb, freeu=freeu)
 
         sample = F.silu(self.conv_norm_out(sample))
         return self.conv_out(sample)

@@ -1,18 +1,21 @@
 """Down / mid / up blocks of the SeerUNet (port of
-``seervideoldm_tpu/models/unet_blocks.py``; FreeU left out).
+``seervideoldm_tpu/models/unet_blocks.py``).
 
 Each cross-attention layer runs ResnetBlock3D -> SpatialTransformer3D
 (per-frame spatial + text cross-attention) -> SpatialTransformer3D
 (temporal, causal).  Skip connections concatenate on the channel axis
 (last here).  ``cond_frame`` and ``frames`` (this rank's ``FrameShard``
 under ``seq``) are arguments of each attention block's ``forward``, handed
-down to its temporal sites.
+down to its temporal sites; so are the sampling knobs ``pab`` and
+``tome`` (``transformer3d.py``).  An up block's ``freeu = (b, s)`` applies
+FreeU (``ops/freeu.py``) before each skip concat.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
+from ..ops.freeu import apply_freeu
 from .resnet3d import Downsample3D, ResnetBlock3D, Upsample3D
 from .transformer3d import SpatialTransformer3D
 
@@ -25,6 +28,13 @@ def _site_pair(ch: int, heads: int, cross_dim: int, groups: int,
     temporal = SpatialTransformer3D(ch, heads, ch // heads, temporal=True,
                                     causal=causal, norm_num_groups=groups)
     return text, temporal
+
+
+def _skip_concat(x, res, freeu):
+    """Backbone and skip joined on channels, FreeU applied first."""
+    if freeu is not None:
+        x, res = apply_freeu(x, res, *freeu)
+    return torch.cat([x, res], dim=-1)
 
 
 class CrossAttnDownBlock3D(nn.Module):
@@ -51,13 +61,13 @@ class CrossAttnDownBlock3D(nn.Module):
             if add_downsample else [])
 
     def forward(self, x, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0, frames=None):
+                cond_frame: int = 0, frames=None, pab=None, tome=None):
         states = ()
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
             x = resnet(x, temb)
-            x = text(x, context=encoder_hidden_states)
-            x = temporal(x, cond_frame=cond_frame, frames=frames)
+            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome)
+            x = temporal(x, cond_frame=cond_frame, frames=frames, pab=pab)
             states += (x,)
         for down in self.downsamplers:
             x = down(x)
@@ -109,13 +119,13 @@ class UNetMidBlock3DCrossAttn(nn.Module):
             self.temporal_attentions.append(temporal)
 
     def forward(self, x, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0, frames=None):
+                cond_frame: int = 0, frames=None, pab=None, tome=None):
         x = self.resnets[0](x, temb)
         for text, temporal, resnet in zip(self.attentions,
                                           self.temporal_attentions,
                                           self.resnets[1:]):
-            x = text(x, context=encoder_hidden_states)
-            x = temporal(x, cond_frame=cond_frame, frames=frames)
+            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome)
+            x = temporal(x, cond_frame=cond_frame, frames=frames, pab=pab)
             x = resnet(x, temb)
         return x
 
@@ -146,14 +156,15 @@ class CrossAttnUpBlock3D(nn.Module):
             [Upsample3D(out_channels, out_channels)] if add_upsample else [])
 
     def forward(self, x, res_states, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0, frames=None):
+                cond_frame: int = 0, frames=None, pab=None, tome=None,
+                freeu=None):
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
-            x = torch.cat([x, res_states[-1]], dim=-1)
+            x = _skip_concat(x, res_states[-1], freeu)
             res_states = res_states[:-1]
             x = resnet(x, temb)
-            x = text(x, context=encoder_hidden_states)
-            x = temporal(x, cond_frame=cond_frame, frames=frames)
+            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome)
+            x = temporal(x, cond_frame=cond_frame, frames=frames, pab=pab)
         for up in self.upsamplers:
             x = up(x)
         return x
@@ -175,9 +186,9 @@ class UpBlock3D(nn.Module):
         self.upsamplers = nn.ModuleList(
             [Upsample3D(out_channels, out_channels)] if add_upsample else [])
 
-    def forward(self, x, res_states, temb=None):
+    def forward(self, x, res_states, temb=None, freeu=None):
         for resnet in self.resnets:
-            x = torch.cat([x, res_states[-1]], dim=-1)
+            x = _skip_concat(x, res_states[-1], freeu)
             res_states = res_states[:-1]
             x = resnet(x, temb)
         for up in self.upsamplers:

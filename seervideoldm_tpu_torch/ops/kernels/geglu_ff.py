@@ -98,11 +98,18 @@ def ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2):
 
 
 def ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2, b2, w3, b3, res):
-    """``_ln_proj_reference``: LN/FF/residual, then the 1x1 proj_out
-    (fp32 accumulate, bf16 bias add) and the outer residual."""
+    """``_ln_proj_reference``: LN/FF/residual, then the 1x1 proj_out (fp32
+    accumulate) with its bias and the outer residual added in fp32 and
+    rounded once (the TPU body rounds z and each add; see
+    ``csrc/geglu_ff.cu``)."""
     y = ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2)
-    z = torch.matmul(y.float(), w3.to(y.dtype).float().t()).to(x.dtype)
-    return (z + b3.to(x.dtype)) + res
+    return _proj_tail(y, w3, b3, res)
+
+
+def _proj_tail(y, w3, b3, res):
+    """``bf16((y W3^T + b3) + res)``, fp32 throughout."""
+    z = torch.matmul(y.float(), w3.to(y.dtype).float().t())
+    return ((z + b3.float()) + res.float()).to(y.dtype)
 
 
 def geglu_up_plain(x, gamma, beta, w1, b1, ln):
@@ -119,16 +126,15 @@ def geglu_up_plain(x, gamma, beta, w1, b1, ln):
 
 def geglu_down_plain(a, w2, b2, x, w3, b3, res, mode):
     """The down kernel's plain version: ``bf16(a W2) + b2``; mode 1 adds
-    ``x``; mode 2 adds ``x`` and applies the proj_out tail (fp32
-    accumulate, bf16 bias add, + ``res``)."""
+    ``x``; mode 2 adds ``x`` and applies the proj_out tail (``_proj_tail``:
+    fp32 accumulate, + b3, + ``res``, one rounding)."""
     out = torch.matmul(a, w2.t()).to(a.dtype) + b2.to(a.dtype)
     if mode == 0:
         return out
     y = out + x
     if mode == 1:
         return y
-    z = torch.matmul(y.float(), w3.to(y.dtype).float().t()).to(x.dtype)
-    return (z + b3.to(x.dtype)) + res
+    return _proj_tail(y, w3, b3, res)
 
 
 def covers(mode: int, n: int, c: int, inner: int) -> bool:

@@ -8,7 +8,9 @@ port's trainer and the JAX package's exporter write).  Pretrained SD-1.5
 and CLIP checkpoints are not loaded yet (``config.py`` refuses a config
 that names one).  ``model_overrides`` (YAML dicts under ``unet`` / ``vae``
 / ``clip`` / ``fstext``) scale the sub-models down for smoke runs, with the
-JAX package's keys.
+JAX package's keys; the top-level ``tome_ratio`` / ``tome_min_tokens`` and
+``freeu`` go into the UNet config unless ``model_overrides.unet`` names
+the same key (``unet_config_from``).
 
 ``load_models(mesh=...)`` registers the mesh for the model code
 (``parallel.activation``) and the ``ring_attention`` key (``ops/ring.py``),
@@ -17,6 +19,7 @@ masters) to every rank, so all ranks start from the same values.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -67,6 +70,24 @@ def _broadcast_flat(tensors) -> None:
                 t.copy_(src.view_as(t))
 
 
+def unet_config_from(cfg: Config) -> SeerUNetConfig:
+    """The UNet config: ``model_overrides.unet`` over the defaults, then
+    the top-level ToMe / FreeU knobs where the overrides do not set them
+    (presence decides: an explicit ``tome_ratio: 0.0`` override stays)."""
+    over = (cfg.model_overrides or {}).get("unet") or {}
+    unet = SeerUNetConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in over.items()})
+    if float(cfg.tome_ratio or 0.0) > 0.0 and "tome_ratio" not in over:
+        tome_min = (unet.tome_min_tokens if "tome_min_tokens" in over
+                    else int(cfg.tome_min_tokens or 1024))
+        unet = dataclasses.replace(unet, tome_ratio=float(cfg.tome_ratio),
+                                   tome_min_tokens=tome_min)
+    if cfg.freeu is not None and "freeu" not in over:
+        unet = dataclasses.replace(unet,
+                                   freeu=tuple(float(v) for v in cfg.freeu))
+    return unet
+
+
 def load_models(cfg: Config, device=None, trainable_scope=None, mesh=None):
     """``(SeerModels, tokenizer)`` at the config's widths on ``device``;
     ``trainable_scope`` builds them for training (fp32 masters, remat).
@@ -84,7 +105,7 @@ def load_models(cfg: Config, device=None, trainable_scope=None, mesh=None):
 
     models = SeerModels.initialize(
         num_frames=cfg.num_frames,
-        unet_config=sub(SeerUNetConfig, "unet"),
+        unet_config=unet_config_from(cfg),
         vae_config=sub(VAEConfig, "vae"),
         clip_config=sub(CLIPTextConfig, "clip"),
         fstext_kwargs=overrides.get("fstext"),

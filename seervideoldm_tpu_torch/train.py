@@ -40,6 +40,7 @@ import torch
 
 from .config import Config, config_from_dict, parse_args
 from .data import DataLoader, build_dataset
+from .diffusion.schedules import DiffusionSchedule
 from .io.checkpoint import CheckpointManager
 from .parallel.distributed import (assert_replicas_equal, barrier_sync,
                                    initialize_distributed, is_main_process)
@@ -93,8 +94,12 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         accumulation_steps=accum)
     use_ema = float(cfg.ema_decay) > 0.0
     state = TrainState.create(optimizer, ema=use_ema)
+    # the SD-1.5 training schedule, zero-terminal-SNR rescaled under the
+    # recipe (config.validate requires v-prediction with it)
     train_step = make_train_step(
         models, cond_frames=int(cfg.cond_frames),
+        schedule=DiffusionSchedule.sd15_train_schedule(
+            rescale_zero_snr=bool(cfg.rescale_zero_snr)),
         prediction_type=cfg.prediction_type, text_loss=bool(cfg.text_loss),
         ema_decay=float(cfg.ema_decay), snr_gamma=float(cfg.snr_gamma))
     prepare = prepare_batch_fn(

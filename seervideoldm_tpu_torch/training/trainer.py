@@ -8,7 +8,9 @@ One micro-step follows the reference hot loop:
 3. the UNet predicts eps with ``cond_frame = cond_frames`` (training-only
    behaviour: the temporal FF residual skips the cond frames);
 4. the cond frames are sliced off the prediction; fp32 squared error
-   against the noise, optional FSText ``text_loss`` and min-SNR-gamma;
+   against the noise (or, for ``prediction_type="v_prediction"``, the
+   velocity ``get_velocity``), optional FSText ``text_loss`` and
+   min-SNR-gamma;
 5. ``Optimizer.update``: running-mean accumulation, global-norm clip,
    AdamW, at the sync micro-step; then the EMA.
 
@@ -40,7 +42,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..diffusion.ddpm import add_noise, min_snr_weight
+from ..diffusion.ddpm import add_noise, get_velocity, min_snr_weight
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.vae import VAE_SCALE
 from ..parallel.activation import (frame_local, frame_shard,
@@ -153,9 +155,8 @@ def make_train_step(models: SeerModels,
     they are handed in.  ``train_step.loss_and_grads(names, batch, noise,
     timesteps)`` is the differentiated part alone: ``(loss, mse, {name:
     fp32 gradient})``."""
-    if prediction_type != "epsilon":
-        raise ValueError(f"prediction_type {prediction_type!r} is not ported "
-                         "yet (supported: 'epsilon')")
+    if prediction_type not in ("epsilon", "v_prediction"):
+        raise ValueError(f"unknown prediction type {prediction_type!r}")
     train_schedule = schedule or DiffusionSchedule.sd15_train_schedule()
     dev = models.unet.conv_in.weight.device
     acp = torch.as_tensor(train_schedule.alphas_cumprod, device=dev)
@@ -173,14 +174,16 @@ def make_train_step(models: SeerModels,
             loss_text = ((context.mean(dim=1) - batch["clip_emb"]) ** 2).mean()
         latents = batch["latents"]
         noisy = add_noise(acp, latents, noise, timesteps)
+        target = (noise if prediction_type == "epsilon"
+                  else get_velocity(acp, latents, noise, timesteps))
         x_in = torch.cat([batch["latents_x0"], noisy], dim=1)
         shard = frame_shard(x_in.shape[1])
         if shard is not None:
-            return _shard_loss(x_in, noise, timesteps, context, loss_text,
+            return _shard_loss(x_in, target, timesteps, context, loss_text,
                                shard)
         pred = unet(x_in, timesteps, context, cond_frame=cond_frames)
         pred = pred[:, cond_frames:]
-        se = (pred.float() - noise.float()) ** 2
+        se = (pred.float() - target.float()) ** 2
         mse = se.mean()
         if snr_gamma > 0.0:
             # min-SNR-gamma: per-sample MSE weighted by the clamped SNR; the
@@ -191,18 +194,18 @@ def make_train_step(models: SeerModels,
             loss = mse
         return loss + loss_text, mse
 
-    def _shard_loss(x_in, noise, timesteps, context, loss_text, shard):
+    def _shard_loss(x_in, target, timesteps, context, loss_text, shard):
         """This rank's frames through the UNet; the squared error of its
-        future frames summed, over the global counts."""
+        future frames against ``target`` summed, over the global counts."""
         lo, hi = shard.start, shard.stop
         pred = unet(x_in[:, lo:hi], timesteps, context[:, lo:hi],
                     cond_frame=cond_frames, num_frames=shard.total)
         first = max(lo, cond_frames)
         pred = pred[:, first - lo:]
-        target = noise[:, first - cond_frames:hi - cond_frames]
-        se = (pred.float() - target.float()) ** 2
-        b = noise.shape[0]
-        per_sample = se.reshape(b, -1).sum(dim=1) / noise[0].numel()
+        mine = target[:, first - cond_frames:hi - cond_frames]
+        se = (pred.float() - mine.float()) ** 2
+        b = target.shape[0]
+        per_sample = se.reshape(b, -1).sum(dim=1) / target[0].numel()
         mse = per_sample.mean()
         if snr_gamma > 0.0:
             w = min_snr_weight(acp, timesteps, snr_gamma, prediction_type)

@@ -4,7 +4,9 @@
   included: ``train``, ``training/``, ``data/``, ``io/checkpoint``,
   ``diffusion/ddpm``; the parallel slice's: ``parallel/``, ``ops/ring``;
   the floor-budget slice's: ``tools/``, ``ops/kernels/softmax_calib``,
-  ``ops/remat``, ``utils/flops``, ``utils/profiling``)
+  ``ops/remat``, ``utils/flops``, ``utils/profiling``; the sampling-knob
+  slice's: ``diffusion/dpm_solver``, ``diffusion/pab``, ``ops/tome``,
+  ``ops/freeu`` and the ``inference`` and ``edit`` entries)
   and the root ``chip_smoke.py`` import in a fresh
   interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
   ``seervideoldm_tpu`` cannot be imported;
@@ -65,6 +67,26 @@ def test_boundary_walk_reaches_the_parallel_modules():
                 "parallel.collectives", "parallel.activation",
                 "parallel.launch", "ops.ring", "ops.kernels.swat_attention"):
         assert f"seervideoldm_tpu_torch.{mod}" in names, mod
+
+
+def test_boundary_walk_reaches_the_sampling_knob_modules():
+    names = set(_port_modules())
+    for mod in ("diffusion.dpm_solver", "diffusion.pab", "ops.tome",
+                "ops.freeu", "inference", "edit", "inference_img"):
+        assert f"seervideoldm_tpu_torch.{mod}" in names, mod
+
+
+def test_new_entries_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid here")
+    from seervideoldm_tpu_torch import edit, inference
+
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("resolution: 32\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.main(["--config", str(cfg)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        edit.main(["--config", str(cfg), "--video_path", "unused.gif"])
 
 
 def test_port_imports_with_jax_blocked():

@@ -128,8 +128,9 @@ def test_image_to_model_input_matches_jax():
 
 def test_config_reads_shipped_yaml_like_jax():
     """The shipped inference config loads with the JAX package's values
-    (unknown keys kept as extras); a config asking for an option this
-    slice does not run is refused."""
+    (unknown keys kept as extras); so does ``configs/serve.yaml``, which
+    turns PAB on, with the JAX ``load_config``'s ``pab*`` fields and
+    ``PABConfig``."""
     from seervideoldm_tpu.config import load_config as jax_load
     from seervideoldm_tpu_torch.config import Config, load_config
 
@@ -139,8 +140,16 @@ def test_config_reads_shipped_yaml_like_jax():
         if name != "extras":
             assert getattr(got, name) == want.get(name), name
     assert got.get("num_samples") == want.get("num_samples") == 4
-    with pytest.raises(ValueError, match="pab"):
-        load_config(os.path.join(ROOT, "configs", "serve.yaml"))
+    from seervideoldm_tpu.config import pab_config_from as jax_pab
+    from seervideoldm_tpu_torch.config import pab_config_from
+
+    serve = os.path.join(ROOT, "configs", "serve.yaml")
+    got, want = load_config(serve), jax_load(serve)
+    assert got.pab is True
+    for name in ("pab", "pab_spatial_range", "pab_cross_range",
+                 "pab_temporal_range", "pab_window"):
+        assert getattr(got, name) == want.get(name), name
+    assert vars(pab_config_from(got)) == vars(jax_pab(want))
 
 
 def _meta(cls):

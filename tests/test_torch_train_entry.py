@@ -174,7 +174,7 @@ def test_train_entry_defaults_to_cuda(tmp_path):
     ("use_8bit_adam", True), ("lora_rank", 4), ("zero1", True),
     ("fsdp", True), ("mesh_shape", {"data": 2, "model": 2}),
     ("remat", "bogus"),
-    ("prediction_type", "v_prediction"), ("rescale_zero_snr", True),
+    ("param_dtype", "bfloat16"), ("center_crop", False),
     ("pretrained_model_name_or_path", "/models/sd15"),
     ("fstext_init_ckpt", "fstext.bin"), ("push_to_hub", True)])
 def test_config_refuses_what_is_not_ported(key, value):

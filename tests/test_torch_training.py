@@ -294,29 +294,37 @@ def test_prepare_batch_matches_jax(slice_case):
     assert not torch.allclose(a["latents"], got["latents"])
 
 
-@pytest.mark.parametrize("text_loss,snr_gamma", [(False, 0.0), (True, 5.0)])
-def test_one_step_loss_and_gradients_match_jax(slice_case, text_loss,
-                                               snr_gamma):
-    """loss, mse, grad_norm and every trainable gradient of one micro-step.
-    The JAX gradients are read exactly from the state of ``optax.trace(0)``
-    (its trace after one update is the gradient).  Tolerance: 1e-5 abs on
-    loss and mse (values ~ 1); per gradient tensor 1e-4 rel + 2e-5 of the
-    tensor's largest entry (at least 2e-5 abs): fp32 summation order, and
-    with ``text_loss`` FSText gradients reach 1e3."""
-    c = slice_case
+def step_vs_jax(c, text_loss=False, snr_gamma=0.0,
+                prediction_type="epsilon", rescale_zero_snr=False):
+    """One micro-step of the JAX trainer and of the port on ``c``'s
+    weights, batch, noise and timesteps: loss, mse, grad_norm and every
+    trainable gradient held at the bounds of
+    ``test_one_step_loss_and_gradients_match_jax``.  The JAX gradients are
+    read exactly from the state of ``optax.trace(0)`` (its trace after one
+    update is the gradient).  Returns the port's loss."""
+    from seervideoldm_tpu.diffusion.schedules import (
+        DiffusionSchedule as JSchedule)
+    from seervideoldm_tpu_torch.diffusion.schedules import DiffusionSchedule
+
     tx = optax.trace(decay=0.0)
     state = jtrainer.TrainState.create(
         jax.tree_util.tree_map(jnp.copy, c["trainable"]), tx)
     step = jtrainer.make_train_step(
         c["jm"], tx, cond_frames=COND, frozen_params=c["frozen"],
-        text_loss=text_loss, snr_gamma=snr_gamma)
+        text_loss=text_loss, snr_gamma=snr_gamma,
+        prediction_type=prediction_type,
+        schedule=JSchedule.sd15_train_schedule(
+            rescale_zero_snr=rescale_zero_snr))
     key = jax.random.PRNGKey(4)
     state, jmetrics = step(state, c["jbatch"], key)
     jgrads = jax.tree_util.tree_map(np.asarray, state.opt_state.trace)
 
     models = _port_models(c["jparams"])
-    tstep = ttrainer.make_train_step(models, cond_frames=COND,
-                                     text_loss=text_loss, snr_gamma=snr_gamma)
+    tstep = ttrainer.make_train_step(
+        models, cond_frames=COND, text_loss=text_loss, snr_gamma=snr_gamma,
+        prediction_type=prediction_type,
+        schedule=DiffusionSchedule.sd15_train_schedule(
+            rescale_zero_snr=rescale_zero_snr))
     noise, ts = _jax_draws(key, 0, c["jbatch"]["latents"].shape, 2)
     names = list(models.masters)
     loss, mse, grads = tstep.loss_and_grads(names, _tbatch(c["jbatch"]),
@@ -338,6 +346,17 @@ def test_one_step_loss_and_gradients_match_jax(slice_case, text_loss,
     gnorm = toptim.global_norm([grads[n] for n in names])
     np.testing.assert_allclose(float(gnorm), float(jmetrics["grad_norm"]),
                                rtol=1e-4)
+    return float(loss)
+
+
+@pytest.mark.parametrize("text_loss,snr_gamma", [(False, 0.0), (True, 5.0)])
+def test_one_step_loss_and_gradients_match_jax(slice_case, text_loss,
+                                               snr_gamma):
+    """loss, mse, grad_norm and every trainable gradient of one micro-step.
+    Tolerance: 1e-5 abs on loss and mse (values ~ 1); per gradient tensor
+    1e-4 rel + 2e-5 of the tensor's largest entry (at least 2e-5 abs): fp32
+    summation order, and with ``text_loss`` FSText gradients reach 1e3."""
+    step_vs_jax(slice_case, text_loss, snr_gamma)
 
 
 def test_two_optimizer_steps_with_accumulation_and_ema_match_jax(slice_case):
@@ -463,9 +482,15 @@ def test_cond_frame_at_call_time_equals_constructor(slice_case):
 
 
 def test_train_step_refuses_missing_ema_and_v_prediction(slice_case):
+    """An EMA without its state is refused; v-prediction, refused before it
+    was ported, now trains against ``get_velocity``: one micro-step against
+    the JAX trainer's at the bounds of the eps step, and another loss than
+    the eps step's on the same draws."""
+    v_loss = step_vs_jax(slice_case, prediction_type="v_prediction")
+    assert abs(v_loss - step_vs_jax(slice_case)) > 1e-4
     models = _port_models(slice_case["jparams"])
-    with pytest.raises(ValueError, match="not ported"):
-        ttrainer.make_train_step(models, prediction_type="v_prediction")
+    with pytest.raises(ValueError, match="unknown prediction type"):
+        ttrainer.make_train_step(models, prediction_type="x0")
     opt, _ = toptim.build_optimizer(ttrainer.trainable_masters(models), 1e-3)
     state = ttrainer.TrainState.create(opt, ema=False)
     step = ttrainer.make_train_step(models, cond_frames=COND, ema_decay=0.9)

@@ -1,5 +1,6 @@
 """Rank functions for the multi-process CPU tests of the port's parallel
-layer (``tests/test_torch_parallel.py``, ``tests/test_torch_ring.py``).
+layer (``tests/test_torch_parallel.py``, ``tests/test_torch_ring.py``) and
+of the sampling knobs under ``seq`` (``tests/test_torch_samplers.py``).
 
 Started by ``seervideoldm_tpu_torch.parallel.launch.run`` in fresh spawned
 processes on the gloo backend, so this module imports torch and the port
@@ -211,3 +212,32 @@ def train_cases(rank, sizes, jparams, batch, cases):
     if rank != 0:
         return {name: {"checksum": r["checksum"]} for name, r in out.items()}
     return out
+
+
+def knob_cases(rank, unet_kwargs, jparams, sent, cases, mesh_shape):
+    """``SeerPipeline.sample_latents`` (5 steps, CFG 7.5) with each case's
+    sampling knobs on the tiny SeerUNet, under ``mesh_shape`` (None: one
+    rank); ``pab`` is a (spatial, cross, temporal) range triple.  Returns
+    the whole latents, which every rank holds, from rank 0."""
+    from types import SimpleNamespace
+
+    from seervideoldm_tpu_torch.diffusion.pab import PABConfig
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet, SeerUNetConfig
+    from seervideoldm_tpu_torch.pipelines.text_video import SeerPipeline
+
+    unet = load_jax_params(SeerUNet(SeerUNetConfig(**unet_kwargs)).eval(),
+                           jparams)
+    set_activation_mesh(create_mesh(mesh_shape))
+    pipe = SeerPipeline(SimpleNamespace(unet=unet))
+    out = {}
+    for name, case in cases.items():
+        kw = dict(case)
+        if "pab" in kw:
+            kw["pab_config"] = PABConfig(*kw.pop("pab"))
+        with torch.no_grad():
+            out[name] = pipe.sample_latents(
+                _t(sent["x_T"]), _t(sent["x0"]), _t(sent["ctx"]),
+                _t(sent["unc"]), ddim_steps=5, guidance_scale=7.5,
+                **kw).numpy()
+    set_activation_mesh(None)
+    return out if rank == 0 else None
