@@ -82,6 +82,32 @@ no result line):
    counts the UNet calls, checks the frames (finite, the expected shape,
    in [0, 1]) and prints a ``sampling_knobs`` line: run, UNet calls,
    seconds per clip, peak GB, launches;
+6c. pretrained: a full-width SD-1.5 diffusers directory written to a
+   temporary directory from a seeded random-init set of the port's
+   modules, under a real download's names (``vae/`` fp32 ``.bin`` with
+   diffusers' newer attention names, ``text_encoder/model.safetensors``
+   with ``position_ids``, ``unet/`` fp16 safetensors with the 2D keys
+   only) and an FSText ``.bin``, ~3.3 GB, written by the port's own
+   safetensors writer (bytes and seconds printed, the directory deleted
+   at the end); loaded through ``load_models`` on the card with another
+   seed: every loaded tensor equals its source cast to the module's
+   dtype bit for bit, the 320 temporal-attention keys equal the new
+   seed's fresh values; then one 256 px, 12-frame, DDIM 30 clip from the
+   loaded models, launches zeroed just before and read just after
+   (``PER_STEP`` x 31); a ``pretrained`` line (load seconds, peak GB,
+   launches);
+6d. eval: the ``eval`` entry through ``main(argv)`` from
+   ``configs/eval.yaml`` with ``--set`` overrides only: a synthetic
+   Sthv2 val tree of 4 clips, ``MAX_FVD_BATCH`` 2 (the bucket flushes
+   twice), IS with ``is_cast_frames``, CLIPSIM, an I3D ``.pt`` in the
+   reference's names, a chainer C3D ``.npz`` + ``mean2.npz`` and a whole
+   HF ``CLIPModel`` at ViT-L/14 width (fp16 safetensors, ~0.9 GB), all
+   written from seeds; FVD, KVD, IS and CLIPSIM finite (random-weight
+   values), 31 x 4 UNet calls and ``PER_STEP`` x those launches; then
+   I3D, C3D and the CLIP ViT built from the same files on the card
+   against copies in fp32 on the CPU, on the videos the run scored
+   (relative L2 <= 1e-3); an ``eval`` line (seconds per clip for
+   sampling and for each scorer, the metrics, peak GB, launches);
 7. training: the port's ``train`` entry at the same full width on a
    synthetic Something-Something-v2 tree written from a numpy seed to a
    temporary directory: 256 px, 12 frames, 2 cond frames, batch 1,
@@ -122,10 +148,10 @@ no result line):
    ``save_attn`` and ``block``): ``save_attn`` launches the forward kernels
    as often as ``none``, ``block`` more;
 10. prints the ``kernels`` line (each kernel's ``launches`` summed over
-    phases 6, 6b, 7, 8 and 9, with each phase's own count beside it:
-    ``sampling_launches``, ``knobs_launches``, ``training_launches``,
-    ``parallel_launches``, ``floor_budget_launches``), the card line and
-    the result line.
+    phases 6, 6b, 6c, 6d, 7, 8 and 9, with each phase's own count beside
+    it: ``sampling_launches``, ``knobs_launches``, ``pretrained_launches``,
+    ``eval_launches``, ``training_launches``, ``parallel_launches``,
+    ``floor_budget_launches``), the card line and the result line.
 
 ``--profile PATH`` adds where one full-width DDIM step's time goes (one
 SeerUNet call's CUDA kernel time by category and the device busy share, a
@@ -1599,6 +1625,365 @@ def write_synthetic_sthv2(root: str, clips: int, frames: int, res: int) -> None:
                                         quality=90)
 
 
+# ------------------------------------------------- pretrained and eval
+
+EVAL_CLIPS = 4
+EVAL_CHECK_RTOL = 1e-3     # scorers on the card vs fp32 on the CPU, rel L2
+
+
+def _seeded_on_card(seed: int, *builders):
+    """Modules built on the card in fp32 with the global generators seeded
+    (and restored after)."""
+    import torch
+
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(seed)
+        return [build().eval() for build in builders]
+
+
+def _file_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def write_sd15_dir(root: str, seed: int) -> dict:
+    """A full-width SD-1.5 diffusers directory and an FSText ``.bin`` from
+    a seeded random-init set of the port's modules, under the names a real
+    download uses: ``vae/diffusion_pytorch_model.bin`` (fp32, the newer
+    attention names), ``text_encoder/model.safetensors`` (fp32, with
+    ``position_ids``), ``unet/diffusion_pytorch_model.safetensors`` (fp16,
+    the 2D keys only: the ``fp16`` variant layout), ``fstext.bin`` (fp32).
+    Returns the tensors written, by module, under the port's names (CPU)."""
+    import torch
+
+    from seervideoldm_tpu_torch.io.pretrained import NEWER_VAE_NAMES
+    from seervideoldm_tpu_torch.io.state_dict import write_safetensors
+    from seervideoldm_tpu_torch.models.clip_text import CLIPTextModel
+    from seervideoldm_tpu_torch.models.fstext import FSTextTransformer
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet
+    from seervideoldm_tpu_torch.models.vae import AutoencoderKL
+
+    mods = _seeded_on_card(seed, AutoencoderKL, CLIPTextModel, SeerUNet,
+                           lambda: FSTextTransformer(
+                               num_frames=12, in_channels=768,
+                               out_channels=768, cross_attention_dim=768))
+    src = {}
+    for key, m in zip(("vae", "clip", "unet", "fstext"), mods):
+        src[key] = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    del mods
+    src["unet"] = {k: v.half() for k, v in src["unet"].items()
+                   if "temporal_attentions" not in k
+                   and not k.endswith("rotary_emb.freqs")}
+    for d in ("vae", "text_encoder", "unet"):
+        os.makedirs(os.path.join(root, d))
+    newer = {}
+    for k, v in src["vae"].items():
+        for new, old in NEWER_VAE_NAMES.items():
+            k = k.replace(f"mid_block.attentions.0.{old}.",
+                          f"mid_block.attentions.0.{new}.")
+        newer[k] = v
+    torch.save(newer, os.path.join(root, "vae", "diffusion_pytorch_model.bin"))
+    write_safetensors(
+        {**src["clip"],
+         "text_model.embeddings.position_ids": torch.arange(77)[None]},
+        os.path.join(root, "text_encoder", "model.safetensors"))
+    write_safetensors(src["unet"], os.path.join(
+        root, "unet", "diffusion_pytorch_model.safetensors"),
+        metadata={"format": "pt"})
+    torch.save(src["fstext"], os.path.join(root, "fstext.bin"))
+    return src
+
+
+def phase_pretrained(card: str) -> dict:
+    """Phase 6c: a full-width diffusers directory written from seeded
+    tensors, loaded through ``load_models`` on the card with another seed
+    (bit-exact against the files; the temporal attentions equal the new
+    seed's fresh values), then one 256 px clip sampled from the loaded
+    models.  Returns that clip's launches."""
+    import numpy as np
+    import torch
+
+    from seervideoldm_tpu_torch.config import (config_from_dict,
+                                               sampler_schedule_from)
+    from seervideoldm_tpu_torch.inference_img import generate_video
+    from seervideoldm_tpu_torch.ops.rotary import inv_freq
+    from seervideoldm_tpu_torch.pipelines.loading import load_models
+    from seervideoldm_tpu_torch.pipelines.text_video import SeerPipeline
+
+    base = dict(resolution=256, cond_frames=2, num_frames=12,
+                ddim_steps=E2E_STEPS, scale=7.5, seed=SEED + 6,
+                mixed_precision="bf16", compute_dtype="bfloat16")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sd15_")
+    try:
+        t0 = time.perf_counter()
+        src = write_sd15_dir(tmp, SEED + 5)
+        write_s, nbytes = time.perf_counter() - t0, _file_bytes(tmp)
+        print(json.dumps({"pretrained_write": {"bytes": nbytes,
+                                               "seconds": write_s}}),
+              flush=True)
+        cfg = config_from_dict(dict(
+            base, pretrained_model_name_or_path=tmp,
+            fstext_init_ckpt=os.path.join(tmp, "fstext.bin")))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        models, tok = load_models(cfg, torch.device("cuda"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fresh_models, _ = load_models(config_from_dict(base), torch.device(
+            "cuda"))
+        loaded, fresh = 0, []
+        for key in ("vae", "clip", "unet", "fstext"):
+            seeded = getattr(fresh_models, key).state_dict()
+            for k, v in getattr(models, key).state_dict().items():
+                if k.endswith("rotary_emb.freqs"):
+                    want, what = inv_freq(2 * v.shape[0]).cuda(), "analytic"
+                elif k in src[key]:
+                    want, what = src[key][k].cuda().to(v.dtype), "the file"
+                    loaded += 1
+                else:
+                    want, what = seeded[k], "the new seed's fresh value"
+                    fresh.append(f"{key}.{k}")
+                require(v.dtype == want.dtype and torch.equal(v, want),
+                        f"pretrained: {key}.{k} differs from {what}")
+        del fresh_models
+        require(len(fresh) + sum(k.endswith("rotary_emb.freqs")
+                                 for k in models.unet.state_dict()) == 320
+                and all(k.startswith("unet.") and "temporal_attentions" in k
+                        for k in fresh),
+                f"pretrained: {len(fresh)} fresh tensors outside the "
+                "320 temporal-attention keys")
+        peak_load = _peak_gb()
+
+        pipe = SeerPipeline(models, schedule=sampler_schedule_from(cfg),
+                            vae_scale=float(cfg.vae_scale))
+        image = np.random.RandomState(SEED + 5).randint(0, 256, (256, 256, 3),
+                                                        dtype=np.uint8)
+        steps = len(pipe.schedule.ddim_tables(E2E_STEPS).timesteps)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with observe_sampling() as seen:
+            samples, _ = generate_video(pipe, tok, cfg, image,
+                                        "push the green cup to the left")
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+        launches = read_launches()
+        _check_frames("pretrained", samples, (1, 10, 256, 256, 3))
+        print(json.dumps({"pretrained": {
+            "card": card, "bytes_written": nbytes, "write_seconds": write_s,
+            "load_seconds": load_s, "tensors_loaded": loaded,
+            "tensors_fresh": len(fresh), "peak_mem_gb_load": peak_load,
+            "unet_calls": seen["unet_calls"], "s_per_clip": clip_s,
+            "peak_mem_gb": _peak_gb(), "launches": launches}}), flush=True)
+        require(seen["unet_calls"] == steps,
+                f"pretrained: {seen['unet_calls']} UNet calls, not {steps}")
+        for name, per_step in PER_STEP.items():
+            require(launches[name] == per_step * steps,
+                    f"pretrained: {name} launched {launches[name]} times, "
+                    f"expected {per_step} x {steps}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_i3d_pt(path: str, seed: int) -> None:
+    """Seeded I3D weights under the reference's names (with
+    ``num_batches_tracked``), He-scaled kernels, small biases."""
+    import numpy as np
+    import torch
+
+    from seervideoldm_tpu_torch.evaluation.i3d import InceptionI3d
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for k, v in InceptionI3d().state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("running_var"):
+            a = rng.rand(*shape) * 0.5 + 0.5
+            sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+        elif k.endswith("running_mean") or k.endswith("bias"):
+            a = rng.randn(*shape) * 0.1
+        elif k.endswith("bn.weight"):
+            a = rng.rand(*shape) * 0.5 + 0.75
+        else:
+            a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    torch.save(sd, path)
+
+
+def write_c3d_npz(npz_path: str, mean_path: str, seed: int) -> None:
+    """Seeded chainer-layout C3D weights and a UCF-101-like mean image."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    data = {}
+    for name, cin, cout in (("conv1a", 3, 64), ("conv2a", 64, 128),
+                            ("conv3a", 128, 256), ("conv3b", 256, 256),
+                            ("conv4a", 256, 512), ("conv4b", 512, 512),
+                            ("conv5a", 512, 512), ("conv5b", 512, 512)):
+        data[f"{name}/W"] = (rng.randn(cout, cin, 3, 3, 3)
+                             * np.sqrt(2.0 / (cin * 27))).astype(np.float32)
+        data[f"{name}/b"] = (rng.randn(cout) * 0.05).astype(np.float32)
+    for name, fin, fout in (("fc6", 8192, 4096), ("fc7", 4096, 4096),
+                            ("fc8", 4096, 101)):
+        data[f"{name}/W"] = (rng.randn(fout, fin)
+                             * np.sqrt(2.0 / fin)).astype(np.float32)
+        data[f"{name}/b"] = (rng.randn(fout) * 0.05).astype(np.float32)
+    np.savez(npz_path, **data)
+    np.savez(mean_path, mean=rng.uniform(80, 140, (3, 16, 120, 120)))
+
+
+def write_clip_model(path: str, seed: int) -> int:
+    """A whole HF ``CLIPModel`` state dict at ViT-L/14 width (vision tower,
+    text tower, both projections, ``position_ids``, ``logit_scale``), fp16
+    safetensors, from seeded port modules.  Returns the bytes written."""
+    import torch
+
+    from seervideoldm_tpu_torch.evaluation.clip_sim import (CLIPProjections,
+                                                            CLIPVisionModel)
+    from seervideoldm_tpu_torch.io.state_dict import write_safetensors
+    from seervideoldm_tpu_torch.models.clip_text import CLIPTextModel
+
+    sd = {}
+    for m in _seeded_on_card(seed, CLIPVisionModel, CLIPTextModel,
+                             CLIPProjections):
+        sd.update({k: v.detach().half() for k, v in m.state_dict().items()})
+    sd["vision_model.embeddings.position_ids"] = torch.arange(257)[None]
+    sd["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    sd["logit_scale"] = torch.tensor(4.6052, dtype=torch.float16)
+    return write_safetensors(sd, path, metadata={"format": "pt"})
+
+
+def _scorers_card_vs_cpu(cfg, videos) -> dict:
+    """I3D, C3D and the CLIP ViT built from the eval run's files on the
+    card and copied to the CPU, fp32 both (TF32 off), on the videos the
+    run scored: relative L2 of the logits / pooled features."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from seervideoldm_tpu_torch import eval as eval_entry
+    from seervideoldm_tpu_torch.data.transforms import resample_frames
+    from seervideoldm_tpu_torch.evaluation.clip_sim import preprocess_frames
+    from seervideoldm_tpu_torch.evaluation.fvd import preprocess_videos
+
+    card = torch.device("cuda")
+    x_i3d = preprocess_videos(videos).permute(0, 4, 1, 2, 3)
+    x_c3d = torch.from_numpy(np.stack(
+        [resample_frames(v, 16) for v in videos / 127.5 - 1.0]).astype(
+            np.float32))
+    vision = eval_entry.build_clip_sim(cfg, card)[0]
+    x_clip = preprocess_frames(torch.from_numpy(videos[0, -4:] / 255.0),
+                               vision.config.image_size)
+    out = {}
+    for name, module, x in (("i3d", eval_entry.build_i3d(cfg, card), x_i3d),
+                            ("c3d", eval_entry.build_c3d(cfg, card), x_c3d),
+                            ("clip_vit", vision, x_clip)):
+        cpu = copy.deepcopy(module).cpu()
+        with torch.no_grad():
+            got = module(x.to(card)).cpu()
+            want = cpu(x)
+        rel = _rel_l2(got, want)
+        out[name] = {"shape": list(x.shape), "rel_l2_err": rel}
+        require(bool(torch.isfinite(got).all()), f"eval: {name} non-finite "
+                "on the card")
+        require(rel <= EVAL_CHECK_RTOL, f"eval: {name} on the card vs the "
+                f"CPU, relative L2 {rel} > {EVAL_CHECK_RTOL}")
+        del module, cpu
+    return out
+
+
+def phase_eval(card: str) -> dict:
+    """Phase 6d: the ``eval`` entry through ``main(argv)`` from
+    ``configs/eval.yaml`` with ``--set`` overrides only, on a synthetic
+    Sthv2 val tree of ``EVAL_CLIPS`` clips, every scorer on with files
+    written from seeds; then the scorers on the card against the CPU.
+    Returns the run's launches."""
+    import torch
+
+    from seervideoldm_tpu_torch import eval as eval_entry
+    from seervideoldm_tpu_torch.config import load_config
+    from seervideoldm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from seervideoldm_tpu_torch.evaluation.fvd import FVDEvaluator
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        write_synthetic_sthv2(data, clips=EVAL_CLIPS, frames=14, res=256)
+        i3d = os.path.join(tmp, "i3d_pretrained_400.pt")
+        write_i3d_pt(i3d, SEED + 7)
+        c3d = os.path.join(tmp, "conv3d_deepnetA_ucf.npz")
+        write_c3d_npz(c3d, os.path.join(tmp, "mean2.npz"), SEED + 8)
+        clip = os.path.join(tmp, "clip_vit_l14.safetensors")
+        clip_bytes = write_clip_model(clip, SEED + 9)
+        setup_s = time.perf_counter() - t0
+        conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "eval.yaml")
+        sets = [f"data_dir={data}", f"output_dir={os.path.join(tmp, 'out')}",
+                "MAX_FVD_BATCH=2", "compute_is=true", "is_cast_frames=true",
+                "compute_clip_sim=true", f"i3d_ckpt={i3d}", f"c3d_ckpt={c3d}",
+                f"clip_sim_ckpt={clip}", "num_workers=1"]
+        argv = ["--config", conf] + [a for s in sets for a in ("--set", s)]
+        cfg = load_config(conf, sets)
+        steps = len(DiffusionSchedule.create(1000).ddim_tables(
+            cfg.ddim_steps).timesteps)
+        scored = []
+        embed = FVDEvaluator.embed
+
+        def recording(self, videos):
+            scored.append(videos)
+            return embed(self, videos)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        FVDEvaluator.embed = recording
+        t0 = time.perf_counter()
+        try:
+            with observe_sampling() as seen:
+                res = eval_entry.main(argv, device="cuda")
+        finally:
+            FVDEvaluator.embed = embed
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = _peak_gb()
+        metrics = {k: res[k] for k in ("fvd", "kvd", "is_mean", "is_std",
+                                       "clip_sim")}
+        require(all(math.isfinite(v) for v in metrics.values()),
+                f"eval: non-finite metrics {metrics}")
+        require(res["clips"] == EVAL_CLIPS and len(scored) == 4,
+                f"eval: {res['clips']} clips, {len(scored)} FVD embeddings "
+                f"(expected {EVAL_CLIPS} clips, 2 buckets of fake + real)")
+        require(tuple(scored[0].shape) == (2, 12, 256, 256, 3),
+                f"eval: FVD saw {tuple(scored[0].shape)}")
+        check = _scorers_card_vs_cpu(cfg, scored[0])
+        per_clip = {f"{k}_s_per_clip": v / res["clips"]
+                    for k, v in res["seconds"].items()}
+        print(json.dumps({"eval": {
+            "card": card, "clips": res["clips"], "unet_calls":
+            seen["unet_calls"], **per_clip, "run_seconds": run_s,
+            "setup_seconds": setup_s, "clip_file_bytes": clip_bytes,
+            "metrics_random_weights": metrics, "card_vs_cpu": check,
+            "tol": EVAL_CHECK_RTOL, "peak_mem_gb": peak,
+            "launches": launches}}), flush=True)
+        calls = steps * EVAL_CLIPS
+        require(seen["unet_calls"] == calls,
+                f"eval: {seen['unet_calls']} UNet calls, expected {calls}")
+        for name, per_step in PER_STEP.items():
+            require(launches[name] == per_step * calls,
+                    f"eval: {name} launched {launches[name]} times, "
+                    f"expected {per_step} x {calls}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_training(card: str, profile: str | None) -> dict:
     """The port's ``train`` entry at full SD-1.5 width on a synthetic
     Sthv2 tree, then sampling from the checkpoint it wrote."""
@@ -2339,6 +2724,10 @@ def main() -> int:
         knob_launches = phase_knobs(card, pipe, tok, cfg)
         del pipe
         torch.cuda.empty_cache()
+        pretrained_launches = phase_pretrained(card)
+        torch.cuda.empty_cache()
+        eval_launches = phase_eval(card)
+        torch.cuda.empty_cache()
         train_launches = phase_training(card, args.profile)
         par_launches = phase_parallel(card)
         k10_row, fb_launches = phase_floor_budget(card)
@@ -2350,16 +2739,19 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         row, shapes = rows[name][0], rows[name]
         # each path is driven with the counts zeroed just before and read
-        # just after; `launches` is the sum over the five paths (the
+        # just after; `launches` is the sum over the seven paths (the
         # parallel path's: rank 0's, summed over its runs; the knob
         # phase's: summed over its eight runs)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=(launches[name] + knob_launches[name]
+                      + pretrained_launches[name] + eval_launches[name]
                       + train_launches[name] + par_launches[name]
                       + fb_launches[name]),
             sampling_launches=launches[name],
             knobs_launches=knob_launches[name],
+            pretrained_launches=pretrained_launches[name],
+            eval_launches=eval_launches[name],
             training_launches=train_launches[name],
             parallel_launches=par_launches[name],
             floor_budget_launches=fb_launches[name],

@@ -1,5 +1,6 @@
 """YAML configuration, key-compatible with the JAX package's configs (the
-port's own copy, cut to the keys the sampling and training paths read),
+port's own copy, cut to the keys the sampling, training and evaluation
+paths read),
 with its ``pab_config_from``, ``sampler_schedule_from`` and
 ``sampling_kwargs_from``.
 
@@ -89,6 +90,17 @@ class Config:
     sample_iter: int = 1
     n_rows: int = 2
     val_batch_size: int = 1
+    # --- evaluation (the JAX package's keys and defaults) ---
+    compute_fvd: bool = True
+    MAX_FVD_BATCH: int = 32
+    compute_is: bool = False
+    MAX_IS_BATCH: int = 100
+    is_cast_frames: bool = False        # resample clips to C3D's 16 frames
+    i3d_ckpt: Optional[str] = None
+    c3d_ckpt: Optional[str] = None
+    c3d_mean_path: Optional[str] = None  # default: mean2.npz beside c3d_ckpt
+    compute_clip_sim: bool = False
+    clip_sim_ckpt: Optional[str] = None  # a local HF CLIPModel state dict
     image_path: Optional[str] = None
     input_text_prompts: Optional[str] = None
     model_overrides: Optional[dict] = None
@@ -162,12 +174,6 @@ def validate(cfg: Config) -> Config:
         if getattr(cfg, key) not in allowed:
             raise ValueError(f"{key}={getattr(cfg, key)!r} is not supported by "
                              f"the PyTorch port yet (supported: {allowed})")
-    if cfg.pretrained_model_name_or_path or cfg.fstext_init_ckpt:
-        raise ValueError("the PyTorch port starts from random weights made "
-                         "from a seed, or from a checkpoint its own trainer "
-                         "wrote (learned_unet_ckpt / saved_global_step); "
-                         "loading pretrained SD-1.5 / FSText weights is not "
-                         "ported yet")
     for key, what in (("zero1", "sharded optimizer state"),
                       ("fsdp", "sharded parameters and optimizer state")):
         if getattr(cfg, key):

@@ -43,14 +43,17 @@ from .utils.device import set_numerics
 from .utils.viz import save_visualization_onegif
 
 
-def build_pipeline(cfg: Union[Config, dict], device=None):
-    """``(SeerPipeline, tokenizer, cfg)`` for a config on ``device``."""
+def build_pipeline(cfg: Union[Config, dict], device=None,
+                   mesh: bool = True):
+    """``(SeerPipeline, tokenizer, cfg)`` for a config on ``device``.
+    ``mesh=False`` registers no mesh: each rank samples its own batches
+    (the eval entry's per-rank shard of the split)."""
     if isinstance(cfg, dict):
         cfg = config_from_dict(cfg)
     dev = initialize_distributed(device)
     set_numerics()
-    models, tokenizer = load_models(cfg, dev,
-                                    mesh=create_mesh(cfg.mesh_shape))
+    models, tokenizer = load_models(
+        cfg, dev, mesh=create_mesh(cfg.mesh_shape) if mesh else None)
     ckpt_dir = resolve_finetuned_dir(cfg)
     if ckpt_dir:
         load_finetuned(models, ckpt_dir)

@@ -2,11 +2,15 @@
 ``model_overrides`` and ``load_finetuned`` of
 ``seervideoldm_tpu/pipelines/loading.py``).
 
-Weights are random, made from ``cfg.seed``, or come from a checkpoint
+Weights are random, made from ``cfg.seed``; then, when the config names
+them, SD-1.5's VAE, CLIP text encoder and 2D UNet come from a local
+diffusers directory (``pretrained_model_name_or_path``; the UNet inflated
+into SeerUNet, the temporal attentions left fresh) and FSText from
+``fstext_init_ckpt`` (``load_pretrained``).  A named directory or file
+that is missing raises, where the JAX package skips it.  A checkpoint
 directory in the reference's two-file layout (``load_finetuned``: what the
-port's trainer and the JAX package's exporter write).  Pretrained SD-1.5
-and CLIP checkpoints are not loaded yet (``config.py`` refuses a config
-that names one).  ``model_overrides`` (YAML dicts under ``unet`` / ``vae``
+port's trainer and the JAX package's exporter write) applies on top.
+``model_overrides`` (YAML dicts under ``unet`` / ``vae``
 / ``clip`` / ``fstext``) scale the sub-models down for smoke runs, with the
 JAX package's keys; the top-level ``tome_ratio`` / ``tome_min_tokens`` and
 ``freeu`` go into the UNet config unless ``model_overrides.unet`` names
@@ -14,8 +18,9 @@ the same key (``unet_config_from``).
 
 ``load_models(mesh=...)`` registers the mesh for the model code
 (``parallel.activation``) and the ``ring_attention`` key (``ops/ring.py``),
-and, when several ranks run, broadcasts rank 0's seeded weights (and fp32
-masters) to every rank, so all ranks start from the same values.
+and, when several ranks run, broadcasts rank 0's weights (and fp32
+masters) to every rank after the pretrained loads, so all ranks start
+from the same values.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from typing import Optional
 import torch
 
 from ..config import Config
+from ..io.pretrained import (convert_clip_text, convert_fstext,
+                             convert_seer_unet, convert_vae)
+from ..io.state_dict import load_state_dict
 from ..models.clip_text import CLIPTextConfig
 from ..models.unet3d import SeerUNetConfig
 from ..models.vae import VAEConfig
@@ -113,8 +121,61 @@ def load_models(cfg: Config, device=None, trainable_scope=None, mesh=None):
         trainable_scope=trainable_scope,
         remat=(cfg.remat or bool(cfg.gradient_checkpointing))
         if trainable_scope else False)
+    load_pretrained(models, cfg)
     broadcast_weights(models)
     return models, build_tokenizer(cfg.tokenizer_path)
+
+
+def _find_weights(directory: str, *names: str) -> str:
+    """The first of ``names`` that exists in ``directory`` (the JAX
+    package's ``_find_weights`` order); raises naming them when none
+    does."""
+    for name in names:
+        path = os.path.join(directory, name)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"{directory}: none of {list(names)} exists")
+
+
+def _take_masters(models: SeerModels, key: str, sd: dict) -> None:
+    """The fp32 masters of ``models.<key>`` take the file's values where
+    the file has the parameter (the rest keep their init)."""
+    if models.masters is None:
+        return
+    with torch.no_grad():
+        for name, master in models.masters.items():
+            model, _, pname = name.partition(".")
+            if model == key and pname in sd:
+                master.copy_(sd[pname])
+
+
+def load_pretrained(models: SeerModels, cfg: Config) -> None:
+    """SD-1.5 from ``<pretrained_model_name_or_path>/{vae,text_encoder,
+    unet}`` (``.safetensors`` before ``.bin``; the UNet's temporal
+    attentions stay fresh) and FSText from ``fstext_init_ckpt``, each when
+    the config names it; fp32 masters take the loaded values."""
+    root = cfg.pretrained_model_name_or_path
+    if root:
+        if not os.path.isdir(root):
+            raise FileNotFoundError(f"pretrained_model_name_or_path {root!r} "
+                                    "is not a directory")
+        sub = lambda d, *names: load_state_dict(  # noqa: E731
+            _find_weights(os.path.join(root, d), *names))
+        convert_vae(sub("vae", "diffusion_pytorch_model.safetensors",
+                        "diffusion_pytorch_model.bin"), models.vae)
+        convert_clip_text(sub("text_encoder", "model.safetensors",
+                              "pytorch_model.bin"), models.clip)
+        sd = sub("unet", "diffusion_pytorch_model.safetensors",
+                 "diffusion_pytorch_model.bin")
+        convert_seer_unet(sd, models.unet)
+        _take_masters(models, "unet", sd)
+    if cfg.fstext_init_ckpt:
+        if not os.path.isfile(cfg.fstext_init_ckpt):
+            raise FileNotFoundError(f"fstext_init_ckpt "
+                                    f"{cfg.fstext_init_ckpt!r} does not exist")
+        sd = load_state_dict(cfg.fstext_init_ckpt)
+        convert_fstext(sd, models.fstext)
+        _take_masters(models, "fstext", sd)
 
 
 def resolve_finetuned_dir(cfg: Config) -> Optional[str]:
@@ -145,10 +206,5 @@ def load_finetuned(models: SeerModels, ckpt_dir: str) -> SeerModels:
                                     "the two-file layout")
         sd = torch.load(path, map_location="cpu")
         getattr(models, key).load_state_dict(sd, strict=True)
-        if models.masters is not None:
-            with torch.no_grad():
-                for name, master in models.masters.items():
-                    model, _, pname = name.partition(".")
-                    if model == key:
-                        master.copy_(sd[pname])
+        _take_masters(models, key, sd)
     return models

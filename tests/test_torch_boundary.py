@@ -6,10 +6,14 @@
   the floor-budget slice's: ``tools/``, ``ops/kernels/softmax_calib``,
   ``ops/remat``, ``utils/flops``, ``utils/profiling``; the sampling-knob
   slice's: ``diffusion/dpm_solver``, ``diffusion/pab``, ``ops/tome``,
-  ``ops/freeu`` and the ``inference`` and ``edit`` entries)
+  ``ops/freeu`` and the ``inference`` and ``edit`` entries; the
+  pretrained and evaluation slice's: ``io/state_dict``, ``io/pretrained``,
+  ``evaluation/*`` and the ``eval`` entry)
   and the root ``chip_smoke.py`` import in a fresh
   interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
-  ``seervideoldm_tpu`` cannot be imported;
+  ``seervideoldm_tpu`` cannot be imported (nor ``safetensors``, which the
+  card machine does not have: the port reads and writes the format
+  itself);
 - no source file of the port names them in an import;
 - on a host without CUDA, the entry points (the two floor budgets
   included) called without ``device="cpu"`` raise instead of running on
@@ -27,7 +31,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "seervideoldm_tpu_torch")
-BLOCKED = ("jax", "flax", "optax", "orbax", "seervideoldm_tpu")
+BLOCKED = ("jax", "flax", "optax", "orbax", "seervideoldm_tpu",
+           "safetensors")
 
 
 def _port_modules():
@@ -76,10 +81,18 @@ def test_boundary_walk_reaches_the_sampling_knob_modules():
         assert f"seervideoldm_tpu_torch.{mod}" in names, mod
 
 
+def test_boundary_walk_reaches_the_pretrained_and_eval_modules():
+    names = set(_port_modules())
+    for mod in ("io.state_dict", "io.pretrained", "evaluation",
+                "evaluation.fvd", "evaluation.i3d", "evaluation.c3d",
+                "evaluation.inception_score", "evaluation.clip_sim", "eval"):
+        assert f"seervideoldm_tpu_torch.{mod}" in names, mod
+
+
 def test_new_entries_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the default device is valid here")
-    from seervideoldm_tpu_torch import edit, inference
+    from seervideoldm_tpu_torch import edit, eval as eval_entry, inference
 
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("resolution: 32\n")
@@ -87,6 +100,8 @@ def test_new_entries_default_to_cuda(tmp_path):
         inference.main(["--config", str(cfg)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         edit.main(["--config", str(cfg), "--video_path", "unused.gif"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_entry.main(["--config", str(cfg)])
 
 
 def test_port_imports_with_jax_blocked():
@@ -111,8 +126,8 @@ def test_port_imports_with_jax_blocked():
 
 def test_port_sources_name_no_jax_import():
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|orbax|seervideoldm_tpu)\b",
-        re.MULTILINE)
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|seervideoldm_tpu|"
+        r"safetensors)\b", re.MULTILINE)
     offenders = [p for p in _sources() if pat.search(open(p).read())]
     assert not offenders
 

@@ -18,6 +18,8 @@ as their two halves, the up and the down kernel, each alone.  K6 and K9 (the
 pre-rotated and in-kernel-trig modes of the SWAT kernels) the same, with
 ``rot_dim`` 0 and 32.  K10 (the softmax calibration): the final scores and
 the row sums within 1e-5 relative of its plain version, from 0 passes up.
+The evaluation scorers (I3D, C3D, the CLIP ViT; plain PyTorch ops in fp32)
+on the card against the CPU within 1e-3 relative L2.
 """
 import pytest
 import torch
@@ -542,3 +544,39 @@ def test_remat_equals_no_remat_on_the_card(gen):
     assert bwd_a == bwd_b > 0 and fwd_b == 2 * fwd_a
     for ga, gb in zip(grads_a, grads_b):
         assert torch.equal(ga, gb)
+
+
+def _card_vs_cpu(build, x):
+    """A module built on the CPU in fp32 from a seed, run there and on the
+    card (fp32, TF32 off) on the same input: relative L2 of the outputs."""
+    import copy
+
+    torch.manual_seed(0)
+    cpu = build().eval()
+    card = copy.deepcopy(cpu).cuda()
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.cuda()).cpu()
+    assert torch.isfinite(got).all()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("scorer", ["i3d", "c3d", "clip_vit"])
+def test_eval_scorers_card_vs_cpu(gen, scorer):
+    """The eval path's scorers (plain PyTorch ops, fp32) on the card
+    against the CPU: relative L2 <= 1e-3 on the logits / features."""
+    from seervideoldm_tpu_torch.evaluation import c3d, clip_sim, i3d
+
+    g = torch.Generator().manual_seed(1)
+    if scorer == "i3d":
+        x = torch.rand(1, 3, 9, 224, 224, generator=g) * 2 - 1
+        rel = _card_vs_cpu(i3d.InceptionI3d, x)
+    elif scorer == "c3d":
+        x = torch.rand(1, 16, 128, 160, 3, generator=g) * 2 - 1
+        rel = _card_vs_cpu(c3d.C3D, x)
+    else:
+        cfg = clip_sim.CLIPVisionConfig(num_hidden_layers=4)
+        x = clip_sim.preprocess_frames(torch.rand(2, 256, 256, 3, generator=g),
+                                       cfg.image_size)
+        rel = _card_vs_cpu(lambda: clip_sim.CLIPVisionModel(cfg), x)
+    assert rel <= 1e-3, rel

@@ -175,8 +175,7 @@ def test_train_entry_defaults_to_cuda(tmp_path):
     ("fsdp", True), ("mesh_shape", {"data": 2, "model": 2}),
     ("remat", "bogus"),
     ("param_dtype", "bfloat16"), ("center_crop", False),
-    ("pretrained_model_name_or_path", "/models/sd15"),
-    ("fstext_init_ckpt", "fstext.bin"), ("push_to_hub", True)])
+    ("push_to_hub", True)])
 def test_config_refuses_what_is_not_ported(key, value):
     from seervideoldm_tpu_torch.config import config_from_dict
 
