@@ -44,7 +44,10 @@ no result line):
    last, the sampling-knob path's shapes (path ``knobs``): K2 at the ToMe
    lengths (192, 512, 40) and (192, 717, 40), and the no-gradient batch-1
    forwards of a call outside a guidance interval, K1 (8, 12, 32, 32,
-   40), K2 (96, 1024, 40), K3 / K4 (12288, 320), K5 (3072, 640);
+   40), K2 (96, 1024, 40), K3 / K4 (12288, 320), K5 (3072, 640); then the
+   serving path's (path ``serving``: ``configs/serve.yaml``'s batch of 4,
+   CFG batch 8, no gradient), K1 (64, 12, 32, 32, 40), K2 (768, 1024,
+   40), K3 / K4 (98304, 320), K5 (24576, 640);
 4. reference: one SeerUNet call at narrow widths (64/128) and the main
    path's 256 px / 12 frame / CFG-batch-2 shapes, bf16 with the kernels on
    the card against the port's plain path in fp32 on the CPU, same weights
@@ -82,6 +85,23 @@ no result line):
    counts the UNet calls, checks the frames (finite, the expected shape,
    in [0, 1]) and prints a ``sampling_knobs`` line: run, UNet calls,
    seconds per clip, peak GB, launches;
+6e. serving, on phase 6's pipeline with ``configs/serve.yaml``'s knobs
+   (PAB, DDIM 30, ``serve_max_batch`` 4; the batching window raised to
+   ``SERVE_WAIT_MS`` for this phase only, so that requests started
+   ``SERVE_STAGGER_S`` apart form one batch): a ``GenerationService`` and
+   ``make_server`` on port 0 in a thread; the warm-up batch, timed; four
+   concurrent POSTs (``/healthz`` then reads 1 batch, 4 requests), one
+   lone POST (2, 5), one malformed POST (400); each reply a 256 x 256 GIF
+   of at most 12 frames; launches per batch equal to the PAB schedule's;
+   then, bit for bit through ``generate_array`` at ``SERVE_CHECK_STEPS``,
+   row 0 of [A, B, C, D] against row 0 of [A, E, F, G] under the same
+   batch counter, and a restarted service fed [A, B, C, D] again; then
+   ``python -m seervideoldm_tpu_torch.serve --config configs/serve.yaml
+   --set serve_port=0`` as a subprocess: its port read from the "serving
+   on" line, one POST, ``/healthz``, SIGTERM and exit 0 within
+   ``SERVE_STOP_TIMEOUT``; a ``serving`` line (warm-up, batch and
+   lone-request seconds, requests/s, latency p50 / p95, peak GB,
+   launches, the entry's times);
 6c. pretrained: a full-width SD-1.5 diffusers directory written to a
    temporary directory from a seeded random-init set of the port's
    modules, under a real download's names (``vae/`` fp32 ``.bin`` with
@@ -117,6 +137,29 @@ no result line):
    from the checkpoint it wrote, every trainable fp32 master moved and
    every frozen SeerUNet / FSText weight equals its seeded initial value;
    the checkpoint is loaded and sampled for a few DDIM steps;
+7b. training options, on phase 7's tree and config, (a) and (b) from a
+   seeded base: the seeded init with every transformer's ``proj_out``
+   drawn non-zero (at random init they are zero, which hides every
+   attention site from the output), written as a two-file checkpoint and
+   named by ``learned_unet_ckpt``.  (b) ``use_8bit_adam`` on the
+   reference scope, 2 optimizer steps: every trainable master moved,
+   every frozen weight equal to the base's, at most 2.1 bytes of
+   optimizer state per trainable parameter, s per step and peak memory
+   beside phase 7's; (a) the ``train`` entry with ``lora_rank`` 8 on every
+   attention projection and ``use_8bit_adam``, 2 optimizer steps: the
+   first window's loss equals (b)'s (B = 0 until the first update), the
+   launches per micro-step (K8 at all 5 K2 sites: every site's q, k and v
+   carry adapters), every adapter's B moved off zero (weight decay cannot
+   move a zero: only a gradient does) and every FSText master moved, at
+   most 2.1 bytes of optimizer state per trainable parameter, the merged
+   checkpoint loaded strictly by the sampling pipeline and one UNet call
+   from it equal to the LoRA-applied call on the base bit for bit (and
+   the same at a seeded non-zero B, ``apply_lora``'s merge against the
+   applied call); (c) ``param_dtype: bfloat16`` from phase 7's init, 1
+   optimizer step, masters and moments bf16, peak memory; (d) one clip
+   of the tree through the native frame loader against PIL (max 0.03,
+   mean 0.005), required where the machine has ``jpeglib.h``; a
+   ``training_options`` line;
 8. parallel: 2 ranks started with ``parallel.launch`` (NCCL with a card
    per rank, else gloo with the ranks sharing the card and collectives
    staged through pinned host memory; chosen from the card count before any
@@ -148,10 +191,12 @@ no result line):
    ``save_attn`` and ``block``): ``save_attn`` launches the forward kernels
    as often as ``none``, ``block`` more;
 10. prints the ``kernels`` line (each kernel's ``launches`` summed over
-    phases 6, 6b, 6c, 6d, 7, 8 and 9, with each phase's own count beside
-    it: ``sampling_launches``, ``knobs_launches``, ``pretrained_launches``,
-    ``eval_launches``, ``training_launches``, ``parallel_launches``,
-    ``floor_budget_launches``), the card line and the result line.
+    phases 6, 6b, 6e, 6c, 6d, 7, 7b, 8 and 9, with each phase's own count
+    beside it: ``sampling_launches``, ``knobs_launches``,
+    ``serving_launches``, ``pretrained_launches``, ``eval_launches``,
+    ``training_launches``, ``training_options_launches``,
+    ``parallel_launches``, ``floor_budget_launches``), the card line and
+    the result line.
 
 ``--profile PATH`` adds where one full-width DDIM step's time goes (one
 SeerUNet call's CUDA kernel time by category and the device busy share, a
@@ -813,6 +858,14 @@ KERNEL_CASES = (
     ("knobs", case_geglu, (1, 12288, 320)),
     ("knobs", case_geglu, (2, 12288, 320)),
     ("knobs", case_geglu, (0, 3072, 640)),
+    # the serving path (appended, so the cases above keep their draws):
+    # configs/serve.yaml's batch of serve_max_batch 4 at 256 px, CFG batch
+    # 8, no gradient
+    ("serving", case_swat, (64, 12, 32, 40)),
+    ("serving", case_flash, (768, 1024, 40)),
+    ("serving", case_geglu, (1, 98304, 320)),
+    ("serving", case_geglu, (2, 98304, 320)),
+    ("serving", case_geglu, (0, 24576, 640)),
 )
 
 
@@ -827,7 +880,8 @@ def kernel_cases(gen):
     shapes (batch 1; the c = 320 LN form sees the 12288 tokens of a text
     site and the 10240 non-cond tokens of a temporal site, the c = 640 FF
     3072 and 2560); then K6 and K9 at the sequence-parallel path's shapes
-    and at the 256 / 512 px shapes, in both rotation modes."""
+    and at the 256 / 512 px shapes, in both rotation modes; then the
+    sampling-knob path's shapes and the serving path's (CFG batch 8)."""
     for path, build, args in KERNEL_CASES:
         yield path, build(gen, *args)
 
@@ -1625,6 +1679,324 @@ def write_synthetic_sthv2(root: str, clips: int, frames: int, res: int) -> None:
                                         quality=90)
 
 
+# ------------------------------------------------------------- serving
+
+SERVE_WAIT_MS = 3000.0     # batching window of phase 6e (serve.yaml: 100)
+SERVE_STAGGER_S = 0.05     # between the concurrent requests' starts
+SERVE_CHECK_STEPS = 5      # DDIM steps of the bit-exact service checks
+SERVE_ENTRY_TIMEOUT = 420  # s for the serve entry to print its port
+SERVE_STOP_TIMEOUT = 60    # s for it to exit after SIGTERM
+
+
+def _png(seed: int, res: int) -> bytes:
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    arr = np.random.RandomState(seed).randint(0, 256, (res, res, 3),
+                                              dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _http(port: int, path: str, payload=None, timeout: float = 600.0):
+    """(status, content type, body) of a GET, or of a POST of ``payload``
+    (a dict sent as JSON, or bytes sent as they are)."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    data = None
+    if payload is not None:
+        data = payload if isinstance(payload, bytes) else json.dumps(
+            payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers.get("Content-Type"), exc.read()
+
+
+def _gif_frames(what: str, body: bytes, res: int, frames: int) -> int:
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(body)) as gif:
+        require(gif.format == "GIF" and gif.size == (res, res),
+                f"{what}: a {gif.format} of {gif.size}")
+        n = gif.n_frames
+    # identical consecutive frames (the repeated cond frames) merge
+    require(1 <= n <= frames, f"{what}: {n} GIF frames, at most {frames}")
+    return n
+
+
+def _concurrent(calls: list) -> list:
+    """Runs each call on its own thread, started ``SERVE_STAGGER_S`` apart
+    in list order (so they queue in that order); returns their results."""
+    import threading
+
+    out, errors = [None] * len(calls), []
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i, fn), daemon=True)
+               for i, fn in enumerate(calls)]
+    for th in threads:
+        th.start()
+        time.sleep(SERVE_STAGGER_S)
+    for th in threads:
+        th.join(timeout=900)
+        require(not th.is_alive(), "serving: a request did not return")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _service_batch(svc, spec) -> list:
+    """The requests of ``spec`` ((prompt, image seed) each) through
+    ``generate_array`` at once; they must form one batch, in order."""
+    import numpy as np
+
+    from seervideoldm_tpu_torch.data.transforms import image_to_model_input
+
+    res = svc.resolution
+    images = [image_to_model_input(np.random.RandomState(s).randint(
+        0, 256, (res, res, 3), dtype=np.uint8), res) for _, s in spec]
+    before = svc.batcher.batches
+    rows = _concurrent([functools.partial(svc.generate_array, p, img)
+                        for (p, _), img in zip(spec, images)])
+    require(svc.batcher.batches == before + 1,
+            f"serving: {len(spec)} requests formed "
+            f"{svc.batcher.batches - before} batches, expected 1")
+    return rows
+
+
+def serve_entry(card: str) -> dict:
+    """``python -m seervideoldm_tpu_torch.serve --config configs/serve.yaml
+    --set serve_port=0`` as a subprocess: the port it prints, one POST,
+    ``/healthz``, SIGTERM, exit 0 within ``SERVE_STOP_TIMEOUT``."""
+    import base64
+    import queue
+    import re
+    import signal
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seervideoldm_tpu_torch.serve", "--config",
+         os.path.join(root, "configs", "serve.yaml"), "--set",
+         "serve_port=0"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    log: list = []
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stdout] + [lines.put(None)],
+        daemon=True)
+    reader.start()
+    try:
+        port = None
+        deadline = time.monotonic() + SERVE_ENTRY_TIMEOUT
+        while port is None:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                break
+            if line is None:
+                break
+            log.append(line)
+            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        require(port is not None, "serve entry: no 'serving on' line within "
+                f"{SERVE_ENTRY_TIMEOUT} s:\n" + "".join(log[-20:]))
+        startup = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        status, ctype, body = _http(port, "/generate", {
+            "prompt": "push the green cup to the left",
+            "image": base64.b64encode(_png(SEED + 20, 256)).decode()})
+        post_s = time.perf_counter() - t1
+        require(status == 200 and ctype == "image/gif",
+                f"serve entry: POST answered {status} {ctype}: {body[:200]!r}")
+        frames = _gif_frames("serve entry", body, 256, 12)
+        status, _, body = _http(port, "/healthz")
+        health = json.loads(body)
+        require(status == 200 and health["batches"] == 1
+                and health["requests"] == 1, f"serve entry: healthz {health}")
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=SERVE_STOP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            code = None
+        require(code == 0, f"serve entry: exit {code} after SIGTERM (limit "
+                f"{SERVE_STOP_TIMEOUT} s)")
+        return {"startup_seconds": startup, "post_seconds": post_s,
+                "gif_frames": frames, "healthz": health,
+                "stop_seconds": time.perf_counter() - t2, "exit_code": code}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+
+
+def phase_serving(card: str, pipe, tok) -> dict:
+    """Phase 6e (module docstring): ``configs/serve.yaml``'s service on
+    phase 6's full-width pipeline, over HTTP and through
+    ``generate_array``, then the ``serve`` entry.  The batching window is
+    raised to ``SERVE_WAIT_MS`` for this phase only, so that requests
+    started ``SERVE_STAGGER_S`` apart form one batch, in order.  Returns
+    the launches of the in-process batches."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from seervideoldm_tpu_torch.config import (check_serving, load_config,
+                                               pab_config_from)
+    from seervideoldm_tpu_torch.serve import build_service
+    from seervideoldm_tpu_torch.serving import make_server
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    serve = load_config(os.path.join(root, "configs", "serve.yaml"))
+    check_serving(serve)
+    serve = dataclasses.replace(serve, serve_max_wait_ms=SERVE_WAIT_MS)
+    res, nb = int(serve.resolution), int(serve.serve_max_batch)
+    n_frames = int(serve.num_frames)
+    calls = len(pipe.schedule.ddim_tables(int(serve.ddim_steps)).timesteps)
+    expect, _ = _pab_expected(calls, pab_config_from(serve))
+    total = {name: 0 for name in PER_STEP}
+
+    def measured(what, fn, want=None):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        for name in total:
+            total[name] += launches[name]
+        for name, n in (want or {}).items():
+            require(launches[name] == n, f"serving {what}: {name} launched "
+                    f"{launches[name]} times, expected {n}")
+        return out, seconds, launches
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    svc = build_service(serve, pipe, tok)
+    server = make_server(svc, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    try:
+        _, warm_s, _ = measured("warmup", svc.warmup, expect)
+        thread.start()
+        body = {"prompt": "push the green cup to the left",
+                "image": _b64_png(SEED + 10, res)}
+        bodies = [dict(body, image=_b64_png(SEED + 10 + i, res),
+                       negative_prompt="blurry" if i == 3 else "")
+                  for i in range(nb)]
+        replies, batch_s, batch_launches = measured(
+            f"batch of {nb}", lambda: _concurrent([
+                functools.partial(_http, port, "/generate", b)
+                for b in bodies]), expect)
+        for i, (status, ctype, data) in enumerate(replies):
+            require(status == 200 and ctype == "image/gif",
+                    f"serving: request {i} answered {status} {ctype}")
+            _gif_frames(f"serving request {i}", data, res, n_frames)
+        health = json.loads(_http(port, "/healthz")[2])
+        require(health["batches"] == 1 and health["requests"] == nb,
+                f"serving: after {nb} concurrent requests healthz {health}")
+        # the lone request waits out serve.yaml's own window, not the
+        # raised one
+        svc.batcher.max_wait_s = float(
+            load_config(os.path.join(root, "configs", "serve.yaml"))
+            .serve_max_wait_ms) / 1000.0
+        (status, ctype, data), lone_s, _ = measured(
+            "lone request", lambda: _http(port, "/generate", body), expect)
+        require(status == 200 and ctype == "image/gif",
+                f"serving: the lone request answered {status}")
+        _gif_frames("serving lone request", data, res, n_frames)
+        health = json.loads(_http(port, "/healthz")[2])
+        require(health["batches"] == 2 and health["requests"] == nb + 1,
+                f"serving: after the lone request healthz {health}")
+        status, _, _ = _http(port, "/generate", b'{"prompt": "x", "image": 3')
+        require(status == 400, f"serving: a malformed body answered {status}")
+        peak = _peak_gb()
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.stop()
+
+    # bit for bit, through generate_array at SERVE_CHECK_STEPS: row 0 of
+    # [A, B, C, D] against row 0 of [A, E, F, G] under the same counter,
+    # and a restarted service fed the same requests
+    short = dataclasses.replace(serve, ddim_steps=SERVE_CHECK_STEPS)
+    a_spec = [("push the green cup to the left", 30), ("lift it", 31),
+              ("turn it over", 32), ("drop it", 33)][:nb]
+    e_spec = a_spec[:1] + [("spin it", 34), ("tilt it", 35),
+                           ("slide it right", 36)][:nb - 1]
+    rows = {}
+
+    def checks():
+        for key, spec in (("first", a_spec), ("other", e_spec),
+                          ("restart", a_spec)):
+            svc = build_service(short, pipe, tok)
+            try:
+                rows[key] = _service_batch(svc, spec)
+            finally:
+                svc.stop()
+
+    _, check_s, _ = measured("bit-exact checks", checks)
+    independent = bool((rows["first"][0] == rows["other"][0]).all())
+    restart = all(bool((a == b).all())
+                  for a, b in zip(rows["first"], rows["restart"]))
+    differs = not bool((rows["first"][1] == rows["other"][1]).all())
+    require(independent, "serving: row 0 of a batch depends on the other rows")
+    require(restart, "serving: a restarted service returned other videos")
+    require(differs, "serving: different requests returned equal rows")
+
+    from seervideoldm_tpu_torch.utils.viz import gif_bytes
+
+    t0 = time.perf_counter()
+    gif_bytes(rows["first"][0])   # what each HTTP reply costs the host
+    gif_s = time.perf_counter() - t0
+    entry = serve_entry(card)
+    stats = health
+    print(json.dumps({"serving": {
+        "card": card, "max_batch": nb, "cfg_batch": 2 * nb,
+        "ddim_steps": int(serve.ddim_steps), "unet_calls_per_batch": calls,
+        "pab": True, "warmup_seconds": warm_s,
+        "batch_seconds": batch_s, "lone_request_seconds": lone_s,
+        "requests_per_s_full_batch": nb / batch_s,
+        "seconds_per_request_full_batch": batch_s / nb,
+        "latency_p50_s": stats["latency_p50_s"],
+        "latency_p95_s": stats["latency_p95_s"],
+        "peak_mem_gb": peak, "launches_per_batch": batch_launches,
+        "expected_launches_per_batch": expect,
+        "row_independent": independent, "restart_reproduces": restart,
+        "check_ddim_steps": SERVE_CHECK_STEPS, "check_seconds": check_s,
+        "gif_encode_seconds": gif_s,
+        "entry": entry}}), flush=True)
+    return total
+
+
+def _b64_png(seed: int, res: int) -> str:
+    import base64
+
+    return base64.b64encode(_png(seed, res)).decode()
+
+
 # ------------------------------------------------- pretrained and eval
 
 EVAL_CLIPS = 4
@@ -1984,9 +2356,11 @@ def phase_eval(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_training(card: str, profile: str | None) -> dict:
+def phase_training(card: str, profile: str | None, tmp: str) -> tuple:
     """The port's ``train`` entry at full SD-1.5 width on a synthetic
-    Sthv2 tree, then sampling from the checkpoint it wrote."""
+    Sthv2 tree written under ``tmp``, then sampling from the checkpoint it
+    wrote.  Returns (launches, what phase 7b reuses: the config, the
+    losses, seconds per optimizer step and peak memory)."""
     import numpy as np
     import torch
 
@@ -1999,138 +2373,475 @@ def phase_training(card: str, profile: str | None) -> dict:
     from seervideoldm_tpu_torch.train import train
 
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        write_synthetic_sthv2(os.path.join(tmp, "data"), clips=4, frames=14,
-                              res=256)
-        micro_steps = TRAIN_OPT_STEPS * TRAIN_ACCUM
-        raw = dict(
-            output_dir=os.path.join(tmp, "out"),
-            data_dir=os.path.join(tmp, "data"), dataset="sthv2",
-            resolution=256, num_frames=12, cond_frames=2, train_batch_size=1,
-            gradient_accumulation_steps=TRAIN_ACCUM, learning_rate=1.28e-5,
-            scale_lr=True, lr_scheduler="cosine", lr_warmup_steps=1,
-            max_train_steps=TRAIN_OPT_STEPS, save_steps=TRAIN_OPT_STEPS,
-            max_grad_norm=0.3, num_workers=4, seed=SEED,
-            mixed_precision="bf16", compute_dtype="bfloat16", remat=False,
-            # From random weights every proj_out is zero, the frozen text
-            # sites' included, so the eps loss alone sends FSText no
-            # gradient at all; the FSText init objective does.  The
-            # temporal sites open up by themselves: their own proj_out
-            # trains first (step 2; step 1 has lr(0) = 0 under a 1-step
-            # warmup), then everything upstream of it.
-            text_loss=True)
-        cfg = config_from_dict(dict(raw))
+    write_synthetic_sthv2(os.path.join(tmp, "data"), clips=4, frames=14,
+                          res=256)
+    micro_steps = TRAIN_OPT_STEPS * TRAIN_ACCUM
+    raw = dict(
+        output_dir=os.path.join(tmp, "out"),
+        data_dir=os.path.join(tmp, "data"), dataset="sthv2",
+        resolution=256, num_frames=12, cond_frames=2, train_batch_size=1,
+        gradient_accumulation_steps=TRAIN_ACCUM, learning_rate=1.28e-5,
+        scale_lr=True, lr_scheduler="cosine", lr_warmup_steps=1,
+        max_train_steps=TRAIN_OPT_STEPS, save_steps=TRAIN_OPT_STEPS,
+        max_grad_norm=0.3, num_workers=4, seed=SEED,
+        mixed_precision="bf16", compute_dtype="bfloat16", remat=False,
+        # From random weights every proj_out is zero, the frozen text
+        # sites' included, so the eps loss alone sends FSText no
+        # gradient at all; the FSText init objective does.  The
+        # temporal sites open up by themselves: their own proj_out
+        # trains first (step 2; step 1 has lr(0) = 0 under a 1-step
+        # warmup), then everything upstream of it.
+        text_loss=True)
+    cfg = config_from_dict(dict(raw))
 
-        # the seeded initial weights, built once more to compare against
-        init, _ = load_models(cfg, "cuda", trainable_scope=cfg.trainable_scope)
-        masters0 = {n: t.detach().cpu().clone() for n, t in init.masters.items()}
-        weights0 = export_state_dicts(init)
-        n_trainable = sum(t.numel() for t in masters0.values())
-        del init
-        torch.cuda.empty_cache()
+    # the seeded initial weights, built once more to compare against
+    init, _ = load_models(cfg, "cuda", trainable_scope=cfg.trainable_scope)
+    masters0 = {n: t.detach().cpu().clone() for n, t in init.masters.items()}
+    weights0 = export_state_dicts(init)
+    n_trainable = sum(t.numel() for t in masters0.values())
+    del init
+    torch.cuda.empty_cache()
 
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        summary = train(config_from_dict(dict(raw)))
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = train(config_from_dict(dict(raw)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
 
-        require(summary["global_step"] == TRAIN_OPT_STEPS
-                and summary["micro_steps"] == micro_steps,
-                f"training: took {summary['global_step']} optimizer steps / "
-                f"{summary['micro_steps']} micro-steps")
-        require(all(np.isfinite(summary["losses"])) and summary["losses"],
-                f"training: losses {summary['losses']}")
-        # what training changed, read back from the checkpoint it wrote
-        ckpt = summary["checkpoint"]
-        masters = torch.load(os.path.join(ckpt, STATE_FILE),
-                             map_location="cpu")["masters"]
-        require(set(masters) == set(masters0),
-                "training: the checkpoint's trainable set differs")
-        still = [n for n, t in masters.items() if torch.equal(t, masters0[n])]
-        groups = {"fstext": 0, "temporal_attentions": 0}
-        for n in masters:
-            groups["fstext" if n.startswith("fstext.")
-                   else "temporal_attentions"] += 1
-        require(not still, f"training: {len(still)} trainable masters did not "
-                f"move, e.g. {still[:3]}")
-        require(all(groups.values()), f"training: trainable groups {groups}")
-        changed, n_frozen = [], 0
-        for model, file in (("unet", UNET_FILE), ("fstext", FSTEXT_FILE)):
-            saved = torch.load(os.path.join(ckpt, file), map_location="cpu")
-            require(set(saved) == set(weights0[model]),
-                    f"training: {file} holds other names than the model")
-            for key, t in saved.items():
-                if f"{model}.{key}" in masters:
-                    continue
-                n_frozen += 1
-                if not torch.equal(t, weights0[model][key]):
-                    changed.append(f"{model}.{key}")
-        require(n_frozen > 0 and not changed,
-                f"training: {len(changed)} of {n_frozen} frozen weights "
-                f"changed, e.g. {changed[:3]}")
-        del weights0
-        for name, per in PER_MICRO_STEP.items():
-            require(launches[name] == per * micro_steps,
-                    f"training: {name} launched {launches[name]} times, "
-                    f"expected {per} x {micro_steps} micro-steps")
-        # measured by the entry per optimizer step (CUDA events around its
-        # micro-steps, data loading included, the save excluded); the first
-        # carries cuBLAS/cuDNN set-up, so report the rest
-        steady = summary["step_seconds"][1:]
-        s_step = sum(steady) / len(steady)
-        print(json.dumps({"train": {
-            "card": card, "optimizer_steps": TRAIN_OPT_STEPS,
-            "micro_steps": micro_steps, "accumulation": TRAIN_ACCUM,
-            "remat": bool(cfg.remat), "trainable_params": n_trainable,
-            "trainable_tensors": groups, "frozen_tensors_unchanged": n_frozen,
-            "losses": summary["losses"],
-            "s_per_optimizer_step": s_step,
-            "optimizer_step_seconds": summary["step_seconds"],
-            # not measured apart: the step's time over its micro-steps
-            "s_per_micro_step": s_step / TRAIN_ACCUM,
-            "train_entry_seconds": elapsed,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": launches,
-            "launches_per_micro_step": PER_MICRO_STEP}}), flush=True)
-        if profile:
-            models, _ = load_models(cfg, "cuda",
-                                    trainable_scope=cfg.trainable_scope)
-            profile_train_step(models, profile + ".train")
-            del models
-        torch.cuda.empty_cache()
+    require(summary["global_step"] == TRAIN_OPT_STEPS
+            and summary["micro_steps"] == micro_steps,
+            f"training: took {summary['global_step']} optimizer steps / "
+            f"{summary['micro_steps']} micro-steps")
+    require(all(np.isfinite(summary["losses"])) and summary["losses"],
+            f"training: losses {summary['losses']}")
+    # what training changed, read back from the checkpoint it wrote
+    ckpt = summary["checkpoint"]
+    masters = torch.load(os.path.join(ckpt, STATE_FILE),
+                         map_location="cpu")["masters"]
+    require(set(masters) == set(masters0),
+            "training: the checkpoint's trainable set differs")
+    still = [n for n, t in masters.items() if torch.equal(t, masters0[n])]
+    groups = {"fstext": 0, "temporal_attentions": 0}
+    for n in masters:
+        groups["fstext" if n.startswith("fstext.")
+               else "temporal_attentions"] += 1
+    require(not still, f"training: {len(still)} trainable masters did not "
+            f"move, e.g. {still[:3]}")
+    require(all(groups.values()), f"training: trainable groups {groups}")
+    changed, n_frozen = [], 0
+    for model, file in (("unet", UNET_FILE), ("fstext", FSTEXT_FILE)):
+        saved = torch.load(os.path.join(ckpt, file), map_location="cpu")
+        require(set(saved) == set(weights0[model]),
+                f"training: {file} holds other names than the model")
+        for key, t in saved.items():
+            if f"{model}.{key}" in masters:
+                continue
+            n_frozen += 1
+            if not torch.equal(t, weights0[model][key]):
+                changed.append(f"{model}.{key}")
+    require(n_frozen > 0 and not changed,
+            f"training: {len(changed)} of {n_frozen} frozen weights "
+            f"changed, e.g. {changed[:3]}")
+    del weights0
+    for name, per in PER_MICRO_STEP.items():
+        require(launches[name] == per * micro_steps,
+                f"training: {name} launched {launches[name]} times, "
+                f"expected {per} x {micro_steps} micro-steps")
+    # measured by the entry per optimizer step (CUDA events around its
+    # micro-steps, data loading included, the save excluded); the first
+    # carries cuBLAS/cuDNN set-up, so report the rest
+    steady = summary["step_seconds"][1:]
+    s_step = sum(steady) / len(steady)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"train": {
+        "card": card, "optimizer_steps": TRAIN_OPT_STEPS,
+        "micro_steps": micro_steps, "accumulation": TRAIN_ACCUM,
+        "remat": bool(cfg.remat), "trainable_params": n_trainable,
+        "trainable_tensors": groups, "frozen_tensors_unchanged": n_frozen,
+        "losses": summary["losses"],
+        "s_per_optimizer_step": s_step,
+        "optimizer_step_seconds": summary["step_seconds"],
+        # not measured apart: the step's time over its micro-steps
+        "s_per_micro_step": s_step / TRAIN_ACCUM,
+        "train_entry_seconds": elapsed, "peak_mem_gb": peak,
+        "optimizer_state_bytes": summary["optimizer_state_bytes"],
+        "launches": launches,
+        "launches_per_micro_step": PER_MICRO_STEP}}), flush=True)
+    if profile:
+        models, _ = load_models(cfg, "cuda",
+                                trainable_scope=cfg.trainable_scope)
+        profile_train_step(models, profile + ".train")
+        del models
+    torch.cuda.empty_cache()
 
-        pipe, tok, scfg = build_pipeline(dict(
-            resolution=256, cond_frames=2, num_frames=12,
-            ddim_steps=TRAIN_SAMPLE_STEPS, scale=7.5, seed=SEED,
-            mixed_precision="bf16", compute_dtype="bfloat16",
-            learned_unet_ckpt=ckpt))
-        trained = torch.load(os.path.join(ckpt, "pytorch_model_1.bin"))
-        loaded = pipe.m.fstext.state_dict()
-        require(all(torch.equal(loaded[k].cpu(), v.to(loaded[k].dtype))
-                    for k, v in trained.items()),
-                "training: the sampling pipeline did not load the checkpoint")
-        image = np.random.RandomState(SEED).randint(0, 256, (256, 256, 3),
-                                                    dtype=np.uint8)
-        samples, _ = generate_video(pipe, tok, scfg, image,
-                                    "pushing thing 0 from left to right")
-        torch.cuda.synchronize()
-        require(tuple(samples.shape) == (1, 10, 256, 256, 3),
-                f"training: sampled frames shaped {tuple(samples.shape)}")
-        require(bool(torch.isfinite(samples).all()),
-                "training: non-finite frames from the trained checkpoint")
-        print(json.dumps({"train_sample": {
-            "checkpoint_files": sorted(os.listdir(ckpt)),
-            "ddim_steps": TRAIN_SAMPLE_STEPS,
-            "frames": list(samples.shape)}}), flush=True)
-        del pipe
-        torch.cuda.empty_cache()
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    pipe, tok, scfg = build_pipeline(dict(
+        resolution=256, cond_frames=2, num_frames=12,
+        ddim_steps=TRAIN_SAMPLE_STEPS, scale=7.5, seed=SEED,
+        mixed_precision="bf16", compute_dtype="bfloat16",
+        learned_unet_ckpt=ckpt))
+    trained = torch.load(os.path.join(ckpt, "pytorch_model_1.bin"))
+    loaded = pipe.m.fstext.state_dict()
+    require(all(torch.equal(loaded[k].cpu(), v.to(loaded[k].dtype))
+                for k, v in trained.items()),
+            "training: the sampling pipeline did not load the checkpoint")
+    image = np.random.RandomState(SEED).randint(0, 256, (256, 256, 3),
+                                                dtype=np.uint8)
+    samples, _ = generate_video(pipe, tok, scfg, image,
+                                "pushing thing 0 from left to right")
+    torch.cuda.synchronize()
+    require(tuple(samples.shape) == (1, 10, 256, 256, 3),
+            f"training: sampled frames shaped {tuple(samples.shape)}")
+    require(bool(torch.isfinite(samples).all()),
+            "training: non-finite frames from the trained checkpoint")
+    print(json.dumps({"train_sample": {
+        "checkpoint_files": sorted(os.listdir(ckpt)),
+        "ddim_steps": TRAIN_SAMPLE_STEPS,
+        "frames": list(samples.shape)}}), flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches, {"raw": raw, "losses": summary["losses"],
+                      "s_per_optimizer_step": s_step,
+                      "peak_mem_gb": peak,
+                      "optimizer_state_bytes":
+                          summary["optimizer_state_bytes"],
+                      "trainable_params": n_trainable}
+
+
+# ---------------------------------------------------- training options
+
+LORA_RANK = 8
+OPTION_OPT_STEPS = 2           # optimizer steps of phase 7b's (a) and (b)
+STATE_BYTES_PER_PARAM = 2.1    # 8-bit moments: 2 + 8 / 256, padding
+NATIVE_MAX_ERR, NATIVE_MEAN_ERR = 0.03, 0.005   # tests/test_native_loader.py
+PROJ_OUT_STD = 0.05            # the seeded base's proj_out weights
+# under LoRA on every attention projection each K2 site's q, k and v need a
+# gradient (their weights carry adapters), the first spatial site's too:
+# 5 K8 launches per micro-step where the reference scope has 4
+PER_MICRO_STEP_LORA = dict(PER_MICRO_STEP, flash_attention_bwd=5)
+
+
+def write_seeded_base(raw: dict, path: str) -> dict:
+    """The seeded init of ``raw``'s models with every transformer's
+    ``proj_out`` drawn non-zero, written as a two-file Seer checkpoint to
+    ``path``: the base phase 7b's runs start from (``learned_unet_ckpt``).
+    At random init every ``proj_out`` is zero, which hides each attention
+    site from the output, so no adapter would get a gradient.  Returns
+    the files' state dicts (CPU)."""
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.io.checkpoint import (FSTEXT_FILE, UNET_FILE,
+                                                      export_state_dicts)
+    from seervideoldm_tpu_torch.pipelines.loading import load_models
+
+    models, _ = load_models(config_from_dict(dict(raw)), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    with torch.no_grad():
+        for name, p in models.unet.named_parameters():
+            if ".proj_out." in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * PROJ_OUT_STD)
+    sds = export_state_dicts(models)
+    del models
+    os.makedirs(path)
+    torch.save(sds["unet"], os.path.join(path, UNET_FILE))
+    torch.save(sds["fstext"], os.path.join(path, FSTEXT_FILE))
+    return sds
+
+
+def _option_run(card: str, run: str, raw: dict, opt_steps: int,
+                per_micro: dict) -> tuple:
+    """One ``train`` entry run of phase 7b: launch counts zeroed just
+    before and read just after (``per_micro`` x micro-steps each), losses
+    finite.  Returns (summary, the checkpoint's masters on the CPU,
+    launches, seconds, peak GB)."""
+    import numpy as np
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.io.checkpoint import STATE_FILE
+    from seervideoldm_tpu_torch.train import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = train(config_from_dict(dict(raw)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_gb()
+    micro = opt_steps * TRAIN_ACCUM
+    require(summary["global_step"] == opt_steps
+            and summary["micro_steps"] == micro,
+            f"training options {run}: {summary['global_step']} optimizer "
+            f"steps / {summary['micro_steps']} micro-steps")
+    require(summary["losses"] and all(np.isfinite(summary["losses"])),
+            f"training options {run}: losses {summary['losses']}")
+    for name, per in per_micro.items():
+        require(launches[name] == per * micro,
+                f"training options {run}: {name} launched {launches[name]} "
+                f"times, expected {per} x {micro} micro-steps")
+    masters = torch.load(os.path.join(summary["checkpoint"], STATE_FILE),
+                         map_location="cpu")["masters"]
+    return summary, masters, launches, elapsed, peak
+
+
+def _unmoved(masters: dict, start: dict) -> list:
+    """Names of ``masters`` (``{"<model>.<name>": t}``) still equal to
+    their value in ``start`` (``{"unet": sd, "fstext": sd}``)."""
+    import torch
+
+    out = []
+    for name, t in masters.items():
+        model, _, pname = name.partition(".")
+        if torch.equal(t, start[model][pname].to(t.dtype)):
+            out.append(name)
+    return out
+
+
+def _lora_forward_check(ckpt: str, raw: dict, scale: float) -> dict:
+    """The merged checkpoint loaded strictly by the sampling pipeline; one
+    UNet call from it against the LoRA-applied call on the base with the
+    checkpoint's adapters, bit for bit; then, at seeded non-zero B (a
+    delta bf16 resolves), the merge (``apply_lora``) against the applied
+    forward again, bit for bit: both sides round the same W + s (A B)^T to
+    the weight's dtype once."""
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.inference_img import build_pipeline
+    from seervideoldm_tpu_torch.io.checkpoint import STATE_FILE
+    from seervideoldm_tpu_torch.pipelines.loading import (load_finetuned,
+                                                          load_models)
+    from seervideoldm_tpu_torch.training.lora import apply_lora, lora_applied
+
+    plain = dict(raw, lora_rank=0, use_8bit_adam=False)
+    pipe, _, _ = build_pipeline(dict(plain, learned_unet_ckpt=ckpt), "cuda")
+    base, _ = load_models(config_from_dict(plain), "cuda")
+    load_finetuned(base, raw["learned_unet_ckpt"])
+    masters = torch.load(os.path.join(ckpt, STATE_FILE),
+                         map_location="cuda")["masters"]
+    lora = {k[len("lora."):]: v for k, v in masters.items()
+            if k.startswith("lora.")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    unet_cfg, dtype = base.unet.config, base.unet.conv_in.weight.dtype
+    lat, f = int(raw["resolution"]) // 8, int(raw["num_frames"])
+    x = torch.randn(2, f, lat, lat, unet_cfg.in_channels, generator=gen,
+                    device="cuda").to(dtype)
+    ctx = torch.randn(2, f, 77, unet_cfg.cross_attention_dim, generator=gen,
+                      device="cuda").to(dtype)
+    ts = torch.full((2,), 500, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        merged = pipe.m.unet(x, ts, ctx)
+        with lora_applied(base.unet, lora, scale):
+            applied = base.unet(x, ts, ctx)
+        plain_out = base.unet(x, ts, ctx)
+        moved = {k: v.clone() for k, v in lora.items()}
+        for k, v in moved.items():
+            if k.endswith("lora_b"):
+                v.copy_(torch.randn(v.shape, generator=gen, device="cuda")
+                        * 0.02)
+        with lora_applied(base.unet, moved, scale):
+            applied_b = base.unet(x, ts, ctx)
+        sd = apply_lora(dict(base.unet.state_dict()), moved, scale)
+        base.unet.load_state_dict(sd, strict=True)
+        merged_b = base.unet(x, ts, ctx)
+    torch.cuda.synchronize()
+    out = {"ckpt_equals_applied": torch.equal(merged, applied),
+           "merged_equals_applied_nonzero_b": torch.equal(merged_b,
+                                                          applied_b),
+           "rel_l2_trained_b_vs_base": _rel_l2(applied, plain_out),
+           "rel_l2_nonzero_b_vs_base": _rel_l2(applied_b, applied)}
+    del pipe, base
+    torch.cuda.empty_cache()
+    require(out["ckpt_equals_applied"], "training options lora: the merged "
+            "checkpoint's UNet call differs from the LoRA-applied one (rel "
+            f"L2 {_rel_l2(merged, applied)})")
+    require(out["merged_equals_applied_nonzero_b"], "training options lora: "
+            "apply_lora's merge differs from the applied forward at non-zero "
+            f"B (rel L2 {_rel_l2(merged_b, applied_b)})")
+    require(out["rel_l2_nonzero_b_vs_base"] > 0, "training options lora: a "
+            "non-zero B does not change the UNet's output")
+    return out
+
+
+def _native_check(tree: str) -> dict:
+    """One clip of the synthetic tree through the native loader against
+    PIL; required when the machine has libjpeg's header."""
+    import glob
+
+    import numpy as np
+
+    from seervideoldm_tpu_torch.data import native
+    from seervideoldm_tpu_torch.data.transforms import load_frame
+
+    paths = sorted(glob.glob(os.path.join(tree, "rawframes", "0", "*.jpg")))
+    has_header = os.path.exists("/usr/include/jpeglib.h")
+    if not native.native_available():
+        reason = native.unavailable_reason()
+        require(not has_header, "training options: the machine has "
+                f"jpeglib.h but the native loader did not build: {reason}")
+        return {"native_loader": False, "reason": reason}
+    t0 = time.perf_counter()
+    got = native.decode_frames(paths, 256)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.stack([load_frame(p, 256) for p in paths])
+    pil_s = time.perf_counter() - t0
+    require(got is not None, "training options: the native loader refused "
+            "the tree's JPEGs")
+    err = np.abs(got - want)
+    out = {"native_loader": True, "frames": len(paths),
+           "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+           "native_seconds": native_s, "pil_seconds": pil_s}
+    require(out["max_abs_err"] <= NATIVE_MAX_ERR
+            and out["mean_abs_err"] <= NATIVE_MEAN_ERR,
+            f"training options: native vs PIL {out}")
+    return out
+
+
+def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
+    """Phase 7b (module docstring) on phase 7's tree and config.  Returns
+    the launches summed over its three runs."""
+    import torch
+
+    from seervideoldm_tpu_torch.io.checkpoint import FSTEXT_FILE, UNET_FILE
+    from seervideoldm_tpu_torch.training.lora import lora_scale
+
+    base_dir = os.path.join(tmp, "base")
+    start = write_seeded_base(phase7["raw"], base_dir)
+    base = dict(phase7["raw"], max_train_steps=OPTION_OPT_STEPS,
+                save_steps=OPTION_OPT_STEPS, learned_unet_ckpt=base_dir)
+    total = {name: 0 for name in PER_STEP}
+
+    def add(launches):
+        for name in total:
+            total[name] += launches[name]
+
+    # (b) 8-bit AdamW on the reference scope (the temporal attentions and
+    # FSText) from the seeded base
+    raw = dict(base, output_dir=os.path.join(tmp, "out_8bit"),
+               use_8bit_adam=True)
+    summary, masters, launches, secs, peak = _option_run(
+        card, "8bit", raw, OPTION_OPT_STEPS, PER_MICRO_STEP)
+    add(launches)
+    no_lora_loss = summary["losses"][0]
+    still = _unmoved(masters, start)
+    require(not still, f"training options 8bit: {len(still)} of "
+            f"{len(masters)} trainable masters did not move, e.g. {still[:3]}")
+    changed, n_frozen = [], 0
+    for model, file in (("unet", UNET_FILE), ("fstext", FSTEXT_FILE)):
+        saved = torch.load(os.path.join(summary["checkpoint"], file),
+                           map_location="cpu")
+        for key, t in saved.items():
+            if f"{model}.{key}" in masters:
+                continue
+            n_frozen += 1
+            if not torch.equal(t, start[model][key]):
+                changed.append(f"{model}.{key}")
+    require(n_frozen > 0 and not changed,
+            f"training options 8bit: {len(changed)} of {n_frozen} frozen "
+            f"weights changed, e.g. {changed[:3]}")
+    bpp = summary["optimizer_state_bytes"] / summary["trainable_params"]
+    require(bpp <= STATE_BYTES_PER_PARAM, f"training options 8bit: {bpp:.3f} "
+            "bytes of optimizer state per trainable parameter")
+    adam8_line = {
+        "trainable_params": summary["trainable_params"],
+        "masters_moved": len(masters), "frozen_tensors_unchanged": n_frozen,
+        "optimizer_state_bytes": summary["optimizer_state_bytes"],
+        "optimizer_state_bytes_fp32_adam": phase7["optimizer_state_bytes"],
+        "optimizer_state_bytes_per_param": bpp,
+        "s_per_optimizer_step": _steady(summary),
+        "s_per_optimizer_step_fp32_adam": phase7["s_per_optimizer_step"],
+        "peak_mem_gb": peak, "peak_mem_gb_fp32_adam": phase7["peak_mem_gb"],
+        "entry_seconds": secs, "launches": launches}
+
+    # (a) LoRA rank 8 on every attention projection, 8-bit AdamW, from the
+    # same base
+    raw = dict(base, output_dir=os.path.join(tmp, "out_lora"),
+               lora_rank=LORA_RANK, lora_targets="attention",
+               use_8bit_adam=True)
+    summary, masters, launches, secs, peak = _option_run(
+        card, "lora", raw, OPTION_OPT_STEPS, PER_MICRO_STEP_LORA)
+    add(launches)
+    lora_b = {k: t for k, t in masters.items() if k.endswith(".lora_b")}
+    fstext = {k: t for k, t in masters.items() if k.startswith("fstext.")}
+    require(set(masters) == set(fstext) | {k for k in masters
+                                           if k.startswith("lora.")},
+            "training options lora: trainable masters outside FSText and "
+            "the adapters")
+    n_adapter = sum(t.numel() for k, t in masters.items()
+                    if k.startswith("lora."))
+    bpp = summary["optimizer_state_bytes"] / summary["trainable_params"]
+    # the first window's micro-steps both run at B = 0 (no update before
+    # the sync step): the no-LoRA run's loss exactly
+    same_loss = summary["losses"][0] == no_lora_loss
+    require(same_loss, f"training options lora: first loss "
+            f"{summary['losses'][0]} != the no-LoRA run's {no_lora_loss}")
+    # B starts at zero, so weight decay cannot move it: only a gradient does
+    still_b = [k for k, t in lora_b.items() if not bool(t.abs().max() > 0)]
+    require(lora_b and not still_b, f"training options lora: {len(still_b)} "
+            f"of {len(lora_b)} adapters' B still zero, e.g. {still_b[:3]}")
+    still = _unmoved(fstext, start)
+    require(fstext and not still, f"training options lora: {len(still)} of "
+            f"{len(fstext)} FSText masters did not move, e.g. {still[:3]}")
+    require(bpp <= STATE_BYTES_PER_PARAM, f"training options lora: "
+            f"{bpp:.3f} bytes of optimizer state per trainable parameter")
+    forward = _lora_forward_check(summary["checkpoint"], raw,
+                                  lora_scale(LORA_RANK, None))
+    lora_line = {
+        "adapter_params": n_adapter,
+        "trainable_params": summary["trainable_params"],
+        "optimizer_state_bytes_per_param": bpp,
+        "first_loss": summary["losses"][0],
+        "first_loss_equals_no_lora": same_loss,
+        "adapters_b_moved": len(lora_b), "fstext_masters_moved": len(fstext),
+        "s_per_optimizer_step": _steady(summary), "peak_mem_gb": peak,
+        "entry_seconds": secs, "launches": launches,
+        "launches_per_micro_step": PER_MICRO_STEP_LORA, **forward}
+    del start
+
+    # (c) bf16 parameters: the masters are the bf16 parameters
+    raw = dict(base, output_dir=os.path.join(tmp, "out_bf16"),
+               param_dtype="bfloat16", mixed_precision="bf16",
+               compute_dtype="bfloat16", max_train_steps=1, save_steps=1,
+               learned_unet_ckpt=None)
+    summary, _, launches, secs, peak = _option_run(card, "bf16", raw, 1,
+                                                   PER_MICRO_STEP)
+    add(launches)
+    state = torch.load(os.path.join(summary["checkpoint"], "train_state.pt"),
+                       map_location="cpu")
+    dtypes = {str(t.dtype) for t in state["masters"].values()}
+    moments = {str(t.dtype) for t in state["optimizer"]["mu"].values()}
+    require(dtypes == moments == {"torch.bfloat16"}, f"training options "
+            f"bf16: masters {dtypes}, moments {moments}")
+    bf16_line = {
+        "masters_dtype": sorted(dtypes), "moments_dtype": sorted(moments),
+        "optimizer_state_bytes": summary["optimizer_state_bytes"],
+        "first_loss": summary["losses"][0],
+        "first_loss_equals_fp32_params": (summary["losses"][0]
+                                          == phase7["losses"][0]),
+        "step_seconds": summary["step_seconds"], "peak_mem_gb": peak,
+        "peak_mem_gb_fp32_params": phase7["peak_mem_gb"],
+        "entry_seconds": secs, "launches": launches}
+
+    # (d) the native frame loader
+    native_line = _native_check(phase7["raw"]["data_dir"])
+    print(json.dumps({"training_options": {
+        "card": card, "optimizer_steps": OPTION_OPT_STEPS,
+        "accumulation": TRAIN_ACCUM, "lora": lora_line, "adam8bit": adam8_line,
+        "bf16_params": bf16_line, **native_line}}), flush=True)
+    return total
+
+
+def _steady(summary: dict) -> float:
+    """Seconds per optimizer step after the first (which carries the
+    cuBLAS / cuDNN set-up)."""
+    steps = summary["step_seconds"][1:] or summary["step_seconds"]
+    return sum(steps) / len(steps)
 
 
 # ---------------------------------------------------------------- parallel
@@ -2722,13 +3433,20 @@ def main() -> int:
         launches, pipe, tok, cfg = phase_end_to_end(card, args.profile)
         phase_knob_reference()
         knob_launches = phase_knobs(card, pipe, tok, cfg)
+        serving_launches = phase_serving(card, pipe, tok)
         del pipe
         torch.cuda.empty_cache()
         pretrained_launches = phase_pretrained(card)
         torch.cuda.empty_cache()
         eval_launches = phase_eval(card)
         torch.cuda.empty_cache()
-        train_launches = phase_training(card, args.profile)
+        train_tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            train_launches, phase7 = phase_training(card, args.profile,
+                                                    train_tmp)
+            option_launches = phase_training_options(card, train_tmp, phase7)
+        finally:
+            shutil.rmtree(train_tmp, ignore_errors=True)
         par_launches = phase_parallel(card)
         k10_row, fb_launches = phase_floor_budget(card)
         rows["softmax_calib"] = [k10_row]
@@ -2739,20 +3457,24 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         row, shapes = rows[name][0], rows[name]
         # each path is driven with the counts zeroed just before and read
-        # just after; `launches` is the sum over the seven paths (the
+        # just after; `launches` is the sum over the nine paths (the
         # parallel path's: rank 0's, summed over its runs; the knob
-        # phase's: summed over its eight runs)
+        # phase's: summed over its eight runs; serving's: over its
+        # in-process batches; the training options': over their three runs)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=(launches[name] + knob_launches[name]
+                      + serving_launches[name]
                       + pretrained_launches[name] + eval_launches[name]
-                      + train_launches[name] + par_launches[name]
-                      + fb_launches[name]),
+                      + train_launches[name] + option_launches[name]
+                      + par_launches[name] + fb_launches[name]),
             sampling_launches=launches[name],
             knobs_launches=knob_launches[name],
+            serving_launches=serving_launches[name],
             pretrained_launches=pretrained_launches[name],
             eval_launches=eval_launches[name],
             training_launches=train_launches[name],
+            training_options_launches=option_launches[name],
             parallel_launches=par_launches[name],
             floor_budget_launches=fb_launches[name],
             max_abs_err=row["max_abs_err"],

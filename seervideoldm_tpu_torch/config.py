@@ -1,6 +1,6 @@
 """YAML configuration, key-compatible with the JAX package's configs (the
-port's own copy, cut to the keys the sampling, training and evaluation
-paths read),
+port's own copy, cut to the keys the sampling, training, evaluation and
+serving paths read),
 with its ``pab_config_from``, ``sampler_schedule_from`` and
 ``sampling_kwargs_from``.
 
@@ -52,10 +52,14 @@ class Config:
     logging_dir: str = "logs"
     remat: Any = False                  # False | True | "block" | "save_attn"
     gradient_checkpointing: bool = False  # the reference's key for remat
-    param_dtype: str = "float32"
-    # refused until ported (see _NOT_YET)
-    use_8bit_adam: bool = False
+    param_dtype: str = "float32"        # or "bfloat16": bf16 storage, masters
+    use_8bit_adam: bool = False         # blockwise int8 Adam moments
+    # LoRA adapters on the UNet's attention projections (0: off); the UNet
+    # freezes and the adapters + FSText train; delta scaled by alpha / rank
     lora_rank: int = 0
+    lora_alpha: Optional[float] = None  # null: the rank (scale 1)
+    lora_targets: str = "attention"     # or "temporal"
+    # refused until ported (queue 1 item 7)
     zero1: bool = False
     fsdp: bool = False
     # {"data": D, "seq": S} over the ranks torchrun starts; null: all data
@@ -103,6 +107,11 @@ class Config:
     clip_sim_ckpt: Optional[str] = None  # a local HF CLIPModel state dict
     image_path: Optional[str] = None
     input_text_prompts: Optional[str] = None
+    # --- serving (the JAX package's keys and defaults) ---
+    serve_host: str = "127.0.0.1"
+    serve_port: int = 8000
+    serve_max_batch: int = 4
+    serve_max_wait_ms: float = 100.0
     model_overrides: Optional[dict] = None
     extras: dict = field(default_factory=dict)
 
@@ -114,12 +123,7 @@ class Config:
 
 _FIELDS = {f.name for f in dataclasses.fields(Config)}
 
-# Options of the JAX package that the port does not run yet; a config
-# asking for one is refused rather than silently run without it.
-_NOT_YET = {
-    "use_8bit_adam": (False,), "lora_rank": (0,),
-    "param_dtype": ("float32", "fp32"),
-}
+PARAM_DTYPES = ("float32", "fp32", "bfloat16", "bf16")
 
 
 def pab_config_from(cfg: Config):
@@ -170,10 +174,6 @@ def parse_remat(value: Any) -> Any:
 
 def validate(cfg: Config) -> Config:
     cfg.remat = parse_remat(cfg.remat)
-    for key, allowed in _NOT_YET.items():
-        if getattr(cfg, key) not in allowed:
-            raise ValueError(f"{key}={getattr(cfg, key)!r} is not supported by "
-                             f"the PyTorch port yet (supported: {allowed})")
     for key, what in (("zero1", "sharded optimizer state"),
                       ("fsdp", "sharded parameters and optimizer state")):
         if getattr(cfg, key):
@@ -199,12 +199,46 @@ def validate(cfg: Config) -> Config:
     if cfg.trainable_scope not in ("reference", "all"):
         raise ValueError(f"trainable_scope must be 'reference' or 'all', got "
                          f"{cfg.trainable_scope!r}")
+    _validate_training_options(cfg)
     if float(cfg.snr_gamma) < 0.0:
         raise ValueError(f"snr_gamma must be >= 0, got {cfg.snr_gamma!r}")
     if not float(cfg.vae_scale) > 0.0:
         raise ValueError(f"vae_scale must be > 0, got {cfg.vae_scale!r}")
     _validate_sampling(cfg)
     return cfg
+
+
+def _validate_training_options(cfg: Config) -> None:
+    """The JAX package's checks of ``lora_rank`` / ``lora_alpha`` /
+    ``lora_targets``, and the parameter dtypes the port stores."""
+    if str(cfg.param_dtype) not in PARAM_DTYPES:
+        raise ValueError(f"param_dtype={cfg.param_dtype!r} is not supported "
+                         f"(supported: {PARAM_DTYPES})")
+    if int(cfg.lora_rank) < 0:
+        raise ValueError(f"lora_rank must be >= 0, got {cfg.lora_rank!r}")
+    if int(cfg.lora_rank) > 0 and cfg.trainable_scope != "reference":
+        raise ValueError("lora_rank > 0 freezes the full UNet (adapters train "
+                         "instead); combine it with trainable_scope: "
+                         "reference only")
+    if int(cfg.lora_rank) > 0:
+        from .training.lora import SCOPES
+
+        if cfg.lora_targets not in SCOPES:
+            raise ValueError(f"lora_targets must be one of {SCOPES}, got "
+                             f"{cfg.lora_targets!r}")
+        if cfg.lora_alpha is not None and float(cfg.lora_alpha) <= 0.0:
+            raise ValueError(f"lora_alpha must be > 0, got {cfg.lora_alpha!r}")
+
+
+def check_serving(cfg: Config) -> None:
+    """Serving runs in one process on one card.  The JAX server shards the
+    padded batch over the chips of its one process; under the port a mesh
+    is one process per rank, and a rank-0 front end would have to
+    broadcast every batch to the others, which is not ported."""
+    if cfg.mesh_shape:
+        raise ValueError(f"serving under mesh_shape={cfg.mesh_shape!r} is not "
+                         "ported yet: the port serves on one card (drop "
+                         "mesh_shape)")
 
 
 def _validate_sampling(cfg: Config) -> None:

@@ -1,6 +1,8 @@
 """Map-style datasets: Something-Something-v2, BridgeData, EpicKitchens-100
 (the port's copy of ``seervideoldm_tpu/data/datasets.py``; numpy, PIL and
-the standard library only, frames decoded through PIL).
+the standard library only).  A clip of JPEG frames is decoded by the
+native frame loader (``data/native.py``), anything else, or a machine
+where it cannot be built, through PIL.
 
 Parity with reference ``dataset/{sthv2,bridgedata,epickitchen}.py`` —
 returning ``(video (f, h, w, 3) float32 in [-1, 1], text_prompt)`` with the
@@ -45,7 +47,14 @@ def _load_clip(paths: Sequence[str], resolution: int, num_frames: int,
             "video clip has no frames on disk (empty or missing rawframes "
             "directory for this sample)"
         )
-    frames = np.stack([load_frame(str(p), resolution) for p in paths], axis=0)
+    frames = None
+    if all(str(p).lower().endswith((".jpg", ".jpeg")) for p in paths):
+        from .native import decode_frames
+
+        frames = decode_frames([str(p) for p in paths], resolution)
+    if frames is None:  # non-JPEG inputs, or the native loader unavailable
+        frames = np.stack([load_frame(str(p), resolution) for p in paths],
+                          axis=0)
     if flip_key is not None and np.random.default_rng(flip_key).random() < 0.5:
         # reference RandomHorizontalFlip (sthv2.py:19,45) — applied per CLIP
         # here (the reference's per-frame transform would flip frames of one

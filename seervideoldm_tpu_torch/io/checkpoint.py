@@ -7,9 +7,12 @@
 - ``pytorch_model.bin``: the SeerUNet ``state_dict`` and
 - ``pytorch_model_1.bin``: the FSText ``state_dict``, under the reference's
   names (the port's modules carry them already), frozen weights as the
-  trainer holds them and trained weights from the fp32 masters -- or from
-  the EMA when it is on: this is the inference artifact;
-- ``train_state.pt``: micro-step count, masters, Adam moments and
+  trainer holds them and trained weights from the masters -- or from the
+  EMA when it is on; under LoRA the adapters' delta merged into the UNet:
+  this is the inference artifact, which every sampling entry loads
+  strictly;
+- ``train_state.pt``: micro-step count, masters (the adapters' included),
+  Adam moments (int8 codes and scales under ``use_8bit_adam``) and
   accumulator, EMA -- what a resume needs.
 
 The JSON sidecar with the meters (``learned_sdunet-steps-<N>.json``) is
@@ -56,13 +59,26 @@ def export_state_dicts(models, weights: Optional[dict] = None) -> dict:
     return out
 
 
-class CheckpointManager:
-    """Save / restore of the train state keyed by optimizer step."""
+def _to_cpu(obj):
+    """``obj`` with every tensor (in nested dicts) detached onto the CPU."""
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    return obj
 
-    def __init__(self, output_dir: str, max_to_keep: Optional[int] = None):
+
+class CheckpointManager:
+    """Save / restore of the train state keyed by optimizer step.
+    ``lora_scale`` > 0: the weight files hold the adapters' delta merged
+    into the UNet (``training.lora.inference_params``)."""
+
+    def __init__(self, output_dir: str, max_to_keep: Optional[int] = None,
+                 lora_scale: float = 0.0):
         self.output_dir = os.path.abspath(output_dir)
         os.makedirs(self.output_dir, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.lora_scale = lora_scale
 
     def path_for_step(self, step: int) -> str:
         return os.path.join(self.output_dir, f"learned_sdunet-steps-{step}")
@@ -75,20 +91,17 @@ class CheckpointManager:
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        sds = export_state_dicts(
-            models, state.ema if state.ema is not None else state.masters)
+        from ..training.lora import inference_params
+
+        sds = inference_params(
+            models, state.ema if state.ema is not None else state.masters,
+            self.lora_scale)
         torch.save(sds["unet"], os.path.join(tmp, UNET_FILE))
         torch.save(sds["fstext"], os.path.join(tmp, FSTEXT_FILE))
-        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
-        opt = state.optimizer.state_dict()
-        torch.save({
-            "step": state.step, "masters": cpu(state.masters),
-            "ema": cpu(state.ema) if state.ema is not None else None,
-            "optimizer": {
-                "count": opt["count"], "mini_step": opt["mini_step"],
-                "mu": cpu(opt["mu"]), "nu": cpu(opt["nu"]),
-                "acc": cpu(opt["acc"]) if opt["acc"] is not None else None},
-        }, os.path.join(tmp, STATE_FILE))
+        torch.save(_to_cpu({
+            "step": state.step, "masters": state.masters, "ema": state.ema,
+            "optimizer": state.optimizer.state_dict(),
+        }), os.path.join(tmp, STATE_FILE))
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
         if self.max_to_keep is not None:

@@ -10,7 +10,9 @@ into SeerUNet, the temporal attentions left fresh) and FSText from
 that is missing raises, where the JAX package skips it.  A checkpoint
 directory in the reference's two-file layout (``load_finetuned``: what the
 port's trainer and the JAX package's exporter write) applies on top.
-``model_overrides`` (YAML dicts under ``unet`` / ``vae``
+``param_dtype: bfloat16`` stores every parameter in bf16 (the trainable
+masters are then the parameters themselves).  ``model_overrides`` (YAML
+dicts under ``unet`` / ``vae``
 / ``clip`` / ``fstext``) scale the sub-models down for smoke runs, with the
 JAX package's keys; the top-level ``tome_ratio`` / ``tome_min_tokens`` and
 ``freeu`` go into the UNet config unless ``model_overrides.unet`` names
@@ -118,6 +120,7 @@ def load_models(cfg: Config, device=None, trainable_scope=None, mesh=None):
         clip_config=sub(CLIPTextConfig, "clip"),
         fstext_kwargs=overrides.get("fstext"),
         dtype=compute_dtype(cfg), device=device, seed=int(cfg.seed),
+        param_dtype=DTYPES[str(cfg.param_dtype)],
         trainable_scope=trainable_scope,
         remat=(cfg.remat or bool(cfg.gradient_checkpointing))
         if trainable_scope else False)

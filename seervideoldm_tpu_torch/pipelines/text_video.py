@@ -61,9 +61,13 @@ class SeerModels:
     fstext: FSTextTransformer
     vae: AutoencoderKL
     clip: CLIPTextModel
-    # fp32 masters of the trainable parameters, ``{"unet.<name>" |
-    # "fstext.<name>": tensor}``; None for models built for sampling
+    # masters of the trainable parameters, ``{"unet.<name>" |
+    # "fstext.<name>" | "lora.<key>": tensor}`` (fp32, or the parameters
+    # themselves under param_dtype bf16); None for models built for sampling
     masters: Optional[dict] = None
+    # LoRA adapters (training/lora.py), ``{"<module path>.lora_a" |
+    # ".lora_b": fp32 tensor}``; None without LoRA
+    lora: Optional[dict] = None
 
     @staticmethod
     def initialize(num_frames: int = 12,
@@ -73,20 +77,30 @@ class SeerModels:
                    fstext_kwargs: Optional[dict] = None,
                    dtype: torch.dtype = torch.bfloat16, device=None,
                    seed: int = 0, trainable_scope: Optional[str] = None,
-                   remat: Union[bool, str] = False) -> "SeerModels":
+                   remat: Union[bool, str] = False,
+                   param_dtype: torch.dtype = torch.float32) -> "SeerModels":
         """Random weights from ``seed``, built directly on ``device`` (CUDA
         unless asked otherwise) and cast to the compute ``dtype`` (norm
-        layers stay fp32).
+        layers stay fp32).  ``param_dtype`` bf16 stores every parameter,
+        the norm layers' too, in bf16 (the compute dtype must then be
+        bf16: the modules compute in their parameters' dtype).
 
         For training pass ``trainable_scope`` ('reference' or 'all'): the
-        parameters it names keep an fp32 master (``masters``, taken before
-        the cast, so the compute copy is the master rounded once) and get
-        ``requires_grad``; everything else is frozen as for sampling."""
+        parameters it names keep a master (``masters``) and get
+        ``requires_grad``; everything else is frozen as for sampling.  An
+        fp32 master is taken before the cast, so the compute copy is the
+        master rounded once; under ``param_dtype`` bf16 the master is the
+        parameter itself, one tensor."""
         dev = resolve_device(device)
         if dev.type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"the CUDA kernels compute in bf16, got {dtype}: "
                              "use compute_dtype bfloat16 on the GPU (fp32 "
                              "runs on the CPU, device='cpu')")
+        if param_dtype not in (torch.float32, dtype):
+            raise ValueError(f"param_dtype {param_dtype} with compute dtype "
+                             f"{dtype}: the port computes in its parameters' "
+                             "dtype, so bf16 parameters need compute_dtype "
+                             "bfloat16")
         unet_config = unet_config or SeerUNetConfig()
         ctx = unet_config.cross_attention_dim
         fs_kw = dict(in_channels=ctx, out_channels=ctx, cross_attention_dim=ctx)
@@ -100,16 +114,20 @@ class SeerModels:
                 vae=AutoencoderKL(vae_config or VAEConfig()),
                 clip=CLIPTextModel(clip_config or CLIPTextConfig()))
         _zero_proj_out(models.unet)
-        if trainable_scope is not None:
+        names = (trainable_names(models.trainable_modules(), trainable_scope)
+                 if trainable_scope is not None else None)
+        if names is not None and param_dtype == torch.float32:
             named = models.named_trainable()
-            models.masters = {
-                n: named[n].detach().clone()
-                for n in trainable_names(models.trainable_modules(),
-                                         trainable_scope)}
+            models.masters = {n: named[n].detach().clone() for n in names}
         for m in models.modules():
             cast_for_compute(m, dtype).eval().requires_grad_(False)
-        if models.masters is not None:
+            if param_dtype != torch.float32:
+                for p in m.parameters():
+                    p.data = p.data.to(param_dtype)
+        if names is not None:
             named = models.named_trainable()
+            if models.masters is None:
+                models.masters = {n: named[n].data for n in names}
             for n in models.masters:
                 named[n].requires_grad_(True)
         return models
@@ -122,10 +140,13 @@ class SeerModels:
         return {"unet": self.unet, "fstext": self.fstext}
 
     def named_trainable(self) -> dict:
-        """``{"unet.<name>" | "fstext.<name>": parameter}`` of both."""
-        return {f"{key}.{name}": p
-                for key, m in self.trainable_modules().items()
-                for name, p in m.named_parameters()}
+        """``{"unet.<name>" | "fstext.<name>": parameter}`` of both, and
+        ``{"lora.<key>": adapter}`` under LoRA."""
+        out = {f"{key}.{name}": p
+               for key, m in self.trainable_modules().items()
+               for name, p in m.named_parameters()}
+        out.update({f"lora.{k}": t for k, t in (self.lora or {}).items()})
+        return out
 
 
 class SeerPipeline:

@@ -8,7 +8,14 @@ on several ranks under torchrun:
 Takes the JAX entry point's YAML keys.  Recipe parity: AdamW over the
 temporal attentions + FSText only, lr scaled by accumulation x batch when
 ``scale_lr``, cosine warmup, global-norm clip 0.3, eps-MSE on VAE latents
-with the clean cond-frame latents concatenated in front.  Checkpoints:
+with the clean cond-frame latents concatenated in front.  The training
+options: ``use_8bit_adam`` (int8 blockwise Adam moments),
+``param_dtype: bfloat16`` (bf16 parameters, masters and moments),
+``lora_rank`` / ``lora_alpha`` / ``lora_targets`` (the UNet frozen,
+adapters on its attention projections and FSText train; the saved weight
+files hold the delta merged into the UNet).  ``learned_unet_ckpt`` names
+a fine-tuned checkpoint (the two-file layout) to start from, as the JAX
+entry's LoRA note reads it; a resume ignores it.  Checkpoints:
 ``<output_dir>/learned_sdunet-steps-<N>/`` (two weight files in the
 reference layout + ``train_state.pt``) with a JSON sidecar of the meters;
 ``saved_global_step: N`` resumes from one, mid-epoch, in the data order of
@@ -45,8 +52,9 @@ from .io.checkpoint import CheckpointManager
 from .parallel.distributed import (assert_replicas_equal, barrier_sync,
                                    initialize_distributed, is_main_process)
 from .parallel.mesh import create_mesh
-from .pipelines.loading import load_models
+from .pipelines.loading import load_finetuned, load_models
 from .training.meters import RunningAverageMeter
+from .training.lora import enable_lora, lora_scale, param_count
 from .training.optim import build_optimizer
 from .training.trainer import (TrainState, make_train_step, prepare_batch_fn,
                                trainable_masters)
@@ -83,6 +91,27 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
     models, tokenizer = load_models(cfg, dev,
                                     trainable_scope=cfg.trainable_scope,
                                     mesh=mesh)
+    if cfg.learned_unet_ckpt and not cfg.saved_global_step:
+        # a fine-tuned Seer checkpoint is the run's starting point (the base
+        # a LoRA run adapts); a resume restores its own state below
+        load_finetuned(models, cfg.learned_unet_ckpt)
+    lora_rank = int(cfg.lora_rank or 0)
+    lscale = 0.0
+    if lora_rank:
+        # the whole UNet freezes; FSText and rank-r adapters on the
+        # attention projections train (the JAX entry's fold_in(rng, 7)
+        # stream is a generator seeded apart from every other draw)
+        if main and not (cfg.learned_unet_ckpt or cfg.saved_global_step):
+            print("lora: base UNet has no fine-tuned temporal attentions -- "
+                  "LoRA adapts whatever the base weights are")
+        gen = torch.Generator(device=dev).manual_seed(int(cfg.seed) * 1_000_003
+                                                      + 7)
+        adapters = enable_lora(models, lora_rank, gen, scope=cfg.lora_targets)
+        lscale = lora_scale(lora_rank, cfg.lora_alpha)
+        if main:
+            print(f"lora: rank {lora_rank} scope {cfg.lora_targets} -- "
+                  f"{param_count(adapters) / 1e6:.2f}M adapter params",
+                  flush=True)
     masters = trainable_masters(models)
     optimizer, schedule_fn = build_optimizer(
         masters, learning_rate, scheduler=cfg.lr_scheduler,
@@ -91,7 +120,7 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         betas=(float(cfg.adam_beta1), float(cfg.adam_beta2)),
         weight_decay=float(cfg.adam_weight_decay),
         eps=float(cfg.adam_epsilon), max_grad_norm=float(cfg.max_grad_norm),
-        accumulation_steps=accum)
+        accumulation_steps=accum, use_8bit=bool(cfg.use_8bit_adam))
     use_ema = float(cfg.ema_decay) > 0.0
     state = TrainState.create(optimizer, ema=use_ema)
     # the SD-1.5 training schedule, zero-terminal-SNR rescaled under the
@@ -101,7 +130,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         schedule=DiffusionSchedule.sd15_train_schedule(
             rescale_zero_snr=bool(cfg.rescale_zero_snr)),
         prediction_type=cfg.prediction_type, text_loss=bool(cfg.text_loss),
-        ema_decay=float(cfg.ema_decay), snr_gamma=float(cfg.snr_gamma))
+        ema_decay=float(cfg.ema_decay), snr_gamma=float(cfg.snr_gamma),
+        lora_scale=lscale)
     prepare = prepare_batch_fn(
         models, sample_posterior=bool(cfg.vae_sample_posterior),
         vae_scale=float(cfg.vae_scale))
@@ -118,7 +148,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
 
     ckpt = CheckpointManager(
         cfg.output_dir,
-        max_to_keep=int(cfg.max_to_keep) if cfg.max_to_keep else None)
+        max_to_keep=int(cfg.max_to_keep) if cfg.max_to_keep else None,
+        lora_scale=lscale)
     losses_train = RunningAverageMeter(0.99)
     lr_meter = RunningAverageMeter(0.99)
     global_step, start_epoch, meta_loaded = 0, 0, False
@@ -262,6 +293,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
             "step_seconds": step_seconds, "loss": last,
             "losses": list(losses_train.vals),
             "checkpoint": ckpt.path_for_step(global_step),
+            "trainable_params": sum(t.numel() for t in masters.values()),
+            "optimizer_state_bytes": optimizer.state_bytes(),
             "mesh": dict(mesh.shape), "device": str(dev)}
 
 

@@ -33,10 +33,17 @@ module computes with its compute-dtype copy, refreshed from the master
 after every optimizer step, and the master's gradient is the copy's
 gradient cast to fp32 -- what a flax ``Dense(dtype=bf16,
 param_dtype=fp32)`` gives.  For an fp32 parameter (the CPU path, and the
-norm layers everywhere) master and copy are one tensor.
+norm layers everywhere) master and copy are one tensor; so are they for
+every parameter under ``param_dtype`` bf16, where the master is bf16 and
+the optimizer takes its gradient in bf16, as flax and optax do.
+
+LoRA (``training/lora.py``): the whole UNet is frozen, the trainable set
+is FSText plus the adapters, and the UNet computes with the adapted
+weights inside ``lora_applied``.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -49,6 +56,7 @@ from ..parallel.activation import (frame_local, frame_shard,
                                    get_activation_mesh)
 from ..parallel.collectives import all_reduce_
 from ..pipelines.text_video import SeerModels
+from .lora import lora_applied
 from .optim import Optimizer
 
 
@@ -72,14 +80,16 @@ class TrainState:
 
 
 def trainable_masters(models: SeerModels) -> dict:
-    """The masters the optimizer is built over.  A parameter that is fp32
-    already IS its master (one tensor, so an update needs no copy back)."""
+    """The masters the optimizer is built over.  A parameter that has its
+    master's dtype already IS its master (one tensor, so an update needs no
+    copy back): fp32 norm layers and LoRA adapters, and every parameter
+    under ``param_dtype`` bf16."""
     if models.masters is None:
         raise ValueError("models were built for sampling: pass "
                          "trainable_scope to SeerModels.initialize")
     named = models.named_trainable()
     for name, master in models.masters.items():
-        if named[name].dtype == torch.float32:
+        if named[name].dtype == master.dtype:
             models.masters[name] = named[name].data
     return models.masters
 
@@ -147,16 +157,24 @@ def make_train_step(models: SeerModels,
                     schedule: Optional[DiffusionSchedule] = None,
                     cond_frames: int = 2, prediction_type: str = "epsilon",
                     text_loss: bool = False, ema_decay: float = 0.0,
-                    snr_gamma: float = 0.0) -> Callable:
+                    snr_gamma: float = 0.0, lora_scale: float = 0.0) -> Callable:
     """``train_step(state, batch, generator=None, noise=None,
     timesteps=None) -> metrics`` (``loss``, ``grad_norm``, ``mse`` as
     scalar tensors on the device; ``did_sync`` a bool).  The state is
     updated in place.  Noise and timesteps come from ``generator`` unless
     they are handed in.  ``train_step.loss_and_grads(names, batch, noise,
     timesteps)`` is the differentiated part alone: ``(loss, mse, {name:
-    fp32 gradient})``."""
+    fp32 gradient})``.
+
+    ``lora_scale`` > 0: ``models.lora`` holds the adapters
+    (``lora.enable_lora``); the UNet computes with ``W + lora_scale * (A @
+    B)^T`` on the adapted projections, forward and backward, and the
+    gradients reach A and B (and FSText), never the frozen UNet."""
     if prediction_type not in ("epsilon", "v_prediction"):
         raise ValueError(f"unknown prediction type {prediction_type!r}")
+    if lora_scale > 0.0 and not models.lora:
+        raise ValueError("lora_scale > 0 but the models carry no adapters "
+                         "(build them with training.lora.enable_lora)")
     train_schedule = schedule or DiffusionSchedule.sd15_train_schedule()
     dev = models.unet.conv_in.weight.device
     acp = torch.as_tensor(train_schedule.alphas_cumprod, device=dev)
@@ -219,7 +237,11 @@ def make_train_step(models: SeerModels,
         values, the gradients reduced over every rank."""
         named = models.named_trainable()
         params = [named[n] for n in names]
-        with torch.enable_grad():
+        adapted = (lora_applied(unet, models.lora, lora_scale)
+                   if lora_scale > 0.0 else contextlib.nullcontext())
+        # the adapted weights stay in place through the backward, where a
+        # remat block recomputes its forward
+        with torch.enable_grad(), adapted:
             loss, mse = loss_fn(batch, noise, timesteps)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         # the master's gradient is the compute copy's, cast to fp32; a

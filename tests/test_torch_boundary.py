@@ -8,7 +8,9 @@
   slice's: ``diffusion/dpm_solver``, ``diffusion/pab``, ``ops/tome``,
   ``ops/freeu`` and the ``inference`` and ``edit`` entries; the
   pretrained and evaluation slice's: ``io/state_dict``, ``io/pretrained``,
-  ``evaluation/*`` and the ``eval`` entry)
+  ``evaluation/*`` and the ``eval`` entry; the serving and training-option
+  slice's: ``serving/``, the ``serve`` entry, ``training/lora``,
+  ``training/optim8bit``, ``data/native``)
   and the root ``chip_smoke.py`` import in a fresh
   interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
   ``seervideoldm_tpu`` cannot be imported (nor ``safetensors``, which the
@@ -87,6 +89,24 @@ def test_boundary_walk_reaches_the_pretrained_and_eval_modules():
                 "evaluation.fvd", "evaluation.i3d", "evaluation.c3d",
                 "evaluation.inception_score", "evaluation.clip_sim", "eval"):
         assert f"seervideoldm_tpu_torch.{mod}" in names, mod
+
+
+def test_boundary_walk_reaches_the_serving_and_training_option_modules():
+    names = set(_port_modules())
+    for mod in ("serving", "serving.batcher", "serving.server", "serve",
+                "training.lora", "training.optim8bit", "data.native"):
+        assert f"seervideoldm_tpu_torch.{mod}" in names, mod
+
+
+def test_serve_entry_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid here")
+    from seervideoldm_tpu_torch import serve
+
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("resolution: 32\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--config", str(cfg)])
 
 
 def test_new_entries_default_to_cuda(tmp_path):

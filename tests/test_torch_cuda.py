@@ -580,3 +580,72 @@ def test_eval_scorers_card_vs_cpu(gen, scorer):
                                        cfg.image_size)
         rel = _card_vs_cpu(lambda: clip_sim.CLIPVisionModel(cfg), x)
     assert rel <= 1e-3, rel
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
+def test_serving_shapes(gen, kernel):
+    """K1-K5 at the shapes a batch of ``configs/serve.yaml`` gives them
+    (256 px, 12 frames, ``serve_max_batch`` 4: CFG batch 8), no gradient,
+    against their plain versions."""
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as FA
+    from seervideoldm_tpu_torch.ops.kernels import geglu_ff as G
+    from seervideoldm_tpu_torch.ops.kernels import swat_attention as SW
+    from seervideoldm_tpu_torch.ops.rotary import rotary_tables
+
+    with torch.no_grad():
+        if kernel == "K1":
+            q, k, v = (_randn(gen, 64, 12, 32, 32, 40) for _ in range(3))
+            cos, sin = rotary_tables(12, 32, 32, 40, 32, device="cuda")
+            got = SW.swat_attention_tables(q, k, v, cos, sin, 40 ** -0.5,
+                                           True, 8)
+            want = SW.swat_attention_tables_plain(q, k, v, cos, sin,
+                                                  40 ** -0.5, True, 8)
+        elif kernel == "K2":
+            q, k, v = (_randn(gen, 768, 1024, 40) for _ in range(3))
+            got = FA.flash_attention(q, k, v, 40 ** -0.5)
+            want = FA.flash_attention_plain(q, k, v, 40 ** -0.5)
+        else:
+            n, c = (24576, 640) if kernel == "K5" else (98304, 320)
+            x, gamma, beta, w1, b1, w2, b2, w3, b3, res = _geglu_inputs(
+                gen, n, c)
+            if kernel == "K5":
+                got = G.geglu_ff(x, w1, b1, w2, b2)
+                want = G.geglu_ff_plain(x, w1, b1, w2, b2)
+            elif kernel == "K3":
+                got = G.ln_geglu_ff(x, gamma, beta, w1, b1, w2, b2)
+                want = G.ln_geglu_ff_plain(x, gamma, beta, w1, b1, w2, b2)
+            else:
+                got = G.ln_geglu_ff_proj(x, gamma, beta, w1, b1, w2, b2, w3,
+                                         b3, res)
+                want = G.ln_geglu_ff_proj_plain(x, gamma, beta, w1, b1, w2,
+                                                b2, w3, b3, res)
+    _close(got, want)
+
+
+def test_adamw_8bit_step_card_vs_cpu(gen):
+    """Two 8-bit AdamW updates on CUDA tensors against the same updates on
+    the CPU: the int8 codes equal, the scales and parameters within 1e-6
+    (separate fp32 elementwise kernels on both sides; the final
+    ``p - lr * u`` may fuse into one rounding on either)."""
+    from seervideoldm_tpu_torch.training.optim8bit import adamw_8bit
+
+    shapes = {"w": (1280, 640), "b": (700,), "n": (3, 5)}
+    cpu = {k: torch.randn(s, generator=torch.Generator().manual_seed(i))
+           for i, (k, s) in enumerate(shapes.items())}
+    card = {k: v.cuda() for k, v in cpu.items()}
+    opts = [adamw_8bit(p, lambda c: 1e-2, weight_decay=1e-2)
+            for p in (cpu, card)]
+    g0 = torch.Generator().manual_seed(9)
+    for _ in range(2):
+        grads = {k: torch.randn(s, generator=g0) for k, s in shapes.items()}
+        opts[0].update(grads)
+        opts[1].update({k: v.cuda() for k, v in grads.items()})
+    torch.cuda.synchronize()
+    for k in shapes:
+        torch.testing.assert_close(card[k].cpu(), cpu[k], atol=1e-6, rtol=0)
+    sa, sb = (o.state_dict() for o in opts)
+    for key in ("mu", "nu"):
+        for k in shapes:
+            assert torch.equal(sb[key][k]["codes"].cpu(), sa[key][k]["codes"])
+            torch.testing.assert_close(sb[key][k]["scales"].cpu(),
+                                       sa[key][k]["scales"], atol=1e-6, rtol=0)
