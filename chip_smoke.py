@@ -140,8 +140,10 @@ no result line):
 7b. training options, on phase 7's tree and config, (a) and (b) from a
    seeded base: the seeded init with every transformer's ``proj_out``
    drawn non-zero (at random init they are zero, which hides every
-   attention site from the output), written as a two-file checkpoint and
-   named by ``learned_unet_ckpt``.  (b) ``use_8bit_adam`` on the
+   attention site from the output), written as the directory the
+   pretrained route reads (``pretrained_model_name_or_path`` with the
+   whole SeerUNet, and ``fstext_init_ckpt``), as the JAX entry reads its
+   start.  (b) ``use_8bit_adam`` on the
    reference scope, 2 optimizer steps: every trainable master moved,
    every frozen weight equal to the base's, at most 2.1 bytes of
    optimizer state per trainable parameter, s per step and peak memory
@@ -174,6 +176,15 @@ no result line):
    global batch;
    (d) the ``train`` entry under ``{seq: 2}`` at 11 frames, 2 optimizer
    steps (K6 and K9), then the same check;
+   (e), (f) (c)'s config and seed with ``zero1: true``, then with
+   ``fsdp: true``: the losses within 1e-5 relative of (c)'s, the masters
+   (read back from the checkpoints) within relative L2 1e-5, per rank the
+   optimizer state at most half (c)'s + 1 % (zero1) and the parameters at
+   most half (c)'s + the largest gathered unit (fsdp), the kernels of the
+   training path launched; s per step, bytes and the all-gathers /
+   reduce-scatters per micro-step in the line; in (c)-(f) the peak memory
+   of the run without its checkpoint save (``peak_mem_gb``: build, data,
+   steps) and of the save (``peak_mem_gb_save``), each per rank;
    each run's launch counts are zeroed just before and read just after, on
    every rank; a ``parallel_run`` JSON line per run;
 9. floor budget: K10 (the on-chip softmax calibration) against its plain
@@ -276,6 +287,12 @@ PER_MICRO_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
 PAR_RANKS, PAR_TIMEOUT = 2, 700
 PAR_UNET_RTOL, PAR_LOSS_RTOL = 2e-2, 1e-2
 PAR_OPT_STEPS = 2
+# phase 8 (e) / (f), zero1 and fsdp against (c): the losses and the masters
+# after the last step (relative L2), and the kernels of the training path
+SHARD_LOSS_RTOL, SHARD_MASTERS_RTOL = 1e-5, 1e-5
+SHARDED_KERNELS = ("swat_attention_tables", "flash_attention", "ln_geglu_ff",
+                   "geglu_ff", "swat_attention_tables_bwd",
+                   "flash_attention_bwd")
 # the floor-budget phase: K10 against its plain version (fp32 both sides:
 # exp2f of a log2e-scaled argument and one reciprocal per row against exp and
 # a division, a few ulps apart per element; sums of 2048 terms in another
@@ -2524,16 +2541,18 @@ PER_MICRO_STEP_LORA = dict(PER_MICRO_STEP, flash_attention_bwd=5)
 
 def write_seeded_base(raw: dict, path: str) -> dict:
     """The seeded init of ``raw``'s models with every transformer's
-    ``proj_out`` drawn non-zero, written as a two-file Seer checkpoint to
-    ``path``: the base phase 7b's runs start from (``learned_unet_ckpt``).
-    At random init every ``proj_out`` is zero, which hides each attention
-    site from the output, so no adapter would get a gradient.  Returns
-    the files' state dicts (CPU)."""
+    ``proj_out`` drawn non-zero, written to ``path`` as the directory the
+    pretrained route reads (``io.pretrained.write_pretrained_dir``: the
+    whole SeerUNet, VAE, CLIP and ``fstext.bin``): the base phase 7b's runs
+    start from, as the JAX entry would read it.  At random init every
+    ``proj_out`` is zero, which hides each attention site from the output,
+    so no adapter would get a gradient.  Returns the UNet's and FSText's
+    state dicts as the modules hold them (CPU)."""
     import torch
 
     from seervideoldm_tpu_torch.config import config_from_dict
-    from seervideoldm_tpu_torch.io.checkpoint import (FSTEXT_FILE, UNET_FILE,
-                                                      export_state_dicts)
+    from seervideoldm_tpu_torch.io.checkpoint import export_state_dicts
+    from seervideoldm_tpu_torch.io.pretrained import write_pretrained_dir
     from seervideoldm_tpu_torch.pipelines.loading import load_models
 
     models, _ = load_models(config_from_dict(dict(raw)), "cuda")
@@ -2544,11 +2563,16 @@ def write_seeded_base(raw: dict, path: str) -> dict:
                 p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
                         * PROJ_OUT_STD)
     sds = export_state_dicts(models)
+    write_pretrained_dir(models, path)
     del models
-    os.makedirs(path)
-    torch.save(sds["unet"], os.path.join(path, UNET_FILE))
-    torch.save(sds["fstext"], os.path.join(path, FSTEXT_FILE))
     return sds
+
+
+def _base_keys(path: str) -> dict:
+    """The config keys that start a run from ``write_seeded_base``'s
+    directory."""
+    return dict(pretrained_model_name_or_path=path,
+                fstext_init_ckpt=os.path.join(path, "fstext.bin"))
 
 
 def _option_run(card: str, run: str, raw: dict, opt_steps: int,
@@ -2614,14 +2638,12 @@ def _lora_forward_check(ckpt: str, raw: dict, scale: float) -> dict:
     from seervideoldm_tpu_torch.config import config_from_dict
     from seervideoldm_tpu_torch.inference_img import build_pipeline
     from seervideoldm_tpu_torch.io.checkpoint import STATE_FILE
-    from seervideoldm_tpu_torch.pipelines.loading import (load_finetuned,
-                                                          load_models)
+    from seervideoldm_tpu_torch.pipelines.loading import load_models
     from seervideoldm_tpu_torch.training.lora import apply_lora, lora_applied
 
     plain = dict(raw, lora_rank=0, use_8bit_adam=False)
     pipe, _, _ = build_pipeline(dict(plain, learned_unet_ckpt=ckpt), "cuda")
     base, _ = load_models(config_from_dict(plain), "cuda")
-    load_finetuned(base, raw["learned_unet_ckpt"])
     masters = torch.load(os.path.join(ckpt, STATE_FILE),
                          map_location="cuda")["masters"]
     lora = {k[len("lora."):]: v for k, v in masters.items()
@@ -2714,7 +2736,7 @@ def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
     base_dir = os.path.join(tmp, "base")
     start = write_seeded_base(phase7["raw"], base_dir)
     base = dict(phase7["raw"], max_train_steps=OPTION_OPT_STEPS,
-                save_steps=OPTION_OPT_STEPS, learned_unet_ckpt=base_dir)
+                save_steps=OPTION_OPT_STEPS, **_base_keys(base_dir))
     total = {name: 0 for name in PER_STEP}
 
     def add(launches):
@@ -2808,7 +2830,7 @@ def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
     raw = dict(base, output_dir=os.path.join(tmp, "out_bf16"),
                param_dtype="bfloat16", mixed_precision="bf16",
                compute_dtype="bfloat16", max_train_steps=1, save_steps=1,
-               learned_unet_ckpt=None)
+               pretrained_model_name_or_path=None, fstext_init_ckpt=None)
     summary, _, launches, secs, peak = _option_run(card, "bf16", raw, 1,
                                                    PER_MICRO_STEP)
     add(launches)
@@ -2883,6 +2905,55 @@ def _end_run(t0: float) -> dict:
     return {"seconds": time.perf_counter() - t0, "peak_mem_gb": _peak_gb(),
             "launches": read_launches(),
             "collectives": {op: list(v) for op, v in collectives.stats.items()}}
+
+
+@contextlib.contextmanager
+def _saves_apart():
+    """Inside, every ``CheckpointManager.save`` is measured on its own: the
+    collectives it ran and its peak device memory (``save_peak_gb``); the
+    peak of everything else until then (model build, data, the steps) is
+    ``step_peak_gb``, to be joined with the peak after the last save."""
+    import torch
+
+    from seervideoldm_tpu_torch.io.checkpoint import CheckpointManager
+    from seervideoldm_tpu_torch.parallel import collectives
+
+    real_save = CheckpointManager.save
+    rec = {"collectives": {}, "save_peak_gb": 0.0, "step_peak_gb": 0.0,
+           "saves": 0}
+
+    def save(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        rec["step_peak_gb"] = max(rec["step_peak_gb"], _peak_gb())
+        torch.cuda.reset_peak_memory_stats()
+        before = {op: list(v) for op, v in collectives.stats.items()}
+        out = real_save(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec["save_peak_gb"] = max(rec["save_peak_gb"], _peak_gb())
+        torch.cuda.reset_peak_memory_stats()
+        for op, v in collectives.stats.items():
+            got = rec["collectives"].setdefault(op, [0, 0])
+            for i in (0, 1):
+                got[i] += v[i] - before.get(op, [0, 0])[i]
+        rec["saves"] += 1
+        return out
+
+    CheckpointManager.save = save
+    try:
+        yield rec
+    finally:
+        CheckpointManager.save = real_save
+
+
+def _end_train_run(t0: float, rec: dict) -> dict:
+    """``_end_run`` of a train entry run under ``_saves_apart``: the peak
+    of the steps (``peak_mem_gb``) and of the saves (``peak_mem_gb_save``)
+    apart."""
+    row = _end_run(t0)
+    row.update(peak_mem_gb=max(row["peak_mem_gb"], rec["step_peak_gb"]),
+               peak_mem_gb_save=rec["save_peak_gb"] if rec["saves"] else None,
+               saves=rec["saves"])
+    return row
 
 
 def _unet_vs_single(unet, mesh, f: int, cond_frame: int, seed: int) -> dict:
@@ -3040,8 +3111,9 @@ def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
             seed=SEED, mixed_precision="bf16", compute_dtype="bfloat16",
             text_loss=True, mesh_shape=mesh_shape)
         t0 = _start_run()
-        summary = train(config_from_dict(dict(raw)))
-        row = _end_run(t0)
+        with _saves_apart() as rec:
+            summary = train(config_from_dict(dict(raw)))
+        row = _end_train_run(t0, rec)
         row.update(global_step=summary["global_step"],
                    losses=summary["losses"],
                    step_seconds=summary["step_seconds"],
@@ -3050,8 +3122,67 @@ def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
         row["step_check"] = _train_vs_single(cfg, create_mesh(mesh_shape),
                                              SEED + 5)
         runs[name] = row
+        if name == "train_data2":
+            replicated = (raw, summary)
+        torch.cuda.empty_cache()
+    # (e), (f) the train entry of (c) under zero1 and under fsdp
+    for name, flag in (("train_data2_zero1", "zero1"),
+                       ("train_data2_fsdp", "fsdp")):
+        runs[name] = _sharded_run(name, flag, *replicated, out_dir)
         torch.cuda.empty_cache()
     return runs
+
+
+def _sharded_run(name: str, flag: str, raw: dict, replicated: dict,
+                 out_dir: str) -> dict:
+    """Phase 8's (e) / (f): the ``train`` entry with (c)'s config and seed
+    plus ``flag``; its numbers beside (c)'s: losses, the masters its
+    checkpoint holds (rank 0 reads both), the state and parameter bytes
+    this rank holds, the collectives per micro-step (the checkpoint's
+    apart, and the peak memory of the steps and of the save apart)."""
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.io.checkpoint import STATE_FILE
+    from seervideoldm_tpu_torch.parallel.distributed import (barrier_sync,
+                                                             is_main_process)
+    from seervideoldm_tpu_torch.train import train
+
+    sharded = dict(raw, output_dir=os.path.join(out_dir, name), **{flag: True})
+    t0 = _start_run()
+    with _saves_apart() as rec:
+        summary = train(config_from_dict(dict(sharded)))
+    row = _end_train_run(t0, rec)
+    micro = summary["micro_steps"]
+    in_saves = {op: rec["collectives"].get(op, [0, 0])
+                for op in row["collectives"]}
+    row.update(
+        sharding=summary["sharding"], global_step=summary["global_step"],
+        losses=summary["losses"], losses_replicated=replicated["losses"],
+        step_seconds=summary["step_seconds"],
+        step_seconds_replicated=replicated["step_seconds"],
+        state_bytes=summary["state_bytes"],
+        state_bytes_replicated=replicated["state_bytes"],
+        param_bytes=summary["param_bytes"],
+        param_bytes_replicated=replicated["param_bytes"],
+        largest_unit_bytes=summary["largest_unit_bytes"],
+        collectives_per_micro_step={
+            op: [(v[0] - in_saves[op][0]) / micro,
+                 (v[1] - in_saves[op][1]) / micro]
+            for op, v in row["collectives"].items()},
+        collectives_checkpoint=in_saves,
+        checkpoint_written=os.path.isdir(summary["checkpoint"]))
+    if is_main_process():
+        def masters(path):
+            state = torch.load(os.path.join(path, STATE_FILE),
+                               map_location="cpu")
+            return torch.cat([t.float().reshape(-1) for _, t in
+                              sorted(state["masters"].items())])
+
+        row["masters_rel_l2"] = _rel_l2(masters(summary["checkpoint"]),
+                                        masters(replicated["checkpoint"]))
+    barrier_sync()
+    return row
 
 
 def phase_parallel(card: str) -> dict:
@@ -3092,9 +3223,13 @@ def phase_parallel(card: str) -> dict:
         print(json.dumps({"parallel_run": {
             "run": name, "card": card, "transport": transport,
             "ranks": PAR_RANKS, **{k: v for k, v in row.items()
-                                   if k not in ("launches", "peak_mem_gb")},
+                                   if k not in ("launches", "peak_mem_gb",
+                                                "peak_mem_gb_save")},
             "launches_per_rank": [r["launches"] for r in per_rank],
-            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in per_rank]}}),
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in per_rank],
+            **({"peak_mem_gb_save_per_rank": [r["peak_mem_gb_save"]
+                                              for r in per_rank]}
+               if "peak_mem_gb_save" in row else {})}}),
               flush=True)
         for k, n in row["launches"].items():
             total[k] += n
@@ -3114,6 +3249,8 @@ def phase_parallel(card: str) -> dict:
             f"parallel (b): UNet relative L2 {b['rel_l2_err']}")
     require(b["launches"]["swat_attention"] > 0,
             "parallel (b): K6 was not launched")
+    for name in ("train_data2_zero1", "train_data2_fsdp"):
+        _check_sharded(name, main[name], [r[name] for r in results])
     for name, kernels in (("train_data2", ("swat_attention_tables",
                                            "swat_attention_tables_bwd")),
                           ("train_seq2_f11_k6", ("swat_attention",
@@ -3136,6 +3273,35 @@ def phase_parallel(card: str) -> dict:
             require(row["launches"][k] > 0,
                     f"parallel {name}: {k} was not launched")
     return total
+
+
+def _check_sharded(name: str, row: dict, per_rank: list) -> None:
+    """Phase 8 (e) / (f) against (c): the losses and masters, the bytes
+    each rank holds, the kernels of the training path launched."""
+    mode = row["sharding"]
+    require(mode in ("zero1", "fsdp") and row["global_step"] == PAR_OPT_STEPS
+            and row["checkpoint_written"],
+            f"parallel {name}: mode {mode}, {row['global_step']} steps")
+    got, want = row["losses"], row["losses_replicated"]
+    require(len(got) == len(want) and all(
+        abs(a - b) <= SHARD_LOSS_RTOL * abs(b) for a, b in zip(got, want)),
+        f"parallel {name}: losses {got} vs replicated {want}")
+    require(row["masters_rel_l2"] <= SHARD_MASTERS_RTOL,
+            f"parallel {name}: masters relative L2 {row['masters_rel_l2']}")
+    for r in per_rank:
+        if mode == "zero1":
+            require(r["state_bytes"]
+                    <= 0.5 * r["state_bytes_replicated"] * 1.01,
+                    f"parallel {name}: state {r['state_bytes']} B per rank "
+                    f"vs replicated {r['state_bytes_replicated']}")
+        else:
+            require(r["param_bytes"] <= 0.5 * r["param_bytes_replicated"]
+                    + r["largest_unit_bytes"],
+                    f"parallel {name}: parameters {r['param_bytes']} B per "
+                    f"rank vs replicated {r['param_bytes_replicated']}")
+    for k in SHARDED_KERNELS:
+        require(row["launches"][k] > 0, f"parallel {name}: {k} was not "
+                "launched")
 
 
 # ------------------------------------------------------------ floor budget

@@ -59,7 +59,7 @@ class Config:
     lora_rank: int = 0
     lora_alpha: Optional[float] = None  # null: the rank (scale 1)
     lora_targets: str = "attention"     # or "temporal"
-    # refused until ported (queue 1 item 7)
+    # sharded optimizer state / parameters over 'data' (parallel/sharding.py)
     zero1: bool = False
     fsdp: bool = False
     # {"data": D, "seq": S} over the ranks torchrun starts; null: all data
@@ -174,11 +174,6 @@ def parse_remat(value: Any) -> Any:
 
 def validate(cfg: Config) -> Config:
     cfg.remat = parse_remat(cfg.remat)
-    for key, what in (("zero1", "sharded optimizer state"),
-                      ("fsdp", "sharded parameters and optimizer state")):
-        if getattr(cfg, key):
-            raise ValueError(f"{key} ({what}) is not ported yet: the port "
-                             "runs data and sequence parallelism only")
     if cfg.mesh_shape is not None:
         for axis, size in dict(cfg.mesh_shape).items():
             if axis == "model":

@@ -17,6 +17,14 @@
 
 The JSON sidecar with the meters (``learned_sdunet-steps-<N>.json``) is
 written by the train loop beside the directory.
+
+Under ``zero1`` / ``fsdp`` (``models.sharding``) every rank calls ``save``
+and ``restore``: the shards are gathered to rank 0 one group at a time and
+moved to its host (``ShardPlan.to_names`` and co.), and rank 0 writes the
+same files under the same keys as an unsharded run; a restore takes each
+rank's shards of them, so a checkpoint resumes on any number of ranks.
+Both go through one route (``_names``, ``_load``), the identity on
+unsharded state.
 """
 from __future__ import annotations
 
@@ -43,20 +51,41 @@ def _step_dirs(output_dir: str) -> list[tuple[int, str]]:
     return sorted(out)
 
 
-def export_state_dicts(models, weights: Optional[dict] = None) -> dict:
+def export_state_dicts(models, weights: Optional[dict] = None,
+                       base: Optional[dict] = None) -> dict:
     """``{"unet": state_dict, "fstext": state_dict}`` on the CPU, with the
     entries named in ``weights`` (``{"unet.<name>": fp32 tensor}``, the
     masters or the EMA) taken from there instead of the modules' compute
-    copies."""
+    copies, and those named in ``base`` (the same keys; the whole weights
+    of modules that hold shards) over the modules' own."""
     out = {}
     for key, module in models.trainable_modules().items():
         sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
-        for name, t in (weights or {}).items():
+        for name, t in [*(base or {}).items(), *(weights or {}).items()]:
             model, _, pname = name.partition(".")
             if model == key:
                 sd[pname] = t.detach().cpu().clone()
         out[key] = sd
     return out
+
+
+def _names(plan, tensors: Optional[dict]):
+    """The state ``tensors`` (by name, or by group under a plan) by name
+    on the host of the writing rank; None on the other ranks."""
+    if tensors is None:
+        return None
+    if plan is None:
+        return _to_cpu(tensors)
+    return plan.to_names(tensors)
+
+
+def _load(plan, tensors: dict, whole: dict) -> None:
+    """``whole`` (by name) into the state ``tensors`` in place."""
+    if plan is not None:
+        plan.load_names(tensors, whole)
+        return
+    for name, t in tensors.items():
+        t.copy_(whole[name])
 
 
 def _to_cpu(obj):
@@ -86,28 +115,45 @@ class CheckpointManager:
     def save(self, step: int, state, models) -> str:
         """Write the step's directory (the two weight files with the EMA
         weights when the state has an EMA, and ``train_state.pt``), then
-        drop the oldest directories beyond ``max_to_keep``."""
+        drop the oldest directories beyond ``max_to_keep``.  Under a
+        sharded state every rank calls it and rank 0 writes."""
+        from ..parallel.distributed import is_main_process
+
+        plan = models.sharding
         path = self.path_for_step(step)
+        masters = _names(plan, state.masters)
+        ema = _names(plan, state.ema)
+        if plan is None:
+            optimizer, base = _to_cpu(state.optimizer.state_dict()), None
+        else:
+            optimizer = plan.optimizer_state(state.optimizer)
+            base = plan.module_weights()
+        if plan is None or is_main_process():
+            # under a mesh with ``seq`` each seq line's data rank 0 holds
+            # the gathered state; the first rank alone writes it
+            self._write(path, state.step, masters, ema, optimizer, models,
+                        base)
+        return path
+
+    def _write(self, path: str, step: int, masters: dict,
+               ema: Optional[dict], optimizer: dict, models,
+               base: Optional[dict]) -> None:
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         from ..training.lora import inference_params
 
-        sds = inference_params(
-            models, state.ema if state.ema is not None else state.masters,
-            self.lora_scale)
+        sds = inference_params(models, ema if ema is not None else masters,
+                               self.lora_scale, base)
         torch.save(sds["unet"], os.path.join(tmp, UNET_FILE))
         torch.save(sds["fstext"], os.path.join(tmp, FSTEXT_FILE))
-        torch.save(_to_cpu({
-            "step": state.step, "masters": state.masters, "ema": state.ema,
-            "optimizer": state.optimizer.state_dict(),
-        }), os.path.join(tmp, STATE_FILE))
+        torch.save({"step": step, "masters": masters, "ema": ema,
+                    "optimizer": optimizer}, os.path.join(tmp, STATE_FILE))
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
         if self.max_to_keep is not None:
             for _, old in _step_dirs(self.output_dir)[:-self.max_to_keep]:
                 shutil.rmtree(old, ignore_errors=True)
-        return path
 
     def restore(self, step: int, state, models) -> None:
         """Load ``train_state.pt`` of ``step`` into ``state`` in place and
@@ -118,27 +164,34 @@ class CheckpointManager:
 
         saved = torch.load(os.path.join(self.path_for_step(step), STATE_FILE),
                            map_location="cpu")
-        missing = set(state.masters) ^ set(saved["masters"])
+        plan = models.sharding
+        names = (set(state.masters) if plan is None else
+                 {n for layout in plan.layouts.values() for n in layout.names})
+        missing = names ^ set(saved["masters"])
         if missing:
             raise ValueError(f"checkpoint and trainer disagree on the "
                              f"trainable set, e.g. {sorted(missing)[:4]}")
+        ema_src = saved["ema"]
+        if state.ema is not None and ema_src is None:
+            print("resume: checkpoint has no EMA state -- seeding the EMA "
+                  "from the restored weights")
+            ema_src = saved["masters"]
+        elif state.ema is None and ema_src is not None:
+            print("resume: dropping the checkpoint's EMA state "
+                  "(ema_decay: 0)")
         with torch.no_grad():
-            for name, t in state.masters.items():
-                t.copy_(saved["masters"][name])
-            state.optimizer.load_state_dict(saved["optimizer"])
+            _load(plan, state.masters, saved["masters"])
             if state.ema is not None:
-                src = saved["ema"]
-                if src is None:
-                    print("resume: checkpoint has no EMA state -- seeding "
-                          "the EMA from the restored weights")
-                    src = saved["masters"]
-                for name, t in state.ema.items():
-                    t.copy_(src[name])
-            elif saved["ema"] is not None:
-                print("resume: dropping the checkpoint's EMA state "
-                      "(ema_decay: 0)")
+                _load(plan, state.ema, ema_src)
+            if plan is None:
+                state.optimizer.load_state_dict(saved["optimizer"])
+            else:
+                plan.load_optimizer_state(state.optimizer, saved["optimizer"])
         state.step = int(saved["step"])
-        sync_compute_copies(models)
+        if plan is not None:
+            plan.after_step(models)
+        else:
+            sync_compute_copies(models)
 
     def latest_step(self) -> Optional[int]:
         dirs = _step_dirs(self.output_dir)

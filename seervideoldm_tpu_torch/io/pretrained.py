@@ -21,6 +21,8 @@ naming them.  Each tensor is cast to its module's dtype on its module's
 device (``Tensor.copy_``).  Each function returns the module keys it left
 fresh, as the JAX ones return the paths they left at their init.  Loading
 works on modules on the ``meta`` device too (shapes only).
+``write_pretrained_dir`` writes a model set back out in the layout the
+loaders read.
 """
 from __future__ import annotations
 
@@ -142,3 +144,27 @@ def convert_fstext(state_dict: Mapping[str, torch.Tensor],
     fresh = load_into(fstext, state_dict, skip=lambda k: k.endswith(FREQS))
     _recompute_rotary(fstext)
     return _strict(fstext, [k for k in fresh if not k.endswith(FREQS)])
+
+
+def write_pretrained_dir(models, root: str) -> dict:
+    """``models``' weights as a directory the pretrained route reads
+    (``pipelines/loading.load_pretrained``, and the JAX package's
+    ``load_models``): ``vae/diffusion_pytorch_model.bin``,
+    ``text_encoder/pytorch_model.bin``, ``unet/diffusion_pytorch_model.bin``
+    (the whole SeerUNet, temporal attentions included, which both loaders
+    take where the file has them) and ``fstext.bin`` for
+    ``fstext_init_ckpt``; fp32, under the port's (the reference's) names.
+    Returns the state dicts written, by model (CPU)."""
+    import os
+
+    sds = {key: {k: v.detach().float().cpu()
+                 for k, v in getattr(models, key).state_dict().items()
+                 if not k.endswith(FREQS)}
+           for key in ("vae", "clip", "unet", "fstext")}
+    for key, (sub, name) in (("vae", ("vae", "diffusion_pytorch_model.bin")),
+                             ("clip", ("text_encoder", "pytorch_model.bin")),
+                             ("unet", ("unet", "diffusion_pytorch_model.bin"))):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        torch.save(sds[key], os.path.join(root, sub, name))
+    torch.save(sds["fstext"], os.path.join(root, "fstext.bin"))
+    return sds

@@ -64,6 +64,9 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.self_attn = CLIPAttention(cfg)
@@ -100,6 +103,9 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, config: CLIPTextConfig = CLIPTextConfig()):
         super().__init__()
         self.config = config

@@ -23,6 +23,9 @@ MAX_LENGTH = 1024
 
 
 class BasicLinearTransformerBlock3D(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None, temporal: bool = False):
         super().__init__()
@@ -82,6 +85,9 @@ def nearest_resize_frames(pos_embed: torch.Tensor, num_frames: int) -> torch.Ten
 
 
 class FSTextTransformer(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, num_frames: int = 16, pos_embed_frames: int = 16,
                  in_channels: int = 768, out_channels: int = 768,
                  n_heads: int = 8, num_layers: int = 8,

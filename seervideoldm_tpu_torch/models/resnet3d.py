@@ -20,6 +20,9 @@ from ..ops.norms import GroupNorm
 class Upsample3D(nn.Module):
     """Nearest 2x spatial upsample + 3x3 conv."""
 
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, channels: int, out_channels: Optional[int] = None):
         super().__init__()
         self.conv = InflatedConv(channels, out_channels or channels, 3, padding=1)
@@ -31,6 +34,9 @@ class Upsample3D(nn.Module):
 
 class Downsample3D(nn.Module):
     """Stride-2 spatial 3x3 conv."""
+
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
 
     def __init__(self, channels: int, out_channels: Optional[int] = None,
                  padding: int = 1):
@@ -48,6 +54,9 @@ class Downsample3D(nn.Module):
 
 class ResnetBlock3D(nn.Module):
     """GN(fp32) -> SiLU -> conv -> +temb -> GN -> SiLU -> conv (+shortcut)."""
+
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 512, groups: int = 32,

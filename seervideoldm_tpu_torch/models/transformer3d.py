@@ -28,7 +28,12 @@ them from its config or its caller at every call):
   name (``site``, set by ``SeerUNet``), made for one sampling call;
 - ``tome = (ratio, min_tokens, sd)``: Token Merging around the spatial
   self-attention where ``h * w >= min_tokens`` (``ops/tome.py``); the
-  attention gate sees the merged length.
+  attention gate sees the merged length;
+- ``attention_slice``: the text block's ``attn1`` and ``attn2`` attend in
+  head chunks of that size (``ops/attention.sliced_attention``);
+- ``attn_maps``: a dict the text block's cross-attention ``attn2``
+  records its logits into (``collect_attn``), as in the JAX package, where
+  only ``attn2`` takes ``collect_attn``.
 
 ``cond_frame`` is an argument of each ``forward`` (training calls with the
 number of conditioning frames, sampling with 0, on the same weights); the
@@ -134,6 +139,9 @@ class BasicTextTransformerBlock3D(nn.Module):
     """Per-frame self-attention + per-frame cross-attention to the FSText
     sub-instructions + FF."""
 
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None):
         super().__init__()
@@ -148,21 +156,23 @@ class BasicTextTransformerBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None, pab=None,
-                tome=None) -> torch.Tensor:
+                tome=None, attention_slice: Optional[int] = None,
+                attn_maps: Optional[dict] = None) -> torch.Tensor:
         """x (b, f, h, w, c); context (b, f, l, d)."""
         b, f, h, w, c = x.shape
         x = x.reshape(b * f, h * w, c)
+        sliced = dict(attention_slice=attention_slice)
 
         def self_attn(xin):
             xn = self.norm1(xin)
             if tome is None or h * w < tome[1]:
-                return self.attn1(xn)
+                return self.attn1(xn, **sliced)
             # matched on the block input (pre-norm), as ToMeSD does
             merge, unmerge = bipartite_soft_matching_2d(
                 xin, h, w, int(tome[0] * h * w), sd=tome[2])
             if merge is None:
-                return self.attn1(xn)
-            return unmerge(self.attn1(merge(xn)))
+                return self.attn1(xn, **sliced)
+            return unmerge(self.attn1(merge(xn), **sliced))
 
         if pab is None:
             x = self_attn(x) + x
@@ -172,13 +182,14 @@ class BasicTextTransformerBlock3D(nn.Module):
                              lambda: self_attn(x_self)) + x
         if context is not None:
             ctx = context.reshape(b * f, -1, context.shape[-1])
+            cross = dict(context=ctx, attn_maps=attn_maps, **sliced)
             if pab is None:
-                x = self.attn2(self.norm2(x), context=ctx) + x
+                x = self.attn2(self.norm2(x), **cross) + x
             else:
                 x_cross = x
                 x = pab_residual(
                     pab, f"{self.site}.attn2", CROSS,
-                    lambda: self.attn2(self.norm2(x_cross), context=ctx)) + x
+                    lambda: self.attn2(self.norm2(x_cross), **cross)) + x
         x = ln_ff_residual(self.norm3, self.ff, x)
         return x.reshape(b, f, h, w, c)
 
@@ -186,6 +197,9 @@ class BasicTextTransformerBlock3D(nn.Module):
 class BasicTransformerBlock3D(nn.Module):
     """Temporal block: SWAT windowed causal attention, then the FF skipping
     the first ``cond_frame`` frames' residual."""
+
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
 
     def __init__(self, dim: int, n_heads: int, d_head: int, causal: bool = True,
                  cond_frame: int = 0):
@@ -237,6 +251,9 @@ class SpatialTransformer3D(nn.Module):
     """GroupNorm -> 1x1 proj_in -> transformer block -> zero-init 1x1
     proj_out + residual."""
 
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, in_channels: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None, temporal: bool = False,
                  text_frame_condition: bool = False, causal: bool = False,
@@ -262,13 +279,15 @@ class SpatialTransformer3D(nn.Module):
                 context: Optional[torch.Tensor] = None,
                 cond_frame: Optional[int] = None,
                 frames: Optional[FrameShard] = None, pab=None,
-                tome=None) -> torch.Tensor:
+                tome=None, attention_slice: Optional[int] = None,
+                attn_maps: Optional[dict] = None) -> torch.Tensor:
         b, f, h, w, c = x.shape
         x_in = x
         x = self.proj_in(self.norm(x))
         block = self.transformer_blocks[0]
         if self.text_frame_condition:
-            x = block(x, context=context, pab=pab, tome=tome)
+            x = block(x, context=context, pab=pab, tome=tome,
+                      attention_slice=attention_slice, attn_maps=attn_maps)
         else:
             if cond_frame is None:
                 cond_frame = self.cond_frame

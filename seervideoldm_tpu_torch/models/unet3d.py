@@ -21,7 +21,15 @@ Merging at the spatial self-attention) and ``freeu`` ((b1, b2, s1, s2) at
 the two deepest up stages) are config fields read at every call, so
 replacing ``unet.config`` switches them on the same weights;
 ``forward(..., pab=flags, pab_cache=cache)`` runs a Pyramid Attention
-Broadcast step (``diffusion/pab.py``; refused under remat).
+Broadcast step (``diffusion/pab.py``; refused under remat).  The
+reference's memory knobs: the config's ``attention_slice`` (the text
+sites attend in head chunks; a sliced site runs no K2) and the module's
+``collect_attn`` (as the JAX ``SeerUNet.collect_attn``, a constructor
+argument and an attribute read at call time): each text block's
+cross-attention ``attn2`` records its fp32 logits into ``forward``'s
+``attn_maps`` dict under the site's qualified name,
+``down_blocks.0.attentions.0.transformer_blocks.0.attn2`` and so on --
+the JAX package's ``intermediates`` entries.
 
 Under a registered ``seq`` axis the UNet takes and returns this rank's
 frames of a ``num_frames``-frame video (``parallel.activation``): convs,
@@ -62,6 +70,9 @@ class SeerUNetConfig:
     norm_eps: float = 1e-5
     cross_attention_dim: int = 768
     attention_head_dim: int = 8
+    # the reference's set_attention_slice(slice_size): the text sites'
+    # attention in head chunks of this size (ops/attention.py); None = off
+    attention_slice: Optional[int] = None
     # Token Merging (ops/tome.py): merge tome_ratio of the spatial tokens
     # around the self-attention of blocks with >= tome_min_tokens; 0 = off
     tome_ratio: float = 0.0
@@ -76,14 +87,19 @@ REMAT_POLICIES = (False, True, "block", "save_attn")
 
 
 class SeerUNet(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, config: SeerUNetConfig = SeerUNetConfig(),
-                 cond_frame: int = 0, remat: Union[bool, str] = False):
+                 cond_frame: int = 0, remat: Union[bool, str] = False,
+                 collect_attn: bool = False):
         super().__init__()
         if remat not in REMAT_POLICIES:
             raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
                              f"{remat!r}")
         cfg = self.config = config
         self.cond_frame, self.remat = cond_frame, remat
+        self.collect_attn = collect_attn
         boc = tuple(cfg.block_out_channels)
         temb = boc[0] * 4
         n = len(boc)
@@ -144,14 +160,16 @@ class SeerUNet(nn.Module):
                 cond_frame: Optional[int] = None,
                 num_frames: Optional[int] = None,
                 pab: Optional[dict] = None,
-                pab_cache: Optional[dict] = None) -> torch.Tensor:
+                pab_cache: Optional[dict] = None,
+                attn_maps: Optional[dict] = None) -> torch.Tensor:
         """sample (b, f, h, w, 4); timesteps (b,) or scalar; context
         (b, f, l, d) FSText embeddings; ``cond_frame``: the first frames
         whose temporal FF residual is skipped (None: the constructor's).
         Under ``seq``, sample and context hold this rank's frames of a
         ``num_frames``-frame video (required there).  ``pab``: this step's
         PAB flags (``diffusion.pab.mode_to_flags``), with the sampling
-        call's ``pab_cache`` dict."""
+        call's ``pab_cache`` dict.  ``attn_maps``: the dict the
+        cross-attention logits go into under ``collect_attn``."""
         cfg = self.config
         cf = self.cond_frame if cond_frame is None else int(cond_frame)
         if pab is not None:
@@ -175,7 +193,10 @@ class SeerUNet(nn.Module):
                     f"of {num_frames}, but the sample has {sample.shape[1]}")
         tome = ((float(cfg.tome_ratio), int(cfg.tome_min_tokens),
                  int(cfg.tome_sd)) if cfg.tome_ratio > 0.0 else None)
-        knobs = dict(cond_frame=cf, frames=frames, pab=pab, tome=tome)
+        knobs = dict(cond_frame=cf, frames=frames, pab=pab, tome=tome,
+                     attention_slice=cfg.attention_slice,
+                     attn_maps=((attn_maps if attn_maps is not None else {})
+                                if self.collect_attn else None))
         dtype = self.conv_in.weight.dtype
         if cfg.center_input_sample:
             sample = 2 * sample - 1.0

@@ -7,7 +7,8 @@ Each cross-attention layer runs ResnetBlock3D -> SpatialTransformer3D
 (last here).  ``cond_frame`` and ``frames`` (this rank's ``FrameShard``
 under ``seq``) are arguments of each attention block's ``forward``, handed
 down to its temporal sites; so are the sampling knobs ``pab`` and
-``tome`` (``transformer3d.py``).  An up block's ``freeu = (b, s)`` applies
+``tome``, and ``attention_slice`` / ``attn_maps``, handed to the text
+sites (``transformer3d.py``).  An up block's ``freeu = (b, s)`` applies
 FreeU (``ops/freeu.py``) before each skip concat.
 """
 from __future__ import annotations
@@ -61,12 +62,14 @@ class CrossAttnDownBlock3D(nn.Module):
             if add_downsample else [])
 
     def forward(self, x, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0, frames=None, pab=None, tome=None):
+                cond_frame: int = 0, frames=None, pab=None, tome=None,
+                attention_slice=None, attn_maps=None):
         states = ()
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
             x = resnet(x, temb)
-            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome)
+            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome,
+                     attention_slice=attention_slice, attn_maps=attn_maps)
             x = temporal(x, cond_frame=cond_frame, frames=frames, pab=pab)
             states += (x,)
         for down in self.downsamplers:
@@ -119,12 +122,14 @@ class UNetMidBlock3DCrossAttn(nn.Module):
             self.temporal_attentions.append(temporal)
 
     def forward(self, x, temb=None, encoder_hidden_states=None,
-                cond_frame: int = 0, frames=None, pab=None, tome=None):
+                cond_frame: int = 0, frames=None, pab=None, tome=None,
+                attention_slice=None, attn_maps=None):
         x = self.resnets[0](x, temb)
         for text, temporal, resnet in zip(self.attentions,
                                           self.temporal_attentions,
                                           self.resnets[1:]):
-            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome)
+            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome,
+                     attention_slice=attention_slice, attn_maps=attn_maps)
             x = temporal(x, cond_frame=cond_frame, frames=frames, pab=pab)
             x = resnet(x, temb)
         return x
@@ -157,13 +162,14 @@ class CrossAttnUpBlock3D(nn.Module):
 
     def forward(self, x, res_states, temb=None, encoder_hidden_states=None,
                 cond_frame: int = 0, frames=None, pab=None, tome=None,
-                freeu=None):
+                attention_slice=None, attn_maps=None, freeu=None):
         for resnet, text, temporal in zip(self.resnets, self.attentions,
                                           self.temporal_attentions):
             x = _skip_concat(x, res_states[-1], freeu)
             res_states = res_states[:-1]
             x = resnet(x, temb)
-            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome)
+            x = text(x, context=encoder_hidden_states, pab=pab, tome=tome,
+                     attention_slice=attention_slice, attn_maps=attn_maps)
             x = temporal(x, cond_frame=cond_frame, frames=frames, pab=pab)
         for up in self.upsamplers:
             x = up(x)

@@ -44,6 +44,9 @@ class Conv(nn.Conv2d):
 class ResnetBlock2D(nn.Module):
     """GN(fp32) -> silu -> conv -> GN -> silu -> conv (+1x1 shortcut)."""
 
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
                  eps: float = 1e-6):
         super().__init__()
@@ -64,6 +67,9 @@ class ResnetBlock2D(nn.Module):
 
 class AttentionBlock2D(nn.Module):
     """Single-head spatial self-attention (diffusers VAE AttentionBlock)."""
+
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
 
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()
@@ -95,6 +101,9 @@ class _Sampler(nn.Module):
 
 
 class _Block(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, in_ch: int, out_ch: int, layers: int, groups: int,
                  sampler: Optional[str]):
         super().__init__()
@@ -133,6 +142,9 @@ class _MidBlock(nn.Module):
 
 
 class Encoder(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         boc, g = tuple(cfg.block_out_channels), cfg.norm_num_groups
@@ -157,6 +169,9 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         boc, g = tuple(reversed(cfg.block_out_channels)), cfg.norm_num_groups

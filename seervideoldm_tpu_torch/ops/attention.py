@@ -6,8 +6,16 @@
   Every attention core without an explicit mask, kernel or einsum, is a
   site that ``remat: save_attn`` keeps with what its backward reads
   (``ops/remat.py``; the JAX package's ``attn_out``).
+- ``sliced_attention``: the reference's ``set_attention_slice`` path,
+  heads in chunks of ``slice_size`` through the plain attention (never
+  the K2 kernel, as the JAX package's chunks run ``use_flash=False``);
 - ``CrossAttention``: reference ``to_q/to_k/to_v/to_out.0`` projections;
   ``temporal=True`` applies rotary (rot_dim = min(32, dim_head)) to q/k.
+  Per call: ``attention_slice`` (sliced attention where no mask is
+  given) and ``attn_maps`` (the reference's ``return_attn``: the fp32
+  logits, causal-masked where that applies, recorded under the site's
+  qualified name -- the JAX package sows them into ``intermediates`` --
+  and the attention computed from them on the einsum path).
 - ``WindowTemporalAttention``: SWAT windowed causal spatio-temporal
   self-attention with the fused Q/K/V matmul.  Paths, in the JAX order:
   the table kernel (K1) when ws >= 8, the window tiles h and w exactly and
@@ -61,6 +69,21 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, v)
 
 
+def sliced_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, slice_size: int,
+                     causal: bool = False) -> torch.Tensor:
+    """Attention in ``slice_size`` chunks of the head axis (q/k/v (b, h,
+    n|m, d), ``slice_size`` divides h), each through the plain attention
+    (a saved site under ``remat: save_attn``)."""
+    h = q.shape[1]
+    if h % slice_size:
+        raise ValueError(f"slice_size {slice_size} must divide heads {h}")
+    return torch.cat([plain_attention(q[:, i:i + slice_size],
+                                      k[:, i:i + slice_size],
+                                      v[:, i:i + slice_size], scale, causal)
+                      for i in range(0, h, slice_size)], dim=1)
+
+
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     """(b, n, H*d) -> (b, H, n, d)."""
     b, n, hd = x.shape
@@ -93,6 +116,9 @@ class CrossAttention(nn.Module):
     """Multi-head (cross-)attention; self-attention when ``context`` is
     None."""
 
+    # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
+    fsdp_unit = True
+
     def __init__(self, query_dim: int, cross_attention_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64, bias: bool = False,
                  temporal: bool = False, causal: bool = False):
@@ -107,9 +133,12 @@ class CrossAttention(nn.Module):
         self.to_out = _out_proj(inner, query_dim)
         if temporal:
             self.rotary_emb = RotaryEmbedding(min(32, dim_head))
+        self.site = ""  # qualified name, the key of its attention maps
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                attention_slice: Optional[int] = None,
+                attn_maps: Optional[dict] = None) -> torch.Tensor:
         ctx = x if context is None else context
         q = split_heads(self.to_q(x), self.heads)
         k = split_heads(self.to_k(ctx), self.heads)
@@ -119,8 +148,20 @@ class CrossAttention(nn.Module):
             freqs = rotary_freqs(torch.arange(q.shape[2], device=x.device),
                                  self.rotary_emb.rot_dim)
             q, k = apply_rotary(q, freqs), apply_rotary(k, freqs)
-        out = dot_product_attention(q, k, v, self.dim_head ** -0.5,
-                                    causal=self.temporal and self.causal)
+        scale = self.dim_head ** -0.5
+        causal = self.temporal and self.causal
+        if attn_maps is not None:
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            if causal:
+                logits = logits.masked_fill(
+                    ~causal_mask(q.shape[2], k.shape[2], x.device), NEG_INF)
+            attn_maps[self.site] = logits
+            out = torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+        elif attention_slice:
+            out = sliced_attention(q, k, v, scale, int(attention_slice),
+                                   causal)
+        else:
+            out = dot_product_attention(q, k, v, scale, causal=causal)
         return self.to_out[0](merge_heads(out))
 
 
@@ -134,6 +175,10 @@ class WindowTemporalAttention(nn.Module):
     ``frames``: under ``seq`` the input holds this rank's frames of a
     longer video (``FrameShard``); positions and causality are those of the
     global frames."""
+
+    # an FSDP unit (parallel/sharding.py): the forward reads its q/k/v
+    # projections' weights itself
+    fsdp_unit = True
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
                  bias: bool = False, causal: bool = True):

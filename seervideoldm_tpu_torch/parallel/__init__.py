@@ -1,5 +1,6 @@
 """Data and sequence parallelism over ``torch.distributed`` (port of
-``seervideoldm_tpu/parallel/``, the ``data`` and ``seq`` axes).
+``seervideoldm_tpu/parallel/``, the ``data`` and ``seq`` axes, and the
+sharded training state over ``data``).
 
 - ``distributed``: process-group start-up from torchrun's variables, rank-0
   gating, host gathers;
@@ -11,6 +12,8 @@
 - ``activation``: the registered mesh the model code consults, and the
   gather-frames / split-batch*heads step of the temporal attention's
   kernels;
+- ``sharding``: ZeRO-1 and FSDP over ``data`` (sharded optimizer state,
+  and under FSDP the parameters too, gathered per module when called);
 - ``launch``: a local launcher (``torch.multiprocessing``) that starts N
   ranks with a timeout, for tests and the chip smoke.
 """

@@ -15,6 +15,11 @@ no-op on a group of one rank.  ``stats`` counts, per operation, the calls
 and the bytes this rank sent (``{op: [calls, bytes]}``; ``reset_stats``
 clears it): what a run paid in collectives, staged or not.
 
+``reduce_scatter``, ``all_gather_flat`` and ``gather_flat`` move flat
+buffers split into equal shards, one per rank (the sharded training state
+of ``parallel/sharding.py``; ``gather_flat`` joins them on one rank only,
+as a checkpoint does).
+
 Differentiable forms (``autograd.Function``), for collectives inside the
 model:
 
@@ -139,6 +144,74 @@ def all_gather(t: torch.Tensor, group=None) -> list[torch.Tensor]:
     if n == 1:
         return [t]
     return all_to_all([t] * n, [tuple(t.shape)] * n, t.dtype, group)
+
+
+def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of the flat ``t``, of which this
+    rank keeps shard ``group rank`` (``t.numel()`` splits into equal
+    shards, one per rank)."""
+    n = group_size(group)
+    if n == 1:
+        return t.clone()
+    flat = t.contiguous().reshape(-1)
+    if flat.numel() % n:
+        raise ValueError(f"{flat.numel()} elements do not split over {n} "
+                         "ranks")
+    _count("reduce_scatter", flat)
+    if staged(group, flat):
+        out = torch.empty(flat.numel() // n, dtype=flat.dtype,
+                          pin_memory=True)
+        dist.reduce_scatter_tensor(out, _host(flat), group=group)
+        return out.to(t.device)
+    out = torch.empty(flat.numel() // n, dtype=flat.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, flat, group=group)
+    return out
+
+
+def all_gather_flat(shard: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's flat ``shard`` (one size on all ranks) joined in
+    group-rank order into one flat tensor; moved as raw bytes, so any dtype
+    goes through any backend."""
+    n = group_size(group)
+    flat = shard.contiguous().reshape(-1)
+    if n == 1:
+        return flat.clone()
+    src = flat.view(torch.uint8)
+    _count("all_gather", src)
+    if staged(group, src):
+        out = torch.empty(src.numel() * n, dtype=torch.uint8, pin_memory=True)
+        dist.all_gather_into_tensor(out, _host(src), group=group)
+        out = out.to(shard.device)
+    else:
+        out = torch.empty(src.numel() * n, dtype=torch.uint8,
+                          device=shard.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+    return out.view(flat.dtype)
+
+
+def gather_flat(shard: torch.Tensor, group=None, dst: int = 0,
+                device=None) -> Optional[torch.Tensor]:
+    """``all_gather_flat`` onto group rank ``dst`` only, on ``device`` (the
+    shard's by default); None on the other ranks.  Under gloo staging the
+    whole buffer never touches the card unless ``device`` asks for it."""
+    n = group_size(group)
+    flat = shard.contiguous().reshape(-1)
+    device = shard.device if device is None else torch.device(device)
+    if n == 1:
+        return flat.to(device, copy=True)
+    src = flat.view(torch.uint8)
+    _count("gather", src)
+    host = staged(group, src)
+    if host:
+        src = _host(src)
+    peer = dist.get_global_rank(group, dst) if group is not None else dst
+    if group_rank(group) != dst:
+        dist.gather(src, None, dst=peer, group=group)
+        return None
+    out = torch.empty(src.numel() * n, dtype=torch.uint8, device=src.device,
+                      pin_memory=host)
+    dist.gather(src, list(out.chunk(n)), dst=peer, group=group)
+    return out.view(flat.dtype).to(device)
 
 
 def ring_shift(t: torch.Tensor, group) -> torch.Tensor:

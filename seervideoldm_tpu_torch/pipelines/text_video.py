@@ -68,6 +68,9 @@ class SeerModels:
     # LoRA adapters (training/lora.py), ``{"<module path>.lora_a" |
     # ".lora_b": fp32 tensor}``; None without LoRA
     lora: Optional[dict] = None
+    # the sharded training state under zero1 / fsdp
+    # (parallel.sharding.ShardPlan); None when nothing is sharded
+    sharding: Optional[object] = None
 
     @staticmethod
     def initialize(num_frames: int = 12,

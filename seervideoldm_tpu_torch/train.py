@@ -13,14 +13,17 @@ options: ``use_8bit_adam`` (int8 blockwise Adam moments),
 ``param_dtype: bfloat16`` (bf16 parameters, masters and moments),
 ``lora_rank`` / ``lora_alpha`` / ``lora_targets`` (the UNet frozen,
 adapters on its attention projections and FSText train; the saved weight
-files hold the delta merged into the UNet).  ``learned_unet_ckpt`` names
-a fine-tuned checkpoint (the two-file layout) to start from, as the JAX
-entry's LoRA note reads it; a resume ignores it.  Checkpoints:
+files hold the delta merged into the UNet).  As in the JAX entry, the run
+starts from ``load_models`` (random init, ``pretrained_model_name_or_path``,
+``fstext_init_ckpt``); ``learned_unet_ckpt`` is read only by the LoRA note
+and never loaded.  Checkpoints:
 ``<output_dir>/learned_sdunet-steps-<N>/`` (two weight files in the
 reference layout + ``train_state.pt``) with a JSON sidecar of the meters;
 ``saved_global_step: N`` resumes from one, mid-epoch, in the data order of
-an uninterrupted run.  Runs on CUDA; ``--device cpu`` runs the plain
-PyTorch path instead.
+an uninterrupted run.  Logs: the TensorBoard scalars ``loss``, ``lr`` and
+``grad_norm`` under ``<output_dir>/<logging_dir>`` and ``loss.png`` /
+``lr.png`` in ``output_dir`` at each save (``training/logs.py``).  Runs on
+CUDA; ``--device cpu`` runs the plain PyTorch path instead.
 
 Several ranks: ``mesh_shape`` ({"data": D, "seq": S}, null = every rank on
 ``data``) lays the ranks out.  Each data rank loads its own
@@ -29,7 +32,10 @@ batch is ``train_batch_size * D``, as one host's batch is to the JAX entry,
 and ``scale_lr`` multiplies by it; the ranks of one ``seq`` line share a
 batch and split its frames.  Rank 0 writes the checkpoints; every rank
 checks that its fp32 masters equal rank 0's after each optimizer step.  A
-checkpoint resumes on any mesh.
+checkpoint resumes on any mesh.  ``zero1: true`` shards the optimizer
+state over ``data``, ``fsdp: true`` the parameters too
+(``parallel/sharding.py``); both need a ``data`` axis of more than one
+rank, and the entry prints the JAX entry's line when it ignores one.
 
 ``train(cfg, device)`` is the same loop as a Python API; it returns a
 summary dict (steps taken, seconds per optimizer step, losses, the
@@ -52,7 +58,10 @@ from .io.checkpoint import CheckpointManager
 from .parallel.distributed import (assert_replicas_equal, barrier_sync,
                                    initialize_distributed, is_main_process)
 from .parallel.mesh import create_mesh
-from .pipelines.loading import load_finetuned, load_models
+from .parallel.sharding import decide_mode, param_bytes, shard_training
+from .pipelines.loading import load_models
+from .training.logs import (open_writer, plot_graphs, plot_graphs_async,
+                            wait_for_plots)
 from .training.meters import RunningAverageMeter
 from .training.lora import enable_lora, lora_scale, param_count
 from .training.optim import build_optimizer
@@ -91,10 +100,10 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
     models, tokenizer = load_models(cfg, dev,
                                     trainable_scope=cfg.trainable_scope,
                                     mesh=mesh)
-    if cfg.learned_unet_ckpt and not cfg.saved_global_step:
-        # a fine-tuned Seer checkpoint is the run's starting point (the base
-        # a LoRA run adapts); a resume restores its own state below
-        load_finetuned(models, cfg.learned_unet_ckpt)
+    mode, notes = decide_mode(cfg.zero1, cfg.fsdp, n_data)
+    if main:
+        for line in notes:
+            print(line, flush=True)
     lora_rank = int(cfg.lora_rank or 0)
     lscale = 0.0
     if lora_rank:
@@ -113,6 +122,11 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                   f"{param_count(adapters) / 1e6:.2f}M adapter params",
                   flush=True)
     masters = trainable_masters(models)
+    n_trainable = sum(t.numel() for t in masters.values())
+    plan = None
+    if mode is not None:
+        plan = shard_training(models, mode, mesh, lscale)
+        masters = plan.masters
     optimizer, schedule_fn = build_optimizer(
         masters, learning_rate, scheduler=cfg.lr_scheduler,
         warmup_steps=int(cfg.lr_warmup_steps),
@@ -120,7 +134,9 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         betas=(float(cfg.adam_beta1), float(cfg.adam_beta2)),
         weight_decay=float(cfg.adam_weight_decay),
         eps=float(cfg.adam_epsilon), max_grad_norm=float(cfg.max_grad_norm),
-        accumulation_steps=accum, use_8bit=bool(cfg.use_8bit_adam))
+        accumulation_steps=accum, use_8bit=bool(cfg.use_8bit_adam),
+        norm_fn=plan.global_norm if plan is not None else None)
+    del masters
     use_ema = float(cfg.ema_decay) > 0.0
     state = TrainState.create(optimizer, ema=use_ema)
     # the SD-1.5 training schedule, zero-terminal-SNR rescaled under the
@@ -152,6 +168,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         lora_scale=lscale)
     losses_train = RunningAverageMeter(0.99)
     lr_meter = RunningAverageMeter(0.99)
+    writer = (open_writer(os.path.join(cfg.output_dir, cfg.logging_dir))
+              if main else None)
     global_step, start_epoch, meta_loaded = 0, 0, False
     if cfg.saved_global_step:
         global_step = int(cfg.saved_global_step)
@@ -199,7 +217,7 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                   "the start")
         resume_skip = 0
 
-    pending: list = []        # (global_step, window-mean loss, start, end)
+    pending: list = []        # (step, window-mean loss, grad norm, start, end)
     window_losses: list = []  # micro-step losses of the current window
     step_seconds: list = []   # per optimizer step, data loading included
 
@@ -221,16 +239,25 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
     def flush_pending() -> None:
         # device scalars and step times are fetched in batches, not once
         # per step
-        for gs, dev_loss, start, end in pending:
-            losses_train.update(float(dev_loss), gs)
-            lr_meter.update(float(schedule_fn(gs)), gs)
+        for gs, dev_loss, dev_gnorm, start, end in pending:
+            loss, lr = float(dev_loss), float(schedule_fn(gs))
+            losses_train.update(loss, gs)
+            lr_meter.update(lr, gs)
             step_seconds.append(seconds_between(start, end))
+            if writer is not None:
+                writer.add_scalar("loss", loss, gs)
+                writer.add_scalar("lr", lr, gs)
+                writer.add_scalar("grad_norm", float(dev_gnorm), gs)
         pending.clear()
 
-    def save(epoch: int) -> None:
-        if main:
+    def save(epoch: int, final: bool = False) -> None:
+        if main or plan is not None:
+            # a sharded state is gathered by every rank, written by rank 0
             ckpt.save(global_step, state, models)
+        if main:
             _write_sidecar(cfg, global_step, epoch, lr_meter, losses_train)
+            (plot_graphs if final else plot_graphs_async)(
+                losses_train, lr_meter, cfg.output_dir)
         barrier_sync()
 
     log_time = time.time()
@@ -255,11 +282,13 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                 continue
             # global_step counts optimizer (sync) steps, reference parity
             global_step += 1
-            if mesh.size > 1:
-                assert_replicas_equal(state.optimizer.params)
+            replicas = (state.optimizer.params if plan is None
+                        else plan.replicated_tensors(models))
+            if mesh.size > 1 and replicas:
+                assert_replicas_equal(replicas)
             step_end = mark()
             pending.append((global_step, torch.stack(window_losses).mean(),
-                            step_start, step_end))
+                            metrics["grad_norm"], step_start, step_end))
             step_start = step_end
             window_losses = []
             if len(pending) >= 10 or global_step % int(cfg.save_steps) == 0:
@@ -282,7 +311,10 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
     flush_pending()
     # save the final state unless the last step already did
     if global_step > 0 and global_step % int(cfg.save_steps) != 0:
-        save(epoch)
+        save(epoch, final=True)
+    if writer is not None:
+        writer.close()
+    wait_for_plots()
     last = losses_train.val
     if main:
         print(f"trained to step {global_step}: loss "
@@ -293,8 +325,14 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
             "step_seconds": step_seconds, "loss": last,
             "losses": list(losses_train.vals),
             "checkpoint": ckpt.path_for_step(global_step),
-            "trainable_params": sum(t.numel() for t in masters.values()),
+            "trainable_params": n_trainable,
             "optimizer_state_bytes": optimizer.state_bytes(),
+            "state_bytes": (optimizer.state_bytes() + optimizer.acc_bytes()
+                            + sum(t.numel() * t.element_size()
+                                  for t in (state.ema or {}).values())),
+            "param_bytes": param_bytes(models), "sharding": mode,
+            "largest_unit_bytes": (plan.largest_unit_bytes()
+                                   if plan is not None else 0),
             "mesh": dict(mesh.shape), "device": str(dev)}
 
 

@@ -176,20 +176,27 @@ def enable_lora(models, rank: int, generator: torch.Generator,
 
 
 def inference_params(models, weights: Mapping[str, torch.Tensor],
-                     scale: float) -> dict:
+                     scale: float, base: Optional[Mapping] = None) -> dict:
     """The params-only artifact ``{"unet": state_dict, "fstext":
-    state_dict}`` on the CPU: the modules' weights with ``weights``
-    (``{"<model>.<name>": tensor}``, the masters or the EMA) over them,
-    and ``weights``' adapters, if any, merged into the UNet (on the
-    device, by the same ``apply_lora`` the training forward runs)."""
+    state_dict}`` on the CPU: the modules' weights (or ``base``'s, the same
+    ``"<model>.<name>"`` keys, for modules that hold shards) with
+    ``weights`` (the masters or the EMA) over them, and ``weights``'
+    adapters, if any, merged into the UNet one weight at a time (on the
+    modules' device, by the same ``apply_lora`` the training forward
+    runs)."""
     from ..io.checkpoint import export_state_dicts
 
     lora, rest = split_lora(weights)
-    sds = export_state_dicts(models, rest)
+    sds = export_state_dicts(models, rest, base)
     if lora:
         params = dict(models.unet.named_parameters())
-        merged = apply_lora({n: params[n] for n in _adapted(lora)}, lora,
-                            scale)
-        for name, t in merged.items():
-            sds["unet"][name] = t.detach().cpu()
+        dev = models.unet.conv_in.weight.device
+        for name in _adapted(lora):
+            w = (base["unet." + name] if base and "unet." + name in base
+                 else params[name])
+            stem = name[:-len("weight")]
+            pair = {k: lora[stem + k].to(dev) for k in ("lora_a", "lora_b")}
+            merged = apply_lora({name: w.to(dev)},
+                                {stem + k: v for k, v in pair.items()}, scale)
+            sds["unet"][name] = merged[name].detach().cpu()
     return sds

@@ -151,7 +151,8 @@ class Optimizer:
     place.  Returns ``(did_sync, grad_norm)`` with ``grad_norm`` the global
     norm of the running-mean gradient (what the clip sees at the sync
     step).  A gradient is taken in its master's dtype.  ``use_8bit``:
-    the moments are ``optim8bit.Adam8bitMoments``.
+    the moments are ``optim8bit.Adam8bitMoments``.  ``norm_fn`` replaces
+    ``global_norm`` (the sharded state's norm sums over the ranks).
     """
 
     def __init__(self, params: Mapping[str, torch.Tensor],
@@ -159,8 +160,9 @@ class Optimizer:
                  betas: tuple[float, float] = (0.9, 0.999),
                  weight_decay: float = 1e-2, eps: float = 1e-8,
                  max_grad_norm: float = 0.3, accumulation_steps: int = 1,
-                 use_8bit: bool = False):
+                 use_8bit: bool = False, norm_fn: Callable = None):
         self.names = list(params)
+        self.norm_fn = norm_fn or global_norm
         self.params = [params[n] for n in self.names]
         self.schedule = schedule
         self.weight_decay = weight_decay
@@ -185,7 +187,7 @@ class Optimizer:
             diff = torch._foreach_sub(g, self.acc)
             torch._foreach_add_(self.acc, diff, alpha=1.0 / (self.mini_step + 1))
             g = self.acc
-        gnorm = global_norm(g)
+        gnorm = self.norm_fn(g)
         self.mini_step = (self.mini_step + 1) % self.accumulation_steps
         if self.mini_step != 0:
             return False, gnorm
@@ -207,6 +209,9 @@ class Optimizer:
         """Bytes of the Adam moments (the accumulator not counted)."""
         return self.moments.nbytes()
 
+    def acc_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.acc or [])
+
     def state_dict(self) -> dict:
         return {"count": self.count, "mini_step": self.mini_step,
                 **self.moments.state_dict(self.names),
@@ -227,10 +232,12 @@ def build_optimizer(params: Mapping[str, torch.Tensor], learning_rate: float,
                     betas: tuple[float, float] = (0.9, 0.999),
                     weight_decay: float = 1e-2, eps: float = 1e-8,
                     max_grad_norm: float = 0.3, accumulation_steps: int = 1,
-                    use_8bit: bool = False):
+                    use_8bit: bool = False, norm_fn: Callable = None):
     """``(Optimizer, schedule)`` over the trainable masters ``params``;
     ``use_8bit``: the reference's ``use_8bit_adam``, int8 blockwise
-    moments (``optim8bit.adamw_8bit``)."""
+    moments (``optim8bit.adamw_8bit``); ``norm_fn``: the clip's norm
+    (``parallel.sharding.ShardPlan.global_norm`` over shards)."""
     schedule = lr_schedule(scheduler, learning_rate, warmup_steps, total_steps)
     return Optimizer(params, schedule, betas, weight_decay, eps, max_grad_norm,
-                     accumulation_steps, use_8bit=use_8bit), schedule
+                     accumulation_steps, use_8bit=use_8bit,
+                     norm_fn=norm_fn), schedule

@@ -40,6 +40,12 @@ the optimizer takes its gradient in bf16, as flax and optax do.
 LoRA (``training/lora.py``): the whole UNet is frozen, the trainable set
 is FSText plus the adapters, and the UNet computes with the adapted
 weights inside ``lora_applied``.
+
+Under ``zero1`` / ``fsdp`` (``models.sharding``, ``parallel/sharding.py``)
+the optimizer's names are the plan's groups and its parameters their
+master shards: the gradients arrive as data-mean shards, the EMA runs on
+the shards, and after a sync step ``ShardPlan.after_step`` rebuilds what
+the modules compute with.
 """
 from __future__ import annotations
 
@@ -76,7 +82,8 @@ class TrainState:
         masters = dict(zip(optimizer.names, optimizer.params))
         return TrainState(
             step=0, masters=masters, optimizer=optimizer,
-            ema={n: t.clone() for n, t in masters.items()} if ema else None)
+            ema={n: t.detach().clone() for n, t in masters.items()}
+            if ema else None)
 
 
 def trainable_masters(models: SeerModels) -> dict:
@@ -234,7 +241,11 @@ def make_train_step(models: SeerModels,
 
     def loss_and_grads(names, batch, noise, timesteps):
         """``(loss, mse, {name: fp32 gradient})``: under a mesh the global
-        values, the gradients reduced over every rank."""
+        values, the gradients reduced over every rank; under a sharded
+        state ``{group: gradient shard}``, whatever ``names``."""
+        if models.sharding is not None:
+            return _sharded_loss_and_grads(models.sharding, batch, noise,
+                                           timesteps)
         named = models.named_trainable()
         params = [named[n] for n in names]
         adapted = (lora_applied(unet, models.lora, lora_scale)
@@ -253,6 +264,24 @@ def make_train_step(models: SeerModels,
         if mesh is not None:
             loss, mse, grads = _reduce(mesh, loss, mse, grads)
         return loss, mse, dict(zip(names, grads))
+
+    def _sharded_loss_and_grads(plan, batch, noise, timesteps):
+        """The sharded state's gradients: the replicated parameters'
+        gradients whole, reduce-scattered by the plan; under fsdp the units'
+        master shards take theirs in the backward."""
+        names, params = plan.grad_targets(models)
+        adapted = (lora_applied(unet, models.lora, lora_scale)
+                   if lora_scale > 0.0 and plan.mode == "zero1"
+                   else contextlib.nullcontext())
+        with torch.enable_grad(), adapted, plan.training_pass():
+            loss, mse = loss_fn(batch, noise, timesteps)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = {n: torch.zeros_like(p, dtype=torch.float32) if g is None
+                 else g.float() for n, p, g in zip(names, params, grads)}
+        pair = torch.stack([loss.detach().float(), mse.detach().float()])
+        all_reduce_(pair)
+        pair /= plan.n
+        return pair[0], pair[1], plan.reduce_grads(grads)
 
     def _reduce(mesh, loss, mse, grads):
         """Sum over ``seq`` (the shares) and mean over ``data`` (the
@@ -288,7 +317,10 @@ def make_train_step(models: SeerModels,
         did_sync, gnorm = state.optimizer.update(grads)
         state.step += 1
         if did_sync:
-            sync_compute_copies(models)
+            if models.sharding is not None:
+                models.sharding.after_step(models)
+            else:
+                sync_compute_copies(models)
             if ema_decay > 0.0:
                 # LitEma warmup; advances only when the weights changed
                 n = state.optimizer.count

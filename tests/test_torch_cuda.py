@@ -19,7 +19,9 @@ pre-rotated and in-kernel-trig modes of the SWAT kernels) the same, with
 ``rot_dim`` 0 and 32.  K10 (the softmax calibration): the final scores and
 the row sums within 1e-5 relative of its plain version, from 0 passes up.
 The evaluation scorers (I3D, C3D, the CLIP ViT; plain PyTorch ops in fp32)
-on the card against the CPU within 1e-3 relative L2.
+on the card against the CPU within 1e-3 relative L2.  ZeRO-1 and FSDP on 2
+gloo ranks sharing the card against the replicated run, with the gathered
+weights feeding the kernels.
 """
 import pytest
 import torch
@@ -649,3 +651,60 @@ def test_adamw_8bit_step_card_vs_cpu(gen):
             assert torch.equal(sb[key][k]["codes"].cpu(), sa[key][k]["codes"])
             torch.testing.assert_close(sb[key][k]["scales"].cpu(),
                                        sa[key][k]["scales"], atol=1e-6, rtol=0)
+
+
+def test_sharded_training_on_the_card(gen):
+    """ZeRO-1 and FSDP on 2 gloo ranks sharing the card (the collectives
+    staged through pinned host memory), narrow widths, bf16: two optimizer
+    steps each against the replicated data-parallel run on the same batch
+    and draws, within the bounds of ``chip_smoke.py`` phase 8 (e) / (f)
+    (losses 1e-5 relative, masters 1e-5 relative L2); under FSDP the
+    gathered weights feed the kernels: K1, K2, K3 and their backward
+    kernels launch, no plain fallback."""
+    import os
+    import sys
+
+    import numpy as np
+
+    from seervideoldm_tpu_torch.parallel import launch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_sharding_workers as workers
+
+    sizes = dict(frames=12, cond=2, device="cuda",
+                 unet=dict(block_out_channels=(64, 128), layers_per_block=1,
+                           norm_num_groups=8, cross_attention_dim=64,
+                           attention_head_dim=2),
+                 vae=dict(block_out_channels=(16, 32), layers_per_block=1,
+                          norm_num_groups=8),
+                 clip=dict(vocab_size=100, hidden_size=64,
+                           intermediate_size=128, num_hidden_layers=2,
+                           num_attention_heads=4, max_position_embeddings=16),
+                 fstext=dict(n_heads=4, num_layers=1))
+    rng = np.random.RandomState(0)
+    lat = (2, 10, 32, 32, 4)
+    batch = {"latents_x0": rng.randn(2, 2, 32, 32, 4).astype(np.float32),
+             "latents": rng.randn(*lat).astype(np.float32),
+             "clip_emb": rng.randn(2, 16, 64).astype(np.float32)}
+    draws = [{"noise": rng.randn(*lat).astype(np.float32),
+              "ts": rng.randint(0, 1000, (2,))} for _ in range(2)]
+    base = dict(lr=1e-4, warmup=0, accum=1, steps=2)
+    cases = {"none": base, "zero1": dict(base, mode="zero1"),
+             "fsdp": dict(base, mode="fsdp")}
+    got = launch.run(workers.sharded_cases, 2,
+                     args=(sizes, None, batch, draws, cases),
+                     backend="gloo", timeout=600)[0]
+    want = got["none"]
+    for mode in ("zero1", "fsdp"):
+        run = got[mode]
+        for a, b in zip(run["losses"], want["losses"]):
+            assert abs(a - b) <= 1e-5 * abs(b), (mode, run["losses"],
+                                                 want["losses"])
+        num = sum(float(((run["masters"][n] - w) ** 2).sum())
+                  for n, w in want["masters"].items())
+        den = sum(float((w ** 2).sum()) for w in want["masters"].values())
+        assert (num / den) ** 0.5 <= 1e-5, mode
+    launches = got["fsdp"]["launches"]
+    for name in ("swat_attention_tables", "flash_attention", "ln_geglu_ff",
+                 "swat_attention_tables_bwd", "flash_attention_bwd"):
+        assert launches[name] > 0, (name, launches)

@@ -8,8 +8,8 @@ directory, a timeout); the rank functions are in
 ``tests/torch_parallel_workers.py``.  Inputs and weights are made from a
 numpy seed (JAX init carried with ``io/convert.py``).
 
-- config: ``data`` / ``seq`` meshes and ``ring_attention`` are accepted;
-  the ``model`` axis, ``zero1`` and ``fsdp`` are each refused by name;
+- config: ``data`` / ``seq`` meshes, ``ring_attention``, ``zero1`` and
+  ``fsdp`` are accepted; the ``model`` axis is refused by name;
 - mesh: the rank layout, frame ranges and batch slices, and the refusals of
   ``create_mesh``; a failing rank fails the launch;
 - the tiny SeerUNet (the widths of ``tests/test_sequence_parallel.py``,
@@ -76,6 +76,11 @@ def test_config_accepts_data_and_seq_meshes():
     ({"zero1": True}, "zero1"),
     ({"fsdp": True}, "fsdp")])
 def test_config_refuses_each_unported_strategy_by_name(raw, name):
+    if name in ("zero1", "fsdp"):
+        # ported since (parallel/sharding.py): accepted, the mode decided
+        # by the train entry from the mesh
+        assert getattr(config_from_dict(raw), name) is True
+        return
     with pytest.raises(ValueError, match=name):
         config_from_dict(raw)
 

@@ -6,8 +6,8 @@
   checkpoints with their JSON sidecars, resumes mid-run bit for bit, and
   ``inference_img --device cpu`` samples from the checkpoint it wrote;
 - without ``--device cpu`` the entry insists on CUDA; options that are not
-  ported yet are refused by name (the training options, ported since, are
-  accepted);
+  ported yet are refused by name (the training options and ``zero1`` /
+  ``fsdp``, ported since, are accepted);
 - a learning proof in the pattern of ``tests/test_overfit_one_clip.py``:
   train from scratch on ONE clip, then DDIM-sample with the training
   conditioning; the sampled latents must move toward the clip's latents
@@ -154,8 +154,11 @@ def test_train_entry_logs_every_50_steps_and_keeps_newest(tmp_path):
         text_loss=True, snr_gamma=5.0, remat=True, lr_scheduler="constant")
     proc = _run("train", cfg_path, "--device", "cpu")
     assert "step 50 loss" in proc.stdout and "ms/step" in proc.stdout
-    kept = sorted(d for d in os.listdir(cfg["output_dir"])
+    dirs = sorted(d for d in os.listdir(cfg["output_dir"])
                   if os.path.isdir(os.path.join(cfg["output_dir"], d)))
+    # the TensorBoard logs sit beside the checkpoints, as the JAX entry's
+    kept = [d for d in dirs if d != "logs"]
+    assert dirs == kept + ["logs"]
     assert kept == ["learned_sdunet-steps-40", "learned_sdunet-steps-50"]
     state = torch.load(os.path.join(cfg["output_dir"], kept[-1],
                                     "train_state.pt"))
@@ -180,8 +183,10 @@ def test_train_entry_defaults_to_cuda(tmp_path):
 def test_config_refuses_what_is_not_ported(key, value):
     from seervideoldm_tpu_torch.config import config_from_dict
 
-    if key in ("use_8bit_adam", "lora_rank", "param_dtype"):
-        # ported since: the training options are accepted
+    if key in ("use_8bit_adam", "lora_rank", "param_dtype", "zero1",
+               "fsdp"):
+        # ported since: the training options and the sharded state are
+        # accepted
         assert getattr(config_from_dict({key: value}), key) == value
         return
     with pytest.raises(ValueError, match="not (supported|ported)"):

@@ -676,18 +676,19 @@ def test_clip_loader_takes_the_native_path_for_jpegs(tmp_path, monkeypatch):
 
 def test_train_entry_with_lora_and_8bit_then_sampling(tmp_path):
     """``python -m seervideoldm_tpu_torch.train --device cpu`` with
-    ``lora_rank: 4`` and ``use_8bit_adam: true``, starting from a
-    fine-tuned checkpoint (``learned_unet_ckpt``) whose ``proj_out``
-    weights are not zero (at random init they are, and no adapter would
-    get a gradient): it reports the adapters; the checkpoint's train state
-    holds the adapters and int8 moments, every adapter's B moved off zero
-    and every FSText master moved; its UNet file holds the merged weights
-    under the module's full key set (every adapted projection moved,
-    nothing else of the UNet did); and ``inference_img`` loads it strictly
-    and samples."""
+    ``lora_rank: 4`` and ``use_8bit_adam: true``, starting from a base
+    whose ``proj_out`` weights are not zero (at random init they are, and
+    no adapter would get a gradient), read as the JAX entry reads its
+    start: a local ``pretrained_model_name_or_path`` directory (the whole
+    SeerUNet, VAE and CLIP) and ``fstext_init_ckpt``.  It reports the
+    adapters; the checkpoint's train state holds the adapters and int8
+    moments, every adapter's B moved off zero and every FSText master
+    moved; its UNet file holds the merged weights under the module's full
+    key set (every adapted projection moved, nothing else of the UNet
+    did); and ``inference_img`` loads it strictly and samples."""
     from seervideoldm_tpu_torch.config import config_from_dict
-    from seervideoldm_tpu_torch.io.checkpoint import (FSTEXT_FILE, UNET_FILE,
-                                                      export_state_dicts)
+    from seervideoldm_tpu_torch.io.checkpoint import UNET_FILE, export_state_dicts
+    from seervideoldm_tpu_torch.io.pretrained import write_pretrained_dir
     from seervideoldm_tpu_torch.pipelines.loading import load_models
 
     init, _ = load_models(config_from_dict(_train_cfg(tmp_path)[0]), "cpu")
@@ -698,12 +699,11 @@ def test_train_entry_with_lora_and_8bit_then_sampling(tmp_path):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
     start = export_state_dicts(init)
     root = str(tmp_path / "base")
-    os.makedirs(root)
-    torch.save(start["unet"], os.path.join(root, UNET_FILE))
-    torch.save(start["fstext"], os.path.join(root, FSTEXT_FILE))
+    write_pretrained_dir(init, root)
     cfg, cfg_path = _train_cfg(
         tmp_path, lora_rank=4, use_8bit_adam=True, max_train_steps=4,
-        save_steps=4, learning_rate=1e-2, learned_unet_ckpt=root)
+        save_steps=4, learning_rate=1e-2, pretrained_model_name_or_path=root,
+        fstext_init_ckpt=os.path.join(root, "fstext.bin"))
     proc = _run("train", cfg_path, "--device", "cpu")
     assert "lora: rank 4 scope attention" in proc.stdout
     ckpt = os.path.join(cfg["output_dir"], "learned_sdunet-steps-4")
