@@ -185,6 +185,21 @@ no result line):
    reduce-scatters per micro-step in the line; in (c)-(f) the peak memory
    of the run without its checkpoint save (``peak_mem_gb``: build, data,
    steps) and of the save (``peak_mem_gb_save``), each per rank;
+   (g) ``inference_img``'s pipeline under ``{model: 2}`` (tensor
+   parallelism: each rank holds its Megatron slices of the attention and
+   feed-forward weights), (a)'s size, rank 0 writes the GIF; one UNet call
+   against rank 0's call on the whole weights (every ``proj_out`` seeded
+   alike on both): relative L2 <= ``PAR_UNET_RTOL``, K1 and K2 5 times
+   each a call on each rank, K3-K5 never, the all-reduces (calls and
+   bytes) equal to the count worked out from the model
+   (``tp_expected_allreduces``), a rank's parameter bytes the replicated
+   weights plus half the split ones within ``TP_BYTES_RTOL``;
+   (h) the ``train`` entry under ``{model: 2}`` with (c)'s config and
+   seed: the checkpoint's keys and shapes equal to (c)'s, K1, K2, K7, K8
+   launched and K3-K5 not, trainable master bytes a rank below (c)'s, then
+   one micro-step's loss within ``PAR_LOSS_RTOL`` and its gradients,
+   joined over the model ranks, within ``TRAIN_REF_RTOL`` of rank 0's step
+   on the whole weights;
    each run's launch counts are zeroed just before and read just after, on
    every rank; a ``parallel_run`` JSON line per run;
 9. floor budget: K10 (the on-chip softmax calibration) against its plain
@@ -287,6 +302,14 @@ PER_MICRO_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
 PAR_RANKS, PAR_TIMEOUT = 2, 700
 PAR_UNET_RTOL, PAR_LOSS_RTOL = 2e-2, 1e-2
 PAR_OPT_STEPS = 2
+# phase 8 (g) / (h), {model: 2}: a rank's parameter bytes against the
+# replicated weights plus half the split ones; the GEGLU kernels, which the
+# JAX package's gates decline under any mesh, never run there
+TP_BYTES_RTOL = 1e-2
+TP_SAMPLING_KERNELS = ("swat_attention_tables", "flash_attention")
+TP_TRAINING_KERNELS = ("swat_attention_tables", "flash_attention",
+                       "swat_attention_tables_bwd", "flash_attention_bwd")
+TP_NOT_LAUNCHED = ("ln_geglu_ff", "ln_geglu_ff_proj", "geglu_ff")
 # phase 8 (e) / (f), zero1 and fsdp against (c): the losses and the masters
 # after the last step (relative L2), and the kernels of the training path
 SHARD_LOSS_RTOL, SHARD_MASTERS_RTOL = 1e-5, 1e-5
@@ -883,6 +906,14 @@ KERNEL_CASES = (
     ("serving", case_geglu, (1, 98304, 320)),
     ("serving", case_geglu, (2, 98304, 320)),
     ("serving", case_geglu, (0, 24576, 640)),
+    # the tensor-parallel path under {model: 2} (appended, so the cases
+    # above keep their draws): half the heads a rank.  Sampling's K1 at
+    # (8, 12, 32, 40) and K2 at (96, 1024, 40) are the knob rows' shapes;
+    # training's, batch 1, are new
+    ("tensor_parallel", case_swat, (4, 12, 32, 40, True)),
+    ("tensor_parallel", case_flash, (48, 1024, 40, False, True)),
+    ("tensor_parallel", case_swat_bwd, (4, 12, 32, 40)),
+    ("tensor_parallel", case_flash_bwd, (48, 1024, 40)),
 )
 
 
@@ -3047,8 +3078,292 @@ def _train_vs_single(cfg, mesh, seed: int) -> dict:
     return row
 
 
+def tp_expected_allreduces(unet, batch: int, frames: int,
+                           side: int) -> list:
+    """[calls, bytes] of the all-reduces one SeerUNet call makes under a
+    ``model`` axis, worked out from the model: one per split unit (each
+    attention's ``to_out.0``, each feed-forward's ``net.2``), of its
+    site's tokens x channels in fp32.  ``side``: the level-0 latent's
+    height and width."""
+    levels = len(unet.config.block_out_channels)
+    calls = nbytes = 0
+    for name, m in unet.named_modules():
+        if getattr(m, "tp_group", None) is None:
+            continue
+        parts = name.split(".")
+        level = {"down_blocks": lambda: int(parts[1]),
+                 "mid_block": lambda: levels - 1,
+                 "up_blocks": lambda: levels - 1 - int(parts[1])}[parts[0]]()
+        row = m.to_out[0] if hasattr(m, "to_out") else m.net[2]
+        s = side >> level
+        calls += 1
+        nbytes += 4 * batch * frames * s * s * row.out_features
+    return [calls, nbytes]
+
+
+def _whole_models(cfg, trainable_scope=None):
+    """Rank 0's whole models of ``cfg`` on the card, with no mesh: the
+    weights every rank starts from before the split."""
+    import torch
+
+    from seervideoldm_tpu_torch.parallel.activation import set_activation_mesh
+    from seervideoldm_tpu_torch.pipelines.loading import initialize_models
+
+    set_activation_mesh(None)
+    return initialize_models(cfg, torch.device("cuda",
+                                               torch.cuda.current_device()),
+                             trainable_scope)
+
+
+def _split_bytes(models, splits) -> tuple[int, int]:
+    """(bytes of every parameter, bytes of those ``splits`` names) of whole
+    models."""
+    from seervideoldm_tpu_torch.parallel.sharding import param_bytes
+
+    named = {f"{k}.{n}": p for k, m in zip(("unet", "fstext", "vae", "clip"),
+                                           models.modules())
+             for n, p in m.named_parameters()}
+    return (param_bytes(models),
+            sum(named[n].numel() * named[n].element_size() for n in splits))
+
+
+def _seed_proj_out(unet, seed: int):
+    """Every ``proj_out`` of ``unet`` drawn from ``seed`` (zero at random
+    init, they would leave every transformer site out of the output); the
+    generator, to draw on from."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if ".proj_out." in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 0.02)
+    return gen
+
+
+def _tp_unet_vs_single(models, cfg, seed: int) -> dict:
+    """One CFG-batch-2 SeerUNet call under the registered ``model`` axis
+    (its launches, all-reduces against ``tp_expected_allreduces``, this
+    rank's parameter bytes) against rank 0's call on the whole weights
+    and the same inputs (the other rank waits); every ``proj_out`` seeded
+    alike on both sides, so that the split sites reach the output."""
+    import torch
+
+    from seervideoldm_tpu_torch.parallel.activation import (
+        get_activation_mesh, set_activation_mesh)
+    from seervideoldm_tpu_torch.parallel.distributed import barrier_sync, rank
+    from seervideoldm_tpu_torch.parallel.sharding import param_bytes
+
+    unet, tp, mesh = models.unet, models.tensor_parallel, get_activation_mesh()
+    f, side = int(cfg.num_frames), int(cfg.resolution) // 8
+    seq = models.clip.config.max_position_embeddings
+    gen = _seed_proj_out(unet, seed)
+    x = torch.randn(2, f, side, side, 4, generator=gen,
+                    device="cuda").bfloat16()
+    ctx = torch.randn(2, f, seq, unet.config.cross_attention_dim,
+                      generator=gen, device="cuda").bfloat16()
+    ts = torch.tensor([981, 981], dtype=torch.int32, device="cuda")
+    row = {"allreduce_expected": tp_expected_allreduces(unet, 2, f, side),
+           "param_bytes": param_bytes(models), "split_tensors": len(tp.splits)}
+    with torch.no_grad():
+        unet(x, ts, ctx, cond_frame=0)                  # warm-up
+        t0 = _start_run()
+        got = unet(x, ts, ctx, cond_frame=0)
+        row["unet_call"] = _end_run(t0)
+        row["launches"] = row["unet_call"]["launches"]
+        if rank() == 0:
+            whole = _whole_models(cfg)
+            _seed_proj_out(whole.unet, seed)
+            total, split = _split_bytes(whole, tp.splits)
+            row.update(param_bytes_whole=total, split_bytes_whole=split,
+                       param_bytes_expected=total - split // 2)
+            whole.unet(x, ts, ctx, cond_frame=0)        # warm-up
+            t0 = time.perf_counter()
+            want = whole.unet(x, ts, ctx, cond_frame=0)
+            torch.cuda.synchronize()
+            row.update(rel_l2_err=_rel_l2(got, want),
+                       single_rank_call_s=time.perf_counter() - t0,
+                       finite=bool(torch.isfinite(got).all()))
+            del whole, want
+            torch.cuda.empty_cache()
+        set_activation_mesh(mesh)
+        barrier_sync()
+    return row
+
+
+def _tp_train_vs_single(cfg, mesh, seed: int) -> dict:
+    """``_train_vs_single`` under a ``model`` axis: the split gradients
+    joined over the model ranks, rank 0's step on whole models built from
+    the same seed (no broadcast after the split: every rank draws the same
+    ``proj_out`` weights)."""
+    import torch
+
+    from seervideoldm_tpu_torch.parallel.activation import set_activation_mesh
+    from seervideoldm_tpu_torch.parallel.distributed import barrier_sync, rank
+    from seervideoldm_tpu_torch.pipelines.loading import load_models
+    from seervideoldm_tpu_torch.training.trainer import make_train_step
+
+    models, _ = load_models(cfg, torch.device("cuda",
+                                              torch.cuda.current_device()),
+                            trainable_scope=cfg.trainable_scope, mesh=mesh)
+    tp = models.tensor_parallel
+    gen = _seed_proj_out(models.unet, seed)
+    f, cond = int(cfg.num_frames), int(cfg.cond_frames)
+    side = int(cfg.resolution) // 8
+    emb = (models.clip.config.max_position_embeddings,
+           models.unet.config.cross_attention_dim)
+    n_global = int(cfg.train_batch_size) * mesh.axis_size("data")
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    batch = {"latents_x0": rn(n_global, cond, side, side, 4).bfloat16(),
+             "latents": rn(n_global, f - cond, side, side, 4).bfloat16(),
+             "clip_emb": rn(n_global, *emb).bfloat16()}
+    noise = rn(n_global, f - cond, side, side, 4).bfloat16()
+    ts = torch.randint(0, 1000, (n_global,), generator=gen, device="cuda")
+    step = make_train_step(models, cond_frames=cond, text_loss=True)
+    names = list(models.masters)
+    rows = mesh.batch_slice(n_global)
+    t0 = _start_run()
+    loss, _, grads = step.loss_and_grads(
+        names, {k: v[rows] for k, v in batch.items()}, noise[rows], ts[rows])
+    row = {"micro_step": _end_run(t0), "loss": float(loss)}
+    row["launches"] = row["micro_step"]["launches"]
+    grads = {n: tp.whole(n, g) for n, g in grads.items()}
+    del models, step
+    torch.cuda.empty_cache()
+    if rank() == 0:
+        whole = _whole_models(cfg, cfg.trainable_scope)
+        _seed_proj_out(whole.unet, seed)
+        want_loss, _, want = make_train_step(
+            whole, cond_frames=cond, text_loss=True).loss_and_grads(
+                names, batch, noise, ts)
+        num = sum(float((grads[n] - want[n]).pow(2).sum()) for n in names)
+        den = sum(float(want[n].pow(2).sum()) for n in names)
+        row.update(loss_single=float(want_loss), grad_rel_l2=(num / den) ** 0.5,
+                   finite=all(bool(torch.isfinite(g).all())
+                              for g in grads.values()))
+        del whole, want
+    set_activation_mesh(mesh)
+    barrier_sync()
+    del grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tp_sample_run(out_dir: str) -> dict:
+    """Phase 8 (g): ``inference_img``'s pipeline under ``{model: 2}`` at
+    (a)'s size, a clip timed, rank 0 writing the GIF; then one UNet call
+    against the whole weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seervideoldm_tpu_torch.inference_img import (build_pipeline,
+                                                      generate_video)
+    from seervideoldm_tpu_torch.parallel.distributed import is_main_process
+    from seervideoldm_tpu_torch.utils.viz import save_visualization_onegif
+
+    t0 = _start_run()
+    pipe, tok, cfg = build_pipeline(dict(
+        resolution=256, cond_frames=2, num_frames=12, ddim_steps=E2E_STEPS,
+        scale=7.5, seed=SEED, mixed_precision="bf16",
+        compute_dtype="bfloat16", mesh_shape={"model": 2},
+        output_dir=os.path.join(out_dir, "sample_model2")))
+    image = np.random.RandomState(SEED).randint(0, 256, (256, 256, 3),
+                                                dtype=np.uint8)
+    build_s = time.perf_counter() - t0
+    generate_video(pipe, tok, dataclasses.replace(cfg, ddim_steps=1), image,
+                   "push the green cup to the left")
+    t0 = _start_run()
+    samples, cond = generate_video(pipe, tok, cfg, image,
+                                   "push the green cup to the left")
+    row = _end_run(t0)
+    gif = None
+    if is_main_process():
+        gif = save_visualization_onegif(samples.cpu().numpy(),
+                                        ((cond + 1.0) / 2.0).numpy(),
+                                        cfg.output_dir, 0)
+    row.update(build_seconds=build_s, frames=list(samples.shape),
+               finite=bool(torch.isfinite(samples).all()),
+               in_range=bool(samples.min() >= 0 and samples.max() <= 1),
+               gif_written=gif is not None and os.path.exists(gif),
+               unet_calls=len(pipe.schedule.ddim_tables(E2E_STEPS).timesteps),
+               unet_check=_tp_unet_vs_single(pipe.m, cfg, SEED + 6))
+    del pipe
+    return row
+
+
+def _tp_train_run(raw: dict, replicated: dict, out_dir: str) -> dict:
+    """Phase 8 (h): the ``train`` entry with (c)'s config and seed under
+    ``{model: 2}``; its steps, the master and parameter bytes this rank
+    holds, the collectives per micro-step (the save's apart), the
+    checkpoint's keys and shapes against (c)'s (rank 0 reads both), then
+    one micro-step against a single rank's."""
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.io.checkpoint import (FSTEXT_FILE, STATE_FILE,
+                                                      UNET_FILE)
+    from seervideoldm_tpu_torch.parallel.distributed import (barrier_sync,
+                                                             is_main_process)
+    from seervideoldm_tpu_torch.parallel.mesh import create_mesh
+    from seervideoldm_tpu_torch.train import train
+
+    split = dict(raw, output_dir=os.path.join(out_dir, "train_model2"),
+                 mesh_shape={"model": 2})
+    t0 = _start_run()
+    with _saves_apart() as rec:
+        summary = train(config_from_dict(dict(split)))
+    row = _end_train_run(t0, rec)
+    micro = summary["micro_steps"]
+    in_saves = {op: rec["collectives"].get(op, [0, 0])
+                for op in row["collectives"]}
+    row.update(
+        global_step=summary["global_step"], losses=summary["losses"],
+        step_seconds=summary["step_seconds"],
+        step_seconds_replicated=replicated["step_seconds"],
+        master_bytes=summary["master_bytes"],
+        master_bytes_replicated=replicated["master_bytes"],
+        param_bytes=summary["param_bytes"],
+        param_bytes_replicated=replicated["param_bytes"],
+        state_bytes=summary["state_bytes"],
+        collectives_per_micro_step={
+            op: [(v[0] - in_saves[op][0]) / micro,
+                 (v[1] - in_saves[op][1]) / micro]
+            for op, v in row["collectives"].items()},
+        collectives_checkpoint=in_saves,
+        checkpoint_written=os.path.isdir(summary["checkpoint"]))
+    if is_main_process():
+        def layout(path):
+            out = {}
+            for fname in (UNET_FILE, FSTEXT_FILE):
+                sd = torch.load(os.path.join(path, fname), map_location="cpu")
+                out[fname] = {k: tuple(v.shape) for k, v in sd.items()}
+            state = torch.load(os.path.join(path, STATE_FILE),
+                               map_location="cpu")
+            for key in ("masters", "ema"):
+                out[key] = {k: tuple(v.shape)
+                            for k, v in (state[key] or {}).items()}
+            for key in ("mu", "nu"):
+                out[key] = {k: tuple(v.shape)
+                            for k, v in state["optimizer"][key].items()}
+            return out
+
+        got, want = (layout(summary["checkpoint"]),
+                     layout(replicated["checkpoint"]))
+        row["checkpoint_layout_equal"] = got == want
+        row["checkpoint_tensors"] = sum(len(v) for v in got.values())
+    barrier_sync()
+    torch.cuda.empty_cache()
+    row["step_check"] = _tp_train_vs_single(config_from_dict(dict(split)),
+                                            create_mesh({"model": 2}),
+                                            SEED + 5)
+    return row
+
+
 def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
-    """The four runs of the parallel phase on one rank (started by
+    """The eight runs of the parallel phase on one rank (started by
     ``parallel.launch``); returns each run's numbers from this rank."""
     import dataclasses
 
@@ -3130,6 +3445,11 @@ def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
                        ("train_data2_fsdp", "fsdp")):
         runs[name] = _sharded_run(name, flag, *replicated, out_dir)
         torch.cuda.empty_cache()
+    # (g), (h) the 'model' axis: sampling, then (c)'s training
+    runs["sample_model2"] = _tp_sample_run(out_dir)
+    torch.cuda.empty_cache()
+    runs["train_model2"] = _tp_train_run(*replicated, out_dir)
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -3251,6 +3571,7 @@ def phase_parallel(card: str) -> dict:
             "parallel (b): K6 was not launched")
     for name in ("train_data2_zero1", "train_data2_fsdp"):
         _check_sharded(name, main[name], [r[name] for r in results])
+    _check_tensor_parallel(main, results)
     for name, kernels in (("train_data2", ("swat_attention_tables",
                                            "swat_attention_tables_bwd")),
                           ("train_seq2_f11_k6", ("swat_attention",
@@ -3273,6 +3594,62 @@ def phase_parallel(card: str) -> dict:
             require(row["launches"][k] > 0,
                     f"parallel {name}: {k} was not launched")
     return total
+
+
+def _check_tensor_parallel(main: dict, results: list) -> None:
+    """Phase 8 (g) / (h), ``{model: 2}``, against a single rank and (c)."""
+    g = main["sample_model2"]
+    check = g["unet_check"]
+    require(g["frames"] == [1, 10, 256, 256, 3] and g["finite"]
+            and g["in_range"] and g["gif_written"],
+            f"parallel (g): frames {g['frames']}, GIF {g['gif_written']}")
+    require(check["rel_l2_err"] <= PAR_UNET_RTOL and check["finite"],
+            f"parallel (g): UNet relative L2 {check['rel_l2_err']}")
+    want_bytes = check["param_bytes_expected"]
+    for r in results:
+        rc = r["sample_model2"]["unet_check"]
+        clip = r["sample_model2"]["launches"]
+        for k in TP_SAMPLING_KERNELS:
+            require(rc["launches"][k] == PER_STEP[k]
+                    and clip[k] == PER_STEP[k] * g["unet_calls"],
+                    f"parallel (g): {k} launched {rc['launches'][k]} times "
+                    f"a UNet call ({clip[k]} a clip of {g['unet_calls']} "
+                    f"calls), a single rank {PER_STEP[k]}")
+        for k in TP_NOT_LAUNCHED:
+            require(r["sample_model2"]["launches"][k] == 0,
+                    f"parallel (g): {k} launched under 'model'")
+        calls = rc["unet_call"]["collectives"].get("all_reduce", [0, 0])
+        require(calls == rc["allreduce_expected"],
+                f"parallel (g): all-reduces {calls} a UNet call, the model "
+                f"gives {rc['allreduce_expected']}")
+        require(abs(rc["param_bytes"] - want_bytes)
+                <= TP_BYTES_RTOL * want_bytes,
+                f"parallel (g): {rc['param_bytes']} parameter bytes a rank, "
+                f"replicated + split / 2 = {want_bytes}")
+    h = main["train_model2"]
+    step = h["step_check"]
+    require(h["global_step"] == PAR_OPT_STEPS and h["checkpoint_written"]
+            and h["losses"] and all(map(math.isfinite, h["losses"])),
+            f"parallel (h): {h['global_step']} steps, losses {h['losses']}")
+    require(h["checkpoint_layout_equal"],
+            "parallel (h): the checkpoint's keys or shapes differ from (c)'s")
+    require(abs(step["loss"] - step["loss_single"])
+            <= PAR_LOSS_RTOL * abs(step["loss_single"]),
+            f"parallel (h): loss {step['loss']} vs single-rank "
+            f"{step['loss_single']}")
+    require(step["grad_rel_l2"] <= TRAIN_REF_RTOL and step["finite"],
+            f"parallel (h): gradient relative L2 {step['grad_rel_l2']}")
+    for r in results:
+        row = r["train_model2"]
+        for k in TP_TRAINING_KERNELS:
+            require(row["launches"][k] > 0,
+                    f"parallel (h): {k} was not launched")
+        for k in TP_NOT_LAUNCHED:
+            require(row["launches"][k] == 0,
+                    f"parallel (h): {k} launched under 'model'")
+        require(row["master_bytes"] < row["master_bytes_replicated"],
+                f"parallel (h): {row['master_bytes']} master bytes a rank, "
+                f"not below (c)'s {row['master_bytes_replicated']}")
 
 
 def _check_sharded(name: str, row: dict, per_rank: list) -> None:

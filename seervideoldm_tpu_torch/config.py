@@ -176,15 +176,12 @@ def validate(cfg: Config) -> Config:
     cfg.remat = parse_remat(cfg.remat)
     if cfg.mesh_shape is not None:
         for axis, size in dict(cfg.mesh_shape).items():
-            if axis == "model":
-                raise ValueError("mesh_shape axis 'model' (tensor "
-                                 "parallelism) is not ported yet: use "
-                                 "'data' and 'seq'")
-            if axis not in ("data", "seq"):
+            if axis not in ("data", "model", "seq"):
                 raise ValueError(f"mesh_shape axis {axis!r} is unknown "
-                                 "(supported: 'data', 'seq')")
+                                 "(supported: 'data', 'model', 'seq')")
             if int(size) < 1:
                 raise ValueError(f"mesh_shape {axis}={size} must be >= 1")
+        _validate_model_axis(cfg)
     if cfg.push_to_hub:
         raise ValueError("push_to_hub is not supported: there is no network "
                          "access; upload the checkpoint directory manually")
@@ -201,6 +198,22 @@ def validate(cfg: Config) -> Config:
         raise ValueError(f"vae_scale must be > 0, got {cfg.vae_scale!r}")
     _validate_sampling(cfg)
     return cfg
+
+
+def _validate_model_axis(cfg: Config) -> None:
+    """The strategies not yet ported beside a ``model`` axis of more than
+    one rank (tensor parallelism, ``parallel/sharding.py``), each refused
+    by name."""
+    if int(dict(cfg.mesh_shape).get("model", 1)) <= 1:
+        return
+    refused = (("zero1", bool(cfg.zero1)), ("fsdp", bool(cfg.fsdp)),
+               ("lora_rank > 0", int(cfg.lora_rank or 0) > 0),
+               ("use_8bit_adam", bool(cfg.use_8bit_adam)))
+    for name, on in refused:
+        if on:
+            raise ValueError(f"{name} with a 'model' mesh axis (tensor "
+                             "parallelism) is not ported yet: drop one of "
+                             "the two")
 
 
 def _validate_training_options(cfg: Config) -> None:

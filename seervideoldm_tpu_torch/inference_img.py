@@ -15,11 +15,12 @@ instruction per chunk.  The cond frames and the prediction are written as
 plain PyTorch path instead.
 
 Several ranks under torchrun (``--nproc_per_node N``) take ``mesh_shape``
-({"data": D, "seq": S}; null = every rank on ``data``) and
+({"data": D, "model": M, "seq": S}; null = every rank on ``data``) and
 ``ring_attention``: ``seq`` splits the latent frames (the temporal
 attention rotates K/V around a ring, or gathers them when
 ``ring_attention: false`` or the frames do not split evenly), ``data`` the
-prompt batch; rank 0 writes the GIF.
+prompt batch, ``model`` the attention heads and feed-forward hidden units
+of every model (tensor parallelism); rank 0 writes the GIF.
 
 ``generate_video`` is the same path as a Python API (a config dict or
 ``Config``, a numpy image), with no GIF written.

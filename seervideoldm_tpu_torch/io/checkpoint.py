@@ -25,6 +25,13 @@ same files under the same keys as an unsharded run; a restore takes each
 rank's shards of them, so a checkpoint resumes on any number of ranks.
 Both go through one route (``_names``, ``_load``), the identity on
 unsharded state.
+
+Under a ``model`` axis (``models.tensor_parallel``) every rank calls
+``save`` as well: each split tensor -- masters, EMA, moments, accumulator
+and the modules' own split weights -- is gathered to rank 0 along its split
+dimension (``TensorParallel.gather_dict``), so the files hold the keys and
+shapes of a single-rank save; a restore cuts each rank's slices from the
+whole tensors (``TensorParallel.local_dict``).
 """
 from __future__ import annotations
 
@@ -88,6 +95,13 @@ def _load(plan, tensors: dict, whole: dict) -> None:
         t.copy_(whole[name])
 
 
+def _optimizer_by(fn, state: dict) -> dict:
+    """``state`` (``Optimizer.state_dict``) with ``fn`` applied to each of
+    its by-name tensor dicts (the moments and the accumulator)."""
+    return {k: fn(v) if k in ("mu", "nu", "acc") else v
+            for k, v in state.items()}
+
+
 def _to_cpu(obj):
     """``obj`` with every tensor (in nested dicts) detached onto the CPU."""
     if isinstance(obj, dict):
@@ -116,19 +130,27 @@ class CheckpointManager:
         """Write the step's directory (the two weight files with the EMA
         weights when the state has an EMA, and ``train_state.pt``), then
         drop the oldest directories beyond ``max_to_keep``.  Under a
-        sharded state every rank calls it and rank 0 writes."""
+        sharded state or a ``model`` axis every rank calls it and rank 0
+        writes."""
         from ..parallel.distributed import is_main_process
 
-        plan = models.sharding
+        plan, tp = models.sharding, models.tensor_parallel
         path = self.path_for_step(step)
-        masters = _names(plan, state.masters)
-        ema = _names(plan, state.ema)
-        if plan is None:
-            optimizer, base = _to_cpu(state.optimizer.state_dict()), None
+        if tp is not None:
+            masters = tp.gather_dict(state.masters)
+            ema = tp.gather_dict(state.ema)
+            optimizer = _optimizer_by(tp.gather_dict,
+                                      state.optimizer.state_dict())
+            base = tp.module_weights(models)
         else:
-            optimizer = plan.optimizer_state(state.optimizer)
-            base = plan.module_weights()
-        if plan is None or is_main_process():
+            masters = _names(plan, state.masters)
+            ema = _names(plan, state.ema)
+            if plan is None:
+                optimizer, base = _to_cpu(state.optimizer.state_dict()), None
+            else:
+                optimizer = plan.optimizer_state(state.optimizer)
+                base = plan.module_weights()
+        if (plan is None and tp is None) or is_main_process():
             # under a mesh with ``seq`` each seq line's data rank 0 holds
             # the gathered state; the first rank alone writes it
             self._write(path, state.step, masters, ema, optimizer, models,
@@ -164,7 +186,13 @@ class CheckpointManager:
 
         saved = torch.load(os.path.join(self.path_for_step(step), STATE_FILE),
                            map_location="cpu")
-        plan = models.sharding
+        plan, tp = models.sharding, models.tensor_parallel
+        if tp is not None:
+            # this rank's slices of the whole tensors
+            saved["masters"] = tp.local_dict(saved["masters"])
+            saved["ema"] = tp.local_dict(saved["ema"])
+            saved["optimizer"] = _optimizer_by(tp.local_dict,
+                                               saved["optimizer"])
         names = (set(state.masters) if plan is None else
                  {n for layout in plan.layouts.values() for n in layout.names})
         missing = names ^ set(saved["masters"])

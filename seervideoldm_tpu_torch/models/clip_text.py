@@ -2,7 +2,11 @@
 ``seervideoldm_tpu/models/clip_text.py``): last hidden state ``(b, 77, 768)``
 under a causal mask and the tokenizer's padding mask; quick_gelu, pre-LN,
 learned positions.  Module names follow the HF ``CLIPTextModel`` state dict
-(``text_model.encoder.layers.N.self_attn.q_proj`` ...).
+(``text_model.encoder.layers.N.self_attn.q_proj`` ...).  Under a
+``model`` axis (``parallel.sharding.shard_tensor_parallel``) the attention
+holds its slice of the heads (``q/k/v_proj`` column, ``out_proj``
+row-parallel) and the MLP its slice of the hidden units (``fc1`` column,
+``fc2`` row-parallel).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.norms import LayerNorm
+from ..parallel.collectives import copy_to_model, row_parallel_linear
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -37,20 +42,26 @@ class CLIPAttention(nn.Module):
         super().__init__()
         self.heads = cfg.num_attention_heads
         d = cfg.hidden_size
+        self.head_dim = d // self.heads
         self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
         self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
+        self.tp_group = None  # the model group once split (parallel/sharding)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        d = c // self.heads
+        b, n, _ = x.shape
+        d, group = self.head_dim, self.tp_group
+        x = copy_to_model(x, group)
         split = lambda t: t.reshape(b, n, self.heads, d).transpose(1, 2)  # noqa: E731
         q = split(self.q_proj(x)) * (d ** -0.5)
         k, v = split(self.k_proj(x)), split(self.v_proj(x))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         logits = logits.masked_fill(~mask, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, c)
-        return self.out_proj(out)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, -1)
+        if group is None:
+            return self.out_proj(out)
+        return row_parallel_linear(out, self.out_proj.weight,
+                                   self.out_proj.bias, group)
 
 
 class CLIPMLP(nn.Module):
@@ -58,9 +69,14 @@ class CLIPMLP(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.tp_group = None  # the model group once split (parallel/sharding)
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        if self.tp_group is None:
+            return self.fc2(quick_gelu(self.fc1(x)))
+        hidden = quick_gelu(self.fc1(copy_to_model(x, self.tp_group)))
+        return row_parallel_linear(hidden, self.fc2.weight, self.fc2.bias,
+                                   self.tp_group)
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -42,6 +42,14 @@ counts global frames: under ``seq`` (``frames``, this rank's
 ``FrameShard``) each rank skips the residual of its own share of them,
 ``clamp(cond_frame - first_frame, 0, f_local)``.
 
+Under a ``model`` axis (``parallel.sharding.shard_tensor_parallel``) the
+attentions hold their slice of the heads and the FF its slice of the
+hidden units: ``ff.net.0.proj`` keeps its slice of the hidden rows and of
+the gate rows (the JAX package's Megatron GEGLU), ``ff.net.2`` runs
+row-parallel, and the GEGLU kernels (K3, K4, K5) are not launched -- the
+JAX package's gates decline under any mesh, and the plain two-matmul form
+is its path there.  The PAB cache holds the summed (replicated) residual.
+
 Layout ``(b, f, h, w, c)``.
 """
 from __future__ import annotations
@@ -60,7 +68,8 @@ from ..ops.kernels.geglu_ff import (feed_forward, geglu_ff, geglu_ff_supported,
                                     ln_geglu_ff_proj)
 from ..ops.norms import GroupNorm, LayerNorm
 from ..ops.tome import bipartite_soft_matching_2d
-from ..parallel.activation import FrameShard
+from ..parallel.activation import FrameShard, model_group
+from ..parallel.collectives import copy_to_model, row_parallel_linear
 
 
 def pab_residual(pab, key: str, kind: str, compute_fn) -> torch.Tensor:
@@ -80,6 +89,9 @@ def pab_residual(pab, key: str, kind: str, compute_fn) -> torch.Tensor:
 
 
 class GEGLU(nn.Module):
+    """hidden * gelu(gate) of one projection whose rows are [hidden |
+    gate]; split over ``model``, this rank's rows of each half."""
+
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.proj = nn.Linear(dim_in, dim_out * 2)  # rows [hidden | gate]
@@ -96,6 +108,7 @@ class FeedForward(nn.Module):
         # reference net = [GEGLU, Dropout, Linear]
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
                                   nn.Linear(inner, dim)])
+        self.tp_group = None  # the model group once split (parallel/sharding)
 
     def weights(self):
         """(w1, b1, w2, b2) in torch Linear layout, as the kernels take."""
@@ -103,10 +116,14 @@ class FeedForward(nn.Module):
                 self.net[2].weight, self.net[2].bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            hidden = self.net[0](copy_to_model(x, self.tp_group))
+            return row_parallel_linear(hidden, self.net[2].weight,
+                                       self.net[2].bias, self.tp_group)
         lead, c = x.shape[:-1], x.shape[-1]
         n = x.numel() // c
         inner = self.net[2].in_features
-        if geglu_ff_supported(n, c, inner, x):
+        if model_group() is None and geglu_ff_supported(n, c, inner, x):
             return geglu_ff(x.reshape(n, c), *self.weights()).reshape(*lead, c)
         return feed_forward(x, *self.weights())
 
@@ -117,7 +134,8 @@ def ln_ff_residual(norm: LayerNorm, ff: FeedForward,
     GEGLU kernel where the JAX gate prefers it."""
     lead, c = x.shape[:-1], x.shape[-1]
     n = x.numel() // c
-    if ln_geglu_ff_preferred(n, c, ff.net[2].in_features, x):
+    if (model_group() is None
+            and ln_geglu_ff_preferred(n, c, ff.net[2].in_features, x)):
         out = ln_geglu_ff(x.reshape(n, c), norm.weight, norm.bias, *ff.weights())
         return out.reshape(*lead, c)
     return ff(norm(x)) + x
@@ -292,7 +310,7 @@ class SpatialTransformer3D(nn.Module):
             if cond_frame is None:
                 cond_frame = self.cond_frame
             inner = x.shape[-1]
-            if (cond_frame == 0 and c == inner
+            if (cond_frame == 0 and c == inner and model_group() is None
                     and ln_geglu_ff_preferred(b * f * h * w, inner, inner * 4, x)):
                 # proj_out + the outer residual ride the FF kernel (K4)
                 return block(x, fuse_out=(self.proj_out, x_in), cond_frame=0,

@@ -26,6 +26,13 @@
   ``parallel.activation.seq_kernel_step`` and the einsum paths on the
   gathered frames.
 
+Under a ``model`` axis (``tp_group`` set by
+``parallel.sharding.shard_tensor_parallel``) both attention modules hold
+their slice of the heads: ``heads`` is the local count, q/k/v the column
+slices, and ``to_out.0`` runs row-parallel (``row_parallel_linear``: fp32
+partials, one all-reduce, the bias once).  Attention maps are gathered
+over the heads, so a map equals a single rank's.
+
 Layout: tokens ``(b, n, c)``; heads ``(b, H, n, d)``.
 """
 from __future__ import annotations
@@ -39,6 +46,8 @@ import torch.nn.functional as F
 from .kernels.flash_attention import flash_attention, plain_attention
 from ..parallel.activation import (FrameShard, gather_frames, local_frames,
                                    seq_kernel_step)
+from ..parallel.collectives import (all_gather_cat, copy_to_model,
+                                    group_size, row_parallel_linear)
 from .kernels.swat_attention import swat_attention, swat_attention_tables
 from .ring import ring_attention_applicable, ring_window_attention
 from .rotary import apply_rotary, inv_freq, rotary_freqs, rotary_tables
@@ -73,11 +82,13 @@ def sliced_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, slice_size: int,
                      causal: bool = False) -> torch.Tensor:
     """Attention in ``slice_size`` chunks of the head axis (q/k/v (b, h,
-    n|m, d), ``slice_size`` divides h), each through the plain attention
-    (a saved site under ``remat: save_attn``)."""
+    n|m, d), ``slice_size`` divides h: the local heads under a ``model``
+    axis), each through the plain attention (a saved site under ``remat:
+    save_attn``)."""
     h = q.shape[1]
     if h % slice_size:
-        raise ValueError(f"slice_size {slice_size} must divide heads {h}")
+        raise ValueError(f"slice_size {slice_size} must divide heads {h} "
+                         "(this rank's heads under a 'model' axis)")
     return torch.cat([plain_attention(q[:, i:i + slice_size],
                                       k[:, i:i + slice_size],
                                       v[:, i:i + slice_size], scale, causal)
@@ -112,6 +123,13 @@ def _out_proj(inner: int, query_dim: int) -> nn.ModuleList:
     return nn.ModuleList([nn.Linear(inner, query_dim), nn.Identity()])
 
 
+def project_out(lin: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``lin(x)``; row-parallel over ``group`` when the unit is split."""
+    if group is None:
+        return lin(x)
+    return row_parallel_linear(x, lin.weight, lin.bias, group)
+
+
 class CrossAttention(nn.Module):
     """Multi-head (cross-)attention; self-attention when ``context`` is
     None."""
@@ -127,6 +145,7 @@ class CrossAttention(nn.Module):
         ctx_dim = cross_attention_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
         self.temporal, self.causal = temporal, causal
+        self.tp_group = None  # the model group once split (parallel/sharding)
         self.to_q = nn.Linear(query_dim, inner, bias=bias)
         self.to_k = nn.Linear(ctx_dim, inner, bias=bias)
         self.to_v = nn.Linear(ctx_dim, inner, bias=bias)
@@ -139,7 +158,9 @@ class CrossAttention(nn.Module):
                 context: Optional[torch.Tensor] = None,
                 attention_slice: Optional[int] = None,
                 attn_maps: Optional[dict] = None) -> torch.Tensor:
-        ctx = x if context is None else context
+        group = self.tp_group
+        x = copy_to_model(x, group)
+        ctx = x if context is None else copy_to_model(context, group)
         q = split_heads(self.to_q(x), self.heads)
         k = split_heads(self.to_k(ctx), self.heads)
         v = split_heads(self.to_v(ctx), self.heads)
@@ -155,14 +176,17 @@ class CrossAttention(nn.Module):
             if causal:
                 logits = logits.masked_fill(
                     ~causal_mask(q.shape[2], k.shape[2], x.device), NEG_INF)
-            attn_maps[self.site] = logits
+            attn_maps[self.site] = (logits if group is None else
+                                    all_gather_cat(logits, group, 1,
+                                                   [self.heads]
+                                                   * group_size(group)))
             out = torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
         elif attention_slice:
             out = sliced_attention(q, k, v, scale, int(attention_slice),
                                    causal)
         else:
             out = dot_product_attention(q, k, v, scale, causal=causal)
-        return self.to_out[0](merge_heads(out))
+        return project_out(self.to_out[0], merge_heads(out), group)
 
 
 class WindowTemporalAttention(nn.Module):
@@ -186,6 +210,7 @@ class WindowTemporalAttention(nn.Module):
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.causal = causal
+        self.tp_group = None  # the model group once split (parallel/sharding)
         self.to_q = nn.Linear(query_dim, inner, bias=bias)
         self.to_k = nn.Linear(query_dim, inner, bias=bias)
         self.to_v = nn.Linear(query_dim, inner, bias=bias)
@@ -198,8 +223,11 @@ class WindowTemporalAttention(nn.Module):
         n, heads, d = f * h * w, self.heads, self.dim_head
         # Q/K/V as one matmul against the concatenated weights: the hidden
         # states are read once.  (Under a mesh the JAX layer switches to
-        # three Dense layers so the weights can shard over 'model'; the
-        # port has no 'model' axis, and the fused form is the same math.)
+        # three Dense layers so the weights can shard over 'model'; here
+        # each is this rank's slice under 'model', and the fused form is
+        # the same math.)
+        group = self.tp_group
+        x = copy_to_model(x, group)
         lin = (self.to_q, self.to_k, self.to_v)
         weight = torch.cat([m.weight for m in lin])
         bias = (torch.cat([m.bias for m in lin])
@@ -252,5 +280,6 @@ class WindowTemporalAttention(nn.Module):
                 ow = dot_product_attention(qw, kw, vw, scale, causal=self.causal)
                 out = window_reverse(ow, ws, total, h, w)
             out = local_frames(out, frames)
-        out = self.to_out[0](merge_heads(out.reshape(b, heads, n, d)))
+        out = project_out(self.to_out[0],
+                          merge_heads(out.reshape(b, heads, n, d)), group)
         return out.reshape(b, f, h, w, c)

@@ -13,6 +13,10 @@ on the local batch and nothing in the forward communicates.  Under ``seq``
 each rank holds a contiguous range of the frames (``FrameShard``); the
 temporal attention is the one op that needs every frame, and it either
 rotates K/V around the ring (``ops/ring.py``) or takes ``seq_kernel_step``.
+Under ``model`` each rank holds its slice of the heads and of the
+feed-forward's hidden units (``parallel/sharding.py``); the kernels run on
+the local heads and each row-parallel projection closes with one
+all-reduce over ``model_group()``.
 """
 from __future__ import annotations
 
@@ -42,6 +46,13 @@ def seq_group():
     """The ``seq`` process group through this rank, or None when no
     multi-rank ``seq`` axis is registered."""
     return _MESH.group("seq") if _MESH is not None else None
+
+
+def model_group():
+    """The ``model`` process group through this rank, or None when no
+    multi-rank ``model`` axis is registered.  The GEGLU kernels' gates
+    decline under it, as the JAX package's decline under any mesh."""
+    return _MESH.group("model") if _MESH is not None else None
 
 
 @dataclass(frozen=True)

@@ -30,7 +30,15 @@ model:
   redistribution;
 - ``all_gather_cat``: every rank's x joined along a dim, sizes may differ
   by rank; the backward sums the gradient over ranks and keeps this rank's
-  slice.
+  slice;
+- the Megatron pair of tensor parallelism (Shoeybi et al. 2019): ``f``,
+  ``copy_to_model``, the identity forward and an all-reduce backward, at
+  the input of each column-parallel group; ``g``, ``reduce_from_model``,
+  an all-reduce forward and the identity backward, after each
+  row-parallel projection (``row_parallel_linear``).  ``_AllReduceSum``
+  is not that ``g``: its backward sums as well, which after a
+  row-parallel layer would multiply every gradient upstream by the
+  group's size.
 """
 from __future__ import annotations
 
@@ -324,3 +332,58 @@ def all_gather_cat(x: torch.Tensor, group, dim: int,
     if group_size(group) == 1:
         return x
     return _AllGatherCat.apply(x, group, dim, tuple(sizes))
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the ranks' parts summed in fp32, rounded to g's dtype once
+        total = all_reduce_(g.to(torch.float32, copy=True), ctx.group)
+        return total.to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``f``: x itself; its gradient is summed over ``group`` in fp32 (each
+    rank's column slice contributes a part of it).  No group: x."""
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``g``: the sum of x over ``group``; its gradient passes unchanged.
+    With no gradient to carry, x itself is summed in place."""
+    if group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, group)
+    return all_reduce_(x, group)
+
+
+def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor], group) -> torch.Tensor:
+    """A Linear whose input features are split over ``group``: x holds this
+    rank's features and ``weight`` the matching columns.  The partial
+    product is taken from x's values in fp32, summed over the group in
+    fp32, the whole bias added once and the sum rounded to x's dtype once:
+    a single rank's GEMM with fp32 accumulation, up to summation order."""
+    partial = torch.nn.functional.linear(x.float(), weight.float())
+    out = reduce_from_model(partial, group)
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)

@@ -108,12 +108,14 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def assert_replicas_equal(tensors, what: str = "masters") -> float:
-    """A checksum (fp64 sum of every element) of ``tensors`` on every rank;
-    raises when any rank's differs from rank 0's.  Returns this rank's."""
+def assert_replicas_equal(tensors, what: str = "masters",
+                          group=None) -> float:
+    """A checksum (fp64 sum of every element) of ``tensors`` on every rank
+    of ``group`` (None: the world); raises when any rank's differs from
+    the group's first.  Returns this rank's."""
     total = torch.stack([t.sum(dtype=torch.float64) for t in tensors]).sum()
     if world_size() > 1:
-        sums = [float(s) for s in all_gather(total.reshape(1), None)]
+        sums = [float(s) for s in all_gather(total.reshape(1), group)]
         if any(s != sums[0] for s in sums):
             raise RuntimeError(f"{what} differ across ranks: checksums {sums}")
     return float(total)

@@ -1,9 +1,12 @@
-"""ZeRO-1 and FSDP over the ``data`` axis (port of the first two parts of
-``seervideoldm_tpu/parallel/sharding.py``: ``zero1_state_sharding`` and
-``fsdp_param_sharding`` / ``fsdp_state_sharding``; the tensor-parallel
-``model`` rules are not ported).
+"""The sharded layouts of ``seervideoldm_tpu/parallel/sharding.py``: ZeRO-1
+and FSDP over the ``data`` axis (``zero1_state_sharding``,
+``fsdp_param_sharding`` / ``fsdp_state_sharding``), and tensor parallelism
+over the ``model`` axis (``tensor_parallel_rules``, ``infer_param_sharding``
+and, for ``shard_params``, ``shard_tensor_parallel``; the last section of
+this file).  The two are not combined: ``config.validate`` refuses
+``zero1`` and ``fsdp`` beside a ``model`` axis.
 
-Both modes are beyond the reference and leave the training math as it is:
+ZeRO-1 and FSDP are beyond the reference and leave the training math as it is:
 the same losses and updates as the replicated data-parallel run.  The
 train entry picks the mode as the JAX entry does (``decide_mode``):
 ``zero1`` or ``fsdp`` need a ``data`` axis of more than one rank and are
@@ -66,12 +69,14 @@ from __future__ import annotations
 
 import contextlib
 import math
+import re
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 
-from .collectives import (all_gather_flat, all_reduce_, gather_flat,
-                          reduce_scatter)
+from .collectives import (all_gather, all_gather_flat, all_reduce_,
+                          gather_flat, group_rank, reduce_scatter)
 
 ALIGN = 256
 GROUP_ELEMENTS = 1 << 24    # a replicated group's leaves, before padding
@@ -666,3 +671,271 @@ def param_bytes(models) -> int:
         for t in plan.masters.values():
             add(t)
     return total
+
+
+# ------------------------------------------------------ tensor parallelism
+#
+# The Megatron pattern (Shoeybi et al. 2019) over the ``model`` axis: the
+# Q/K/V and feed-forward up-projections split their output features
+# ("column": weight rows and bias), the output and down-projections their
+# input features ("row": weight columns; the bias stays whole and is added
+# once after the sum).  Each rank then holds its slice of the heads and of
+# the hidden units; the model code runs the attention kernels on the local
+# heads and closes each row-parallel projection with one all-reduce
+# (``collectives.row_parallel_linear``), with ``copy_to_model`` at the input
+# of each column group.  The JAX package expresses the same split as
+# ``PartitionSpec``s and lets GSPMD insert the all-reduce.
+#
+# A split falls on a unit: the modules that declare ``tp_group`` (the
+# attentions, the feed-forwards, CLIP's attention and MLP).  A unit splits
+# when every weight of it that the rules match divides over the ``model``
+# ranks and, for an attention, so do its heads; otherwise it stays
+# replicated, as the JAX rule replicates a weight whose features do not
+# divide (a split has to fall on head boundaries here, where the JAX
+# package's GSPMD may split inside a head).  The VAE's ``query`` / ``key``
+# / ``value`` match no rule and stay replicated, as in JAX.
+
+
+class Split(NamedTuple):
+    """How a tensor is cut over the ``model`` ranks: ``dim`` the axis cut,
+    ``halves`` the blocks of that axis each rank takes its part of (2 for
+    the GEGLU projection, whose rows are [hidden | gate])."""
+
+    dim: int
+    halves: int = 1
+
+
+COLUMN = Split(0)
+ROW = Split(1)
+# the fused [hidden | gate] rows of GEGLU: each rank keeps its slice of the
+# hidden rows AND its slice of the gate rows (a contiguous cut would give
+# one rank every hidden row and the other every gate row), so the product
+# hidden * gelu(gate) is local -- the JAX package's Megatron GEGLU
+GEGLU_COLUMN = Split(0, 2)
+
+
+def tensor_parallel_rules() -> list[tuple[str, Split]]:
+    """(regex over ``"<model>.<parameter>"`` names, split) -- first match
+    wins.  The JAX table over the port's names: its ``P(None, "model")`` on
+    an (in, out) kernel is ``COLUMN`` of a torch (out, in) weight, its
+    ``P("model", None)`` is ``ROW``."""
+    return [
+        # attention: heads (output features) of q/k/v; input of out-proj
+        (r".*\.(to_q|to_k|to_v)\.weight$", COLUMN),
+        (r".*\.to_out\.0\.weight$", ROW),
+        (r".*\.(q_proj|k_proj|v_proj)\.weight$", COLUMN),
+        (r".*\.out_proj\.weight$", ROW),
+        # feed-forward: GEGLU up-proj out features, down-proj in features
+        (r".*\.ff\.net\.0\.proj\.weight$", GEGLU_COLUMN),
+        (r".*\.ff\.net\.2\.weight$", ROW),
+        (r".*\.fc1\.weight$", COLUMN),
+        (r".*\.fc2\.weight$", ROW),
+    ]
+
+
+def _compiled(rules=None) -> list:
+    return [(re.compile(p), s) for p, s in (rules or tensor_parallel_rules())]
+
+
+def _rule(name: str, rules) -> Optional[Split]:
+    for pattern, split in rules:
+        if pattern.match(name):
+            return split
+    return None
+
+
+def _tp_units(models):
+    """``(qualified name, unit)`` of every tensor-parallel unit of the four
+    models, in module order."""
+    for key in ("unet", "fstext", "vae", "clip"):
+        for name, module in getattr(models, key).named_modules():
+            if hasattr(module, "tp_group"):
+                yield f"{key}.{name}", module
+
+
+def _unit_splits(prefix: str, unit: nn.Module, m: int, rules) -> dict:
+    """``{parameter name: Split}`` of ``unit`` at ``m`` ranks, or {} when
+    it stays replicated."""
+    splits = {}
+    for sub, lin in unit.named_modules():
+        if not isinstance(lin, nn.Linear):
+            continue
+        stem = f"{prefix}.{sub}."
+        split = _rule(stem + "weight", rules)
+        if split is None:
+            continue
+        size = lin.weight.shape[split.dim]
+        if size % (m * split.halves):
+            return {}
+        splits[stem + "weight"] = split
+        if lin.bias is not None and split.dim == 0:
+            splits[stem + "bias"] = split
+    heads = getattr(unit, "heads", None)
+    if heads is not None and heads % m:
+        return {}
+    return splits
+
+
+def infer_param_sharding(models, m: int, rules=None) -> dict:
+    """``{"<model>.<parameter>": Split}`` of every weight that splits over
+    ``m`` model ranks; a name not in it is replicated."""
+    rules = _compiled(rules)
+    splits = {}
+    if m > 1:
+        for prefix, unit in _tp_units(models):
+            splits.update(_unit_splits(prefix, unit, m, rules))
+    return splits
+
+
+def tp_slice(whole: torch.Tensor, split: Split, m: int,
+             rank: int) -> torch.Tensor:
+    """Rank ``rank``'s part of ``whole`` (a new contiguous tensor)."""
+    blocks = whole.chunk(split.halves, dim=split.dim)
+    return torch.cat([b.chunk(m, dim=split.dim)[rank] for b in blocks],
+                     dim=split.dim)
+
+
+def tp_join(parts: list, split: Split) -> torch.Tensor:
+    """The whole tensor from every rank's part, in rank order."""
+    blocks = [p.chunk(split.halves, dim=split.dim) for p in parts]
+    return torch.cat([torch.cat([b[i] for b in blocks], dim=split.dim)
+                      for i in range(split.halves)], dim=split.dim)
+
+
+class TensorParallel:
+    """The model-axis layout of a set of models (``models.tensor_parallel``):
+    which tensors are split, this rank's place, and the moves between whole
+    tensors and this rank's parts (checkpoints, finetuned weights, the
+    clip's global norm)."""
+
+    def __init__(self, mesh, splits: dict):
+        self.mesh = mesh
+        self.group = mesh.group("model")
+        self.m = mesh.axis_size("model")
+        self.rank = mesh.axis_index("model")
+        self.splits = splits
+
+    def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the tensor ``name`` (itself when it is not
+        split)."""
+        split = self.splits.get(name)
+        if split is None:
+            return whole
+        return tp_slice(whole, split, self.m, self.rank)
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor ``name`` from every model rank's part, on
+        every rank (each rank of the model group calls it)."""
+        split = self.splits.get(name)
+        if split is None:
+            return t
+        return tp_join(all_gather(t.contiguous(), self.group), split)
+
+    def local_dict(self, tensors: Optional[dict], prefix: str = ""):
+        """``local`` of every entry; keys are ``prefix + key``'s names."""
+        if tensors is None:
+            return None
+        return {k: self.local(prefix + k, t) for k, t in tensors.items()}
+
+    def writes(self) -> bool:
+        """True on the model line of the writing rank (global rank 0): its
+        ranks take part in ``gather_dict``."""
+        return (self.mesh.axis_index("data") == 0
+                and self.mesh.axis_index("seq") == 0)
+
+    def gather_dict(self, tensors: Optional[dict], prefix: str = ""):
+        """Every entry whole, on the CPU of model rank 0 of the writing
+        line (the first rank); None on the other ranks.  The split entries
+        move in one ``gather_flat`` per dtype.  Every rank calls it."""
+        if tensors is None or not self.writes():
+            return None
+        out = {k: t.detach().cpu() for k, t in tensors.items()
+               if prefix + k not in self.splits}
+        by_dtype: dict = {}
+        for k, t in tensors.items():
+            if prefix + k in self.splits:
+                by_dtype.setdefault(t.dtype, []).append(k)
+        for dtype in sorted(by_dtype, key=str):
+            keys = by_dtype[dtype]
+            flat = torch.cat([tensors[k].detach().reshape(-1) for k in keys])
+            whole = gather_flat(flat, self.group, dst=0, device="cpu")
+            if whole is None:
+                continue
+            ranks = whole.chunk(self.m)
+            offset = 0
+            for k in keys:
+                t = tensors[k]
+                parts = [r[offset:offset + t.numel()].view(t.shape)
+                         for r in ranks]
+                offset += t.numel()
+                out[k] = tp_join(parts, self.splits[prefix + k])
+        return out if group_rank(self.group) == 0 else None
+
+    def module_weights(self, models) -> Optional[dict]:
+        """``{"<model>.<name>": whole tensor}`` of every split weight of
+        the UNet and FSText (what a checkpoint's weight files take from
+        the modules), on the writing rank; None elsewhere."""
+        named = {f"{key}.{n}": p for key, mod in
+                 models.trainable_modules().items()
+                 for n, p in mod.named_parameters() if f"{key}.{n}" in
+                 self.splits}
+        return self.gather_dict(named)
+
+    def global_norm_fn(self, names: list):
+        """The clip's global norm over tensors in ``names``' order: a split
+        tensor's squares summed over the ``model`` ranks, a replicated
+        one's counted once."""
+        split = torch.tensor([n in self.splits for n in names])
+
+        def norm(tensors) -> torch.Tensor:
+            sq = torch.stack(torch._foreach_norm(tensors)).float() ** 2
+            mask = split.to(sq.device)
+            parts = torch.stack([sq[mask].sum(), sq[~mask].sum()])
+            all_reduce_(parts[:1], self.group)
+            return parts.sum().sqrt()
+
+        return norm
+
+
+def shard_tensor_parallel(models, mesh) -> Optional[TensorParallel]:
+    """Cut ``models`` (built, loaded and equal on every rank) to this
+    rank's slices over ``mesh``'s ``model`` axis, in place: each split
+    Linear keeps its rows (column) or columns (row) and its features
+    count, each split attention its local head count, each unit its
+    ``model`` group; the masters are cut alike.  The layout is also
+    ``models.tensor_parallel``.  None (and nothing changes) without a
+    ``model`` axis of more than one rank."""
+    m = mesh.axis_size("model") if mesh is not None else 1
+    if m == 1:
+        return None
+    tp = TensorParallel(mesh, {})
+    masters = models.masters or {}
+    rules = _compiled()
+    for prefix, unit in _tp_units(models):
+        mine = _unit_splits(prefix, unit, m, rules)
+        if not mine:
+            continue
+        tp.splits.update(mine)
+        unit.tp_group = tp.group
+        if getattr(unit, "heads", None) is not None:
+            unit.heads //= m
+        for sub, lin in unit.named_modules():
+            if not isinstance(lin, nn.Linear):
+                continue
+            stem = f"{prefix}.{sub}."
+            for pname in ("weight", "bias"):
+                name = stem + pname
+                if name not in mine:
+                    continue
+                p = getattr(lin, pname)
+                master = masters.get(name)
+                shared = (master is not None
+                          and master.data_ptr() == p.data_ptr())
+                p.data = tp.local(name, p.data)
+                if shared:
+                    masters[name] = p.data
+                elif master is not None:
+                    masters[name] = tp.local(name, master)
+            lin.out_features, lin.in_features = lin.weight.shape
+    models.tensor_parallel = tp
+    return tp

@@ -22,7 +22,9 @@ the same key (``unet_config_from``).
 (``parallel.activation``) and the ``ring_attention`` key (``ops/ring.py``),
 and, when several ranks run, broadcasts rank 0's weights (and fp32
 masters) to every rank after the pretrained loads, so all ranks start
-from the same values.
+from the same values.  Under a ``model`` axis every rank then keeps its
+slices of them (``parallel.sharding.shard_tensor_parallel``): each loads
+whole tensors, ``load_finetuned`` too, and cuts its part.
 """
 from __future__ import annotations
 
@@ -42,6 +44,9 @@ from ..models.vae import VAEConfig
 from ..ops.ring import set_ring_enabled
 from ..parallel.activation import set_activation_mesh
 from ..parallel.collectives import broadcast_, group_size
+from ..parallel.distributed import is_main_process
+from ..parallel.mesh import describe
+from ..parallel.sharding import shard_tensor_parallel
 from ..utils.device import DTYPES
 from ..utils.tokenizer import build_tokenizer
 from .text_video import SeerModels
@@ -105,6 +110,18 @@ def load_models(cfg: Config, device=None, trainable_scope=None, mesh=None):
     None clears a registered one."""
     set_activation_mesh(mesh)
     set_ring_enabled(bool(cfg.ring_attention))
+    models = initialize_models(cfg, device, trainable_scope)
+    broadcast_weights(models)
+    if mesh is not None and mesh.size > 1 and is_main_process():
+        print(describe(mesh), flush=True)
+    shard_tensor_parallel(models, mesh)
+    return models, build_tokenizer(cfg.tokenizer_path)
+
+
+def initialize_models(cfg: Config, device=None,
+                      trainable_scope=None) -> SeerModels:
+    """This rank's whole models before any collective: the seeded init and
+    the pretrained loads (what ``load_models`` broadcasts and splits)."""
     overrides = cfg.model_overrides or {}
 
     def sub(cls, key):
@@ -125,8 +142,7 @@ def load_models(cfg: Config, device=None, trainable_scope=None, mesh=None):
         remat=(cfg.remat or bool(cfg.gradient_checkpointing))
         if trainable_scope else False)
     load_pretrained(models, cfg)
-    broadcast_weights(models)
-    return models, build_tokenizer(cfg.tokenizer_path)
+    return models
 
 
 def _find_weights(directory: str, *names: str) -> str:
@@ -198,9 +214,12 @@ def resolve_finetuned_dir(cfg: Config) -> Optional[str]:
 def load_finetuned(models: SeerModels, ckpt_dir: str) -> SeerModels:
     """Strictly load SeerUNet (``pytorch_model.bin``) and FSText
     (``pytorch_model_1.bin``) from a checkpoint directory into ``models``
-    (each tensor cast to the module's own dtype).  Models built for training
-    also take their fp32 masters from the files."""
+    (each tensor cast to the module's own dtype; this rank's slices under
+    a ``model`` axis).  Models built for training also take their fp32
+    masters from the files."""
     from ..io.checkpoint import FSTEXT_FILE, UNET_FILE
+
+    tp = models.tensor_parallel
 
     for key, fname in (("unet", UNET_FILE), ("fstext", FSTEXT_FILE)):
         path = os.path.join(ckpt_dir, fname)
@@ -208,6 +227,8 @@ def load_finetuned(models: SeerModels, ckpt_dir: str) -> SeerModels:
             raise FileNotFoundError(f"{path}: not a checkpoint directory in "
                                     "the two-file layout")
         sd = torch.load(path, map_location="cpu")
+        if tp is not None:
+            sd = tp.local_dict(sd, prefix=f"{key}.")
         getattr(models, key).load_state_dict(sd, strict=True)
         _take_masters(models, key, sd)
     return models

@@ -18,9 +18,13 @@ rank computes the whole batch, as the JAX package replicates it); the CFG
 latent frames: each rank runs the UNet on its frames of the
 ``cond + future`` video, the clean cond latents re-concatenated on the
 ranks that own frames 0..cond-1, and updates its own future frames; the
-VAE runs frame-local, each rank on its share of the frames.  Every rank
-returns the whole result; noise is drawn for the whole batch and video on
-every rank, so a split run sees the draws of a single-rank run.
+VAE runs frame-local, each rank on its share of the frames.  ``model``
+splits the weights (``parallel.sharding.shard_tensor_parallel``): the
+ranks of one model group hold the same rows and frames, draw the same
+x_T and noise, and after each row-parallel projection's all-reduce the
+same activations; each data line (one model index) gathers its rows, so
+every rank returns the whole result.  Noise is drawn for the whole batch and video on every rank, so a split
+run sees the draws of a single-rank run.
 """
 from __future__ import annotations
 
@@ -71,6 +75,9 @@ class SeerModels:
     # the sharded training state under zero1 / fsdp
     # (parallel.sharding.ShardPlan); None when nothing is sharded
     sharding: Optional[object] = None
+    # the model-axis layout (parallel.sharding.TensorParallel); None
+    # without a 'model' axis
+    tensor_parallel: Optional[object] = None
 
     @staticmethod
     def initialize(num_frames: int = 12,

@@ -36,6 +36,12 @@ checkpoint resumes on any mesh.  ``zero1: true`` shards the optimizer
 state over ``data``, ``fsdp: true`` the parameters too
 (``parallel/sharding.py``); both need a ``data`` axis of more than one
 rank, and the entry prints the JAX entry's line when it ignores one.
+``mesh_shape: {model: M}`` (with ``data`` and ``seq`` or alone) splits the
+attention and feed-forward weights, and their masters and moments, over M
+ranks (tensor parallelism, ``parallel.sharding.shard_tensor_parallel``);
+the ranks of one model group share a batch, the masters are compared
+within each model index, and a checkpoint holds the whole tensors.
+``zero1``, ``fsdp``, LoRA and ``use_8bit_adam`` are refused beside it.
 
 ``train(cfg, device)`` is the same loop as a Python API; it returns a
 summary dict (steps taken, seconds per optimizer step, losses, the
@@ -123,10 +129,13 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                   flush=True)
     masters = trainable_masters(models)
     n_trainable = sum(t.numel() for t in masters.values())
-    plan = None
+    tp = models.tensor_parallel
+    plan, norm_fn = None, None
     if mode is not None:
         plan = shard_training(models, mode, mesh, lscale)
-        masters = plan.masters
+        masters, norm_fn = plan.masters, plan.global_norm
+    elif tp is not None:
+        norm_fn = tp.global_norm_fn(list(masters))
     optimizer, schedule_fn = build_optimizer(
         masters, learning_rate, scheduler=cfg.lr_scheduler,
         warmup_steps=int(cfg.lr_warmup_steps),
@@ -135,7 +144,7 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         weight_decay=float(cfg.adam_weight_decay),
         eps=float(cfg.adam_epsilon), max_grad_norm=float(cfg.max_grad_norm),
         accumulation_steps=accum, use_8bit=bool(cfg.use_8bit_adam),
-        norm_fn=plan.global_norm if plan is not None else None)
+        norm_fn=norm_fn)
     del masters
     use_ema = float(cfg.ema_decay) > 0.0
     state = TrainState.create(optimizer, ema=use_ema)
@@ -251,8 +260,9 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         pending.clear()
 
     def save(epoch: int, final: bool = False) -> None:
-        if main or plan is not None:
-            # a sharded state is gathered by every rank, written by rank 0
+        if main or plan is not None or tp is not None:
+            # a sharded or model-split state is gathered by every rank,
+            # written by rank 0
             ckpt.save(global_step, state, models)
         if main:
             _write_sidecar(cfg, global_step, epoch, lr_meter, losses_train)
@@ -284,8 +294,9 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
             global_step += 1
             replicas = (state.optimizer.params if plan is None
                         else plan.replicated_tensors(models))
-            if mesh.size > 1 and replicas:
-                assert_replicas_equal(replicas)
+            if mesh.size > 1 and replicas and mesh.replicas > 1:
+                # the ranks of one model index hold the same slices
+                assert_replicas_equal(replicas, group=mesh.replica_group())
             step_end = mark()
             pending.append((global_step, torch.stack(window_losses).mean(),
                             metrics["grad_norm"], step_start, step_end))
@@ -331,6 +342,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                             + sum(t.numel() * t.element_size()
                                   for t in (state.ema or {}).values())),
             "param_bytes": param_bytes(models), "sharding": mode,
+            "master_bytes": sum(t.numel() * t.element_size()
+                                for t in optimizer.params),
             "largest_unit_bytes": (plan.largest_unit_bytes()
                                    if plan is not None else 0),
             "mesh": dict(mesh.shape), "device": str(dev)}

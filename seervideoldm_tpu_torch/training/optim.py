@@ -152,7 +152,10 @@ class Optimizer:
     norm of the running-mean gradient (what the clip sees at the sync
     step).  A gradient is taken in its master's dtype.  ``use_8bit``:
     the moments are ``optim8bit.Adam8bitMoments``.  ``norm_fn`` replaces
-    ``global_norm`` (the sharded state's norm sums over the ranks).
+    ``global_norm`` (the sharded state's norm sums over the ranks; under a
+    ``model`` axis a split gradient's squares are summed over the model
+    ranks and a replicated one's counted once,
+    ``TensorParallel.global_norm_fn``).
     """
 
     def __init__(self, params: Mapping[str, torch.Tensor],

@@ -27,6 +27,13 @@ rank's loss is its share of the global eps-MSE sum over the global count
 the global mean the JAX step computes.  Gradients are reduced before the
 clip sees their global norm, so every rank takes the same AdamW step.
 
+Under ``model`` each rank holds its slices of the split weights
+(``models.tensor_parallel``) and their masters; the ranks of one model
+group compute one loss, and the reduce runs over the ``data`` x ``seq``
+ranks of this rank's model index only (``Mesh.replica_group``): a split
+gradient is this rank's slice, a replicated one the same on every model
+rank.  The clip's norm counts each once (``TensorParallel.global_norm_fn``).
+
 Parameters and dtypes: frozen weights are in the compute dtype.  Each
 trainable parameter has an fp32 master that the optimizer updates; the
 module computes with its compute-dtype copy, refreshed from the master
@@ -285,10 +292,13 @@ def make_train_step(models: SeerModels,
 
     def _reduce(mesh, loss, mse, grads):
         """Sum over ``seq`` (the shares) and mean over ``data`` (the
-        replicas): one all-reduce over every rank of a flat buffer."""
+        replicas): one all-reduce of a flat buffer over the ``data`` x
+        ``seq`` ranks of this rank's model index (every rank without a
+        ``model`` axis)."""
         flat = torch.cat([loss.reshape(1).float(), mse.reshape(1).float()]
                          + [g.reshape(-1) for g in grads])
-        all_reduce_(flat)
+        if mesh.replicas > 1:
+            all_reduce_(flat, mesh.replica_group())
         flat /= mesh.axis_size("data")
         sizes = [1, 1] + [g.numel() for g in grads]
         loss, mse, *parts = flat.split(sizes)

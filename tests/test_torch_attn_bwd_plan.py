@@ -30,9 +30,12 @@ from seervideoldm_tpu_torch.ops.windows import select_window_size
 HEADS = 8
 HEAD_DIMS = (40, 80, 160, 160)          # block_out 320 / 640 / 1280 / 1280
 # (batch, frames a rank's per-frame attention sees, frames of a whole
-# video, ranks) of the training paths: single rank (batch 1, 12 frames)
-# and {seq: 2} at 11 frames
-PATHS = {"training": (1, (12,), 12, 1), "parallel training": (1, (6, 5), 11, 2)}
+# video, seq ranks, model ranks) of the training paths: single rank (batch
+# 1, 12 frames), {seq: 2} at 11 frames, and {model: 2} (half the heads a
+# rank)
+PATHS = {"training": (1, (12,), 12, 1, 1),
+         "parallel training": (1, (6, 5), 11, 2, 1),
+         "tensor-parallel training": (1, (12,), 12, 1, 2)}
 
 
 def _training_sites():
@@ -43,13 +46,14 @@ def _training_sites():
         side = res // 8
         for level in range(4):
             d, s = HEAD_DIMS[level], side >> level
-            for b, local, f, ranks in PATHS.values():
+            for b, local, f, ranks, model in PATHS.values():
+                heads = HEADS // model
                 if s * s >= 512:
-                    out += [("flash", (b * fl * HEADS, s * s, s * s, d))
+                    out += [("flash", (b * fl * heads, s * s, s * s, d))
                             for fl in local]
                 ws = select_window_size(s)
                 if ws is not None and ws >= 8 and s % ws == 0:
-                    out.append(("swat", (b * HEADS // ranks, f, s, s, d)))
+                    out.append(("swat", (b * heads // ranks, f, s, s, d)))
     return out
 
 
@@ -111,7 +115,8 @@ def test_the_card_checks_reach_the_main_backward_shapes():
     """The backward cases the card holds include K7 at (8, 12, 32, 32, 40
     | 80) and (8, 12, 64, 64, 40), K8 at (96, 1024 | 4096, 40), (96, 1024,
     80), (16, 1024, 40) causal and (12, 1000 x 712, 40), K9 at (4, 11,
-    32, 32, 40) and (8, 12, 32, 32, 40 | 80)."""
+    32, 32, 40) and (8, 12, 32, 32, 40 | 80), and under {model: 2} K7 at
+    (4, 12, 32, 32, 40) and K8 at (48, 1024, 40)."""
     shapes = _case_shapes()
     for want in [("swat", (8, 12, 32, 32, 40)), ("swat", (8, 12, 32, 32, 80)),
                  ("swat", (8, 12, 64, 64, 40)), ("swat", (4, 11, 32, 32, 40)),
@@ -119,9 +124,13 @@ def test_the_card_checks_reach_the_main_backward_shapes():
                  ("flash", (96, 4096, 4096, 40, False)),
                  ("flash", (96, 1024, 1024, 80, False)),
                  ("flash", (16, 1024, 1024, 40, True)),
-                 ("flash", (12, 1000, 712, 40, False))]:
+                 ("flash", (12, 1000, 712, 40, False)),
+                 ("swat", (4, 12, 32, 32, 40)),
+                 ("flash", (48, 1024, 1024, 40, False))]:
         assert want in shapes, want
     sites = _training_sites()
+    assert ("flash", (48, 1024, 1024, 40)) in sites
+    assert ("swat", (4, 12, 32, 32, 40)) in sites
     assert ("flash", (96, 1024, 1024, 40)) in sites
     assert ("swat", (8, 12, 32, 32, 40)) in sites
     assert ("swat", (4, 11, 32, 32, 40)) in sites

@@ -38,12 +38,15 @@ torch.set_num_threads(1)
 HEADS = 8
 HEAD_DIMS = (40, 80, 160, 160)          # block_out 320 / 640 / 1280 / 1280
 # (batch, frames a rank's per-frame attention sees, frames of a whole
-# video, ranks) of the attention sites: sampling (CFG 2, 12 frames),
-# training (1, 12), and both under {seq: 2} at 11 frames (6 and 5 a rank
-# per frame; the window kernels on whole videos of half the batch*heads)
-PATHS = {"sampling": (2, (12,), 12, 1), "training": (1, (12,), 12, 1),
-         "parallel sampling": (2, (6, 5), 11, 2),
-         "parallel training": (1, (6, 5), 11, 2)}
+# video, seq ranks, model ranks) of the attention sites: sampling (CFG 2,
+# 12 frames), training (1, 12), both under {seq: 2} at 11 frames (6 and 5
+# a rank per frame; the window kernels on whole videos of half the
+# batch*heads), and both under {model: 2} (half the heads a rank)
+PATHS = {"sampling": (2, (12,), 12, 1, 1), "training": (1, (12,), 12, 1, 1),
+         "parallel sampling": (2, (6, 5), 11, 2, 1),
+         "parallel training": (1, (6, 5), 11, 2, 1),
+         "tensor-parallel sampling": (2, (12,), 12, 1, 2),
+         "tensor-parallel training": (1, (12,), 12, 1, 2)}
 
 
 def _latents(resolution: int):
@@ -58,15 +61,16 @@ def _site_shapes():
     for res in (256, 512):
         for level, side in enumerate(_latents(res)):
             d = HEAD_DIMS[level]
-            for b, local, f, ranks in PATHS.values():
+            for b, local, f, ranks, model in PATHS.values():
+                heads = HEADS // model
                 n = side * side
                 # spatial self-attention: the flash gate (n, m >= 512)
                 if n >= 512:
-                    out += [("flash", (b * fl * HEADS, n, n, d, False))
+                    out += [("flash", (b * fl * heads, n, n, d, False))
                             for fl in local]
                 ws = select_window_size(side)
                 if ws is not None and ws >= 8 and side % ws == 0:
-                    out.append(("swat", (b * HEADS // ranks, f, side, side, d,
+                    out.append(("swat", (b * heads // ranks, f, side, side, d,
                                          ws)))
     return out
 
@@ -105,6 +109,9 @@ def test_the_gates_reach_the_main_path_shapes():
     assert ("swat", (8, 12, 32, 32, 40, 8)) in shapes
     assert ("swat", (8, 11, 32, 32, 40, 8)) in shapes
     assert ("swat", (4, 11, 32, 32, 40, 8)) in shapes
+    # under {model: 2}: half the heads (training: K2 at 48, K1 at 4)
+    assert ("flash", (48, 1024, 1024, 40, False)) in shapes
+    assert ("swat", (4, 12, 32, 32, 40, 8)) in shapes
     assert ("swat", (16, 12, 64, 64, 40, 8)) in shapes
     assert ("swat", (16, 12, 32, 32, 80, 8)) in shapes
 

@@ -8,8 +8,9 @@ directory, a timeout); the rank functions are in
 ``tests/torch_parallel_workers.py``.  Inputs and weights are made from a
 numpy seed (JAX init carried with ``io/convert.py``).
 
-- config: ``data`` / ``seq`` meshes, ``ring_attention``, ``zero1`` and
-  ``fsdp`` are accepted; the ``model`` axis is refused by name;
+- config: ``data`` / ``seq`` meshes, ``ring_attention``, ``zero1``,
+  ``fsdp`` and the ``model`` axis are accepted (the ``model`` axis's own
+  tests are ``tests/test_torch_tensor_parallel*.py``);
 - mesh: the rank layout, frame ranges and batch slices, and the refusals of
   ``create_mesh``; a failing rank fails the launch;
 - the tiny SeerUNet (the widths of ``tests/test_sequence_parallel.py``,
@@ -81,6 +82,10 @@ def test_config_refuses_each_unported_strategy_by_name(raw, name):
         # by the train entry from the mesh
         assert getattr(config_from_dict(raw), name) is True
         return
+    if name == "'model'":
+        # ported since (tensor parallelism, parallel/sharding.py)
+        assert config_from_dict(raw).mesh_shape == raw["mesh_shape"]
+        return
     with pytest.raises(ValueError, match=name):
         config_from_dict(raw)
 
@@ -94,11 +99,14 @@ def test_config_refuses_unknown_mesh_axis():
 
 def test_single_process_mesh_and_refusals():
     mesh = create_mesh(None)
-    assert mesh.shape == {"data": 1, "seq": 1} and mesh.size == 1
+    assert mesh.shape == {"data": 1, "model": 1, "seq": 1}
+    assert mesh.size == 1
     assert mesh.frame_range(5) == (0, 5)
     assert mesh.batch_slice(3) == slice(0, 3)
-    with pytest.raises(ValueError, match="'model'"):
-        create_mesh({"data": 1, "model": 1})
+    # the 'model' axis is ported since (tensor parallelism)
+    mesh = create_mesh({"data": 1, "model": 1})
+    assert mesh.shape == {"data": 1, "model": 1, "seq": 1}
+    assert mesh.coords == {"data": 0, "model": 0, "seq": 0}
     with pytest.raises(ValueError, match="spans 2 ranks"):
         create_mesh({"data": 2})
 

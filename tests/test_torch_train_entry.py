@@ -184,9 +184,9 @@ def test_config_refuses_what_is_not_ported(key, value):
     from seervideoldm_tpu_torch.config import config_from_dict
 
     if key in ("use_8bit_adam", "lora_rank", "param_dtype", "zero1",
-               "fsdp"):
-        # ported since: the training options and the sharded state are
-        # accepted
+               "fsdp", "mesh_shape"):
+        # ported since: the training options, the sharded state and the
+        # 'model' axis (tensor parallelism) are accepted
         assert getattr(config_from_dict({key: value}), key) == value
         return
     with pytest.raises(ValueError, match="not (supported|ported)"):
