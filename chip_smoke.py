@@ -166,15 +166,16 @@ no result line):
    per rank, else gloo with the ranks sharing the card and collectives
    staged through pinned host memory; chosen from the card count before any
    rank starts, and printed), full width, 256 px:
-   (a) ``inference_img``'s pipeline under ``{seq: 2}``, 12 frames, 30 DDIM
-   steps (the ring branch), rank 0 writes the GIF; one UNet call compared
-   with the single-rank call on the same weights and inputs;
+   (a) ``inference_img``'s pipeline under ``{seq: 2}``, 12 frames,
+   ``PAR_DDIM_STEPS`` DDIM steps (the ring branch), rank 0 writes the
+   GIF; one UNet call compared with the single-rank call on the same
+   weights and inputs;
    (b) one UNet call under ``{seq: 2}`` at 11 frames (cond 2): the frames
    do not split evenly, the ring declines and K6 runs; compared the same;
-   (c) the ``train`` entry under ``{data: 2}``, 2 optimizer steps; then one
-   micro-step's loss and gradients against a single-rank step on the same
-   global batch;
-   (d) the ``train`` entry under ``{seq: 2}`` at 11 frames, 2 optimizer
+   (c) the ``train`` entry under ``{data: 2}``, ``PAR_OPT_STEPS``
+   optimizer step (no warmup, as in (d)-(k)); then one micro-step's loss
+   and gradients against a single-rank step on the same global batch;
+   (d) the ``train`` entry under ``{seq: 2}`` at 11 frames, as many
    steps (K6 and K9), then the same check;
    (e), (f) (c)'s config and seed with ``zero1: true``, then with
    ``fsdp: true``: the losses within 1e-5 relative of (c)'s, the masters
@@ -200,6 +201,24 @@ no result line):
    one micro-step's loss within ``PAR_LOSS_RTOL`` and its gradients,
    joined over the model ranks, within ``TRAIN_REF_RTOL`` of rank 0's step
    on the whole weights;
+   (l) the ``train`` entry under ``{model: 2}`` with 7b's (a) config (LoRA
+   rank 8 on every attention projection, 8-bit AdamW, from 7b's seeded
+   base, accumulation 2, 2 optimizer steps) against (a) on one rank: the
+   losses within ``PAR_LOSS_RTOL``, the checkpoint's masters (FSText and
+   the adapters, joined) within relative L2 ``TRAIN_REF_RTOL`` and its
+   keys and shapes (a)'s, every adapter's B moved, at most 2.1 bytes of
+   optimizer state a rank's trainable parameter;
+   then 4 ranks started the same way, ``{data: 2, model: 2}`` (two
+   process-group axes at once), (c)'s config with accumulation 2 and 2
+   optimizer steps: (i) replicated, the baseline; (j) with ``zero1`` and
+   ``use_8bit_adam``: the losses within ``SHARD_LOSS_RTOL`` of (i)'s, the
+   masters within the 8-bit bound ``TP_8BIT_STEP_FACTOR`` gives, a rank's
+   state at most half (i)'s + 1 %; (k) with ``fsdp``: the losses within
+   ``SHARD_LOSS_RTOL``, the masters within ``SHARD_MASTERS_RTOL``, a rank's
+   parameters at most half (i)'s + the largest unit; (j) and (k) each
+   restored by one rank with no mesh (keys, masters and moments as the
+   checkpoint holds them); in (i)-(l) K1, K2, K7, K8 launched, K3-K5 not,
+   and per micro-step the launches and collectives in the line;
    each run's launch counts are zeroed just before and read just after, on
    every rank; a ``parallel_run`` JSON line per run;
 9. floor budget: K10 (the on-chip softmax calibration) against its plain
@@ -301,7 +320,12 @@ PER_MICRO_STEP = {"swat_attention_tables": 5, "flash_attention": 5,
 # single-rank step on the same global batch
 PAR_RANKS, PAR_TIMEOUT = 2, 700
 PAR_UNET_RTOL, PAR_LOSS_RTOL = 2e-2, 1e-2
-PAR_OPT_STEPS = 2
+# cuts of depth that leave the phase's time to (i)-(l): (c)-(h) take one
+# optimizer step (with no warmup, so that it moves the weights), and (a)
+# and (g) sample 6 DDIM steps (a clip's time is linear in its UNet calls,
+# each staged through the host under a mesh)
+PAR_OPT_STEPS = 1
+PAR_DDIM_STEPS = 6
 # phase 8 (g) / (h), {model: 2}: a rank's parameter bytes against the
 # replicated weights plus half the split ones; the GEGLU kernels, which the
 # JAX package's gates decline under any mesh, never run there
@@ -310,6 +334,21 @@ TP_SAMPLING_KERNELS = ("swat_attention_tables", "flash_attention")
 TP_TRAINING_KERNELS = ("swat_attention_tables", "flash_attention",
                        "swat_attention_tables_bwd", "flash_attention_bwd")
 TP_NOT_LAUNCHED = ("ln_geglu_ff", "ln_geglu_ff_proj", "geglu_ff")
+# DISK_NOTE: a full-width checkpoint is 3-10 GB, so phases 7, 7b and 8
+# delete each run's output once its checks have read it (phase 8 keeps
+# (c)'s for (e), (f) and (h), and 7b's base and (a)'s for (l)): the smoke
+# keeps at most about 25 GB on disk at once, well inside a 45 GiB disk
+# phase 8 (i)-(k): 4 ranks, {data: 2, model: 2}, (c)'s config with
+# accumulation 2; (l) {model: 2} on 2 ranks, 7b's (a) config
+PAR4_RANKS, PAR4_TIMEOUT = 4, 900
+TP_STRATEGY_OPT_STEPS = 2
+# (j)'s masters against (i)'s: the first update is exact under 8-bit (its
+# direction uses the moments before they are quantized), the second's
+# direction m_hat / (sqrt(v_hat) + eps) is at most 1.0014 in size at count
+# 2 on either side, so each master differs by at most 2.01 lr_2 and the
+# relative L2 by at most 2.01 lr_2 sqrt(n) / |masters|, worked out from
+# the run's own numbers; with the losses (c)'s bound
+TP_8BIT_STEP_FACTOR = 2.01
 # phase 8 (e) / (f), zero1 and fsdp against (c): the losses and the masters
 # after the last step (relative L2), and the kernels of the training path
 SHARD_LOSS_RTOL, SHARD_MASTERS_RTOL = 1e-5, 1e-5
@@ -2549,6 +2588,7 @@ def phase_training(card: str, profile: str | None, tmp: str) -> tuple:
         "frames": list(samples.shape)}}), flush=True)
     del pipe
     torch.cuda.empty_cache()
+    shutil.rmtree(raw["output_dir"], ignore_errors=True)   # DISK_NOTE
     return launches, {"raw": raw, "losses": summary["losses"],
                       "s_per_optimizer_step": s_step,
                       "peak_mem_gb": peak,
@@ -2756,9 +2796,10 @@ def _native_check(tree: str) -> dict:
     return out
 
 
-def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
+def phase_training_options(card: str, tmp: str, phase7: dict) -> tuple:
     """Phase 7b (module docstring) on phase 7's tree and config.  Returns
-    the launches summed over its three runs."""
+    the launches summed over its three runs, and (a)'s config, losses and
+    checkpoint (phase 8's (l) is held against them)."""
     import torch
 
     from seervideoldm_tpu_torch.io.checkpoint import FSTEXT_FILE, UNET_FILE
@@ -2801,6 +2842,7 @@ def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
     bpp = summary["optimizer_state_bytes"] / summary["trainable_params"]
     require(bpp <= STATE_BYTES_PER_PARAM, f"training options 8bit: {bpp:.3f} "
             "bytes of optimizer state per trainable parameter")
+    shutil.rmtree(raw["output_dir"], ignore_errors=True)   # DISK_NOTE
     adam8_line = {
         "trainable_params": summary["trainable_params"],
         "masters_moved": len(masters), "frozen_tensors_unchanged": n_frozen,
@@ -2845,6 +2887,9 @@ def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
             f"{bpp:.3f} bytes of optimizer state per trainable parameter")
     forward = _lora_forward_check(summary["checkpoint"], raw,
                                   lora_scale(LORA_RANK, None))
+    lora_ref = {"raw": raw, "losses": summary["losses"],
+                "checkpoint": summary["checkpoint"],
+                "s_per_optimizer_step": _steady(summary)}
     lora_line = {
         "adapter_params": n_adapter,
         "trainable_params": summary["trainable_params"],
@@ -2871,6 +2916,7 @@ def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
     moments = {str(t.dtype) for t in state["optimizer"]["mu"].values()}
     require(dtypes == moments == {"torch.bfloat16"}, f"training options "
             f"bf16: masters {dtypes}, moments {moments}")
+    shutil.rmtree(raw["output_dir"], ignore_errors=True)   # DISK_NOTE
     bf16_line = {
         "masters_dtype": sorted(dtypes), "moments_dtype": sorted(moments),
         "optimizer_state_bytes": summary["optimizer_state_bytes"],
@@ -2887,7 +2933,7 @@ def phase_training_options(card: str, tmp: str, phase7: dict) -> dict:
         "card": card, "optimizer_steps": OPTION_OPT_STEPS,
         "accumulation": TRAIN_ACCUM, "lora": lora_line, "adam8bit": adam8_line,
         "bf16_params": bf16_line, **native_line}}), flush=True)
-    return total
+    return total, lora_ref
 
 
 def _steady(summary: dict) -> float:
@@ -3266,7 +3312,7 @@ def _tp_sample_run(out_dir: str) -> dict:
 
     t0 = _start_run()
     pipe, tok, cfg = build_pipeline(dict(
-        resolution=256, cond_frames=2, num_frames=12, ddim_steps=E2E_STEPS,
+        resolution=256, cond_frames=2, num_frames=12, ddim_steps=PAR_DDIM_STEPS,
         scale=7.5, seed=SEED, mixed_precision="bf16",
         compute_dtype="bfloat16", mesh_shape={"model": 2},
         output_dir=os.path.join(out_dir, "sample_model2")))
@@ -3288,7 +3334,8 @@ def _tp_sample_run(out_dir: str) -> dict:
                finite=bool(torch.isfinite(samples).all()),
                in_range=bool(samples.min() >= 0 and samples.max() <= 1),
                gif_written=gif is not None and os.path.exists(gif),
-               unet_calls=len(pipe.schedule.ddim_tables(E2E_STEPS).timesteps),
+               unet_calls=len(pipe.schedule.ddim_tables(
+                   PAR_DDIM_STEPS).timesteps),
                unet_check=_tp_unet_vs_single(pipe.m, cfg, SEED + 6))
     del pipe
     return row
@@ -3303,8 +3350,6 @@ def _tp_train_run(raw: dict, replicated: dict, out_dir: str) -> dict:
     import torch
 
     from seervideoldm_tpu_torch.config import config_from_dict
-    from seervideoldm_tpu_torch.io.checkpoint import (FSTEXT_FILE, STATE_FILE,
-                                                      UNET_FILE)
     from seervideoldm_tpu_torch.parallel.distributed import (barrier_sync,
                                                              is_main_process)
     from seervideoldm_tpu_torch.parallel.mesh import create_mesh
@@ -3335,23 +3380,8 @@ def _tp_train_run(raw: dict, replicated: dict, out_dir: str) -> dict:
         collectives_checkpoint=in_saves,
         checkpoint_written=os.path.isdir(summary["checkpoint"]))
     if is_main_process():
-        def layout(path):
-            out = {}
-            for fname in (UNET_FILE, FSTEXT_FILE):
-                sd = torch.load(os.path.join(path, fname), map_location="cpu")
-                out[fname] = {k: tuple(v.shape) for k, v in sd.items()}
-            state = torch.load(os.path.join(path, STATE_FILE),
-                               map_location="cpu")
-            for key in ("masters", "ema"):
-                out[key] = {k: tuple(v.shape)
-                            for k, v in (state[key] or {}).items()}
-            for key in ("mu", "nu"):
-                out[key] = {k: tuple(v.shape)
-                            for k, v in state["optimizer"][key].items()}
-            return out
-
-        got, want = (layout(summary["checkpoint"]),
-                     layout(replicated["checkpoint"]))
+        got, want = (_layout(summary["checkpoint"]),
+                     _layout(replicated["checkpoint"]))
         row["checkpoint_layout_equal"] = got == want
         row["checkpoint_tensors"] = sum(len(v) for v in got.values())
     barrier_sync()
@@ -3362,8 +3392,9 @@ def _tp_train_run(raw: dict, replicated: dict, out_dir: str) -> dict:
     return row
 
 
-def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
-    """The eight runs of the parallel phase on one rank (started by
+def parallel_rank(rank: int, data_dir: str, out_dir: str,
+                  lora_ref: dict) -> dict:
+    """The nine 2-rank runs of the parallel phase on one rank (started by
     ``parallel.launch``); returns each run's numbers from this rank."""
     import dataclasses
 
@@ -3382,7 +3413,7 @@ def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
     # (a) sampling under {seq: 2}, 12 frames: the ring
     t0 = _start_run()
     pipe, tok, cfg = build_pipeline(dict(
-        resolution=256, cond_frames=2, num_frames=12, ddim_steps=E2E_STEPS,
+        resolution=256, cond_frames=2, num_frames=12, ddim_steps=PAR_DDIM_STEPS,
         scale=7.5, seed=SEED, mixed_precision="bf16",
         compute_dtype="bfloat16", mesh_shape={"seq": 2},
         output_dir=os.path.join(out_dir, "sample")))
@@ -3416,15 +3447,8 @@ def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
     # (c), (d) the train entry, then the step check
     for name, mesh_shape, frames in (("train_data2", {"data": 2}, 12),
                                      ("train_seq2_f11_k6", {"seq": 2}, 11)):
-        raw = dict(
-            output_dir=os.path.join(out_dir, name), data_dir=data_dir,
-            dataset="sthv2", resolution=256, num_frames=frames,
-            cond_frames=2, train_batch_size=1, gradient_accumulation_steps=1,
-            learning_rate=1.28e-5, scale_lr=True, lr_scheduler="cosine",
-            lr_warmup_steps=1, max_train_steps=PAR_OPT_STEPS,
-            save_steps=PAR_OPT_STEPS, max_grad_norm=0.3, num_workers=2,
-            seed=SEED, mixed_precision="bf16", compute_dtype="bfloat16",
-            text_loss=True, mesh_shape=mesh_shape)
+        raw = parallel_train_raw(os.path.join(out_dir, name), data_dir,
+                                 mesh_shape, frames)
         t0 = _start_run()
         with _saves_apart() as rec:
             summary = train(config_from_dict(dict(raw)))
@@ -3439,18 +3463,41 @@ def parallel_rank(rank: int, data_dir: str, out_dir: str) -> dict:
         runs[name] = row
         if name == "train_data2":
             replicated = (raw, summary)
+        else:
+            _drop_run(raw["output_dir"])
         torch.cuda.empty_cache()
     # (e), (f) the train entry of (c) under zero1 and under fsdp
     for name, flag in (("train_data2_zero1", "zero1"),
                        ("train_data2_fsdp", "fsdp")):
         runs[name] = _sharded_run(name, flag, *replicated, out_dir)
+        _drop_run(os.path.join(out_dir, name))
         torch.cuda.empty_cache()
     # (g), (h) the 'model' axis: sampling, then (c)'s training
     runs["sample_model2"] = _tp_sample_run(out_dir)
     torch.cuda.empty_cache()
     runs["train_model2"] = _tp_train_run(*replicated, out_dir)
+    for name in ("train_model2", "train_data2"):
+        _drop_run(os.path.join(out_dir, name))
+    torch.cuda.empty_cache()
+    # (l) LoRA + 8-bit under {model: 2} against 7b's (a) on one rank
+    runs["train_model2_lora_8bit"] = _tp_lora_run(lora_ref, out_dir)
+    _drop_run(os.path.join(out_dir, "train_model2_lora_8bit"))
     torch.cuda.empty_cache()
     return runs
+
+
+def parallel_train_raw(out_dir: str, data_dir: str, mesh_shape: dict,
+                       frames: int = 12, accum: int = 1,
+                       steps: int = PAR_OPT_STEPS) -> dict:
+    """Phase 8 (c)'s ``train`` config under ``mesh_shape``."""
+    return dict(
+        output_dir=out_dir, data_dir=data_dir, dataset="sthv2",
+        resolution=256, num_frames=frames, cond_frames=2, train_batch_size=1,
+        gradient_accumulation_steps=accum, learning_rate=1.28e-5,
+        scale_lr=True, lr_scheduler="cosine", lr_warmup_steps=0,
+        max_train_steps=steps, save_steps=steps, max_grad_norm=0.3,
+        num_workers=2, seed=SEED, mixed_precision="bf16",
+        compute_dtype="bfloat16", text_loss=True, mesh_shape=mesh_shape)
 
 
 def _sharded_run(name: str, flag: str, raw: dict, replicated: dict,
@@ -3460,10 +3507,7 @@ def _sharded_run(name: str, flag: str, raw: dict, replicated: dict,
     checkpoint holds (rank 0 reads both), the state and parameter bytes
     this rank holds, the collectives per micro-step (the checkpoint's
     apart, and the peak memory of the steps and of the save apart)."""
-    import torch
-
     from seervideoldm_tpu_torch.config import config_from_dict
-    from seervideoldm_tpu_torch.io.checkpoint import STATE_FILE
     from seervideoldm_tpu_torch.parallel.distributed import (barrier_sync,
                                                              is_main_process)
     from seervideoldm_tpu_torch.train import train
@@ -3493,19 +3537,235 @@ def _sharded_run(name: str, flag: str, raw: dict, replicated: dict,
         collectives_checkpoint=in_saves,
         checkpoint_written=os.path.isdir(summary["checkpoint"]))
     if is_main_process():
-        def masters(path):
-            state = torch.load(os.path.join(path, STATE_FILE),
-                               map_location="cpu")
-            return torch.cat([t.float().reshape(-1) for _, t in
-                              sorted(state["masters"].items())])
-
-        row["masters_rel_l2"] = _rel_l2(masters(summary["checkpoint"]),
-                                        masters(replicated["checkpoint"]))
+        row["masters_rel_l2"] = _masters_rel_l2(
+            _masters_of(summary["checkpoint"]),
+            _masters_of(replicated["checkpoint"]))
     barrier_sync()
     return row
 
 
-def phase_parallel(card: str) -> dict:
+def _drop_run(out_dir: str) -> None:
+    """Rank 0 deletes a finished run's output directory, once every rank
+    is past it (DISK_NOTE)."""
+    from seervideoldm_tpu_torch.parallel.distributed import (barrier_sync,
+                                                             is_main_process)
+
+    barrier_sync()
+    if is_main_process():
+        shutil.rmtree(out_dir, ignore_errors=True)
+    barrier_sync()
+
+
+def _per_micro(row: dict, micro: int) -> dict:
+    """The run's launches and collectives (calls; bytes) per micro-step,
+    the checkpoint's collectives apart."""
+    in_saves = {op: row.get("collectives_checkpoint", {}).get(op, [0, 0])
+                for op in row["collectives"]}
+    return {"launches_per_micro_step": {k: v / micro for k, v in
+                                        row["launches"].items()},
+            "collectives_per_micro_step": {
+                op: [(v[0] - in_saves[op][0]) / micro,
+                     (v[1] - in_saves[op][1]) / micro]
+                for op, v in row["collectives"].items()}}
+
+
+def _layout(path: str) -> dict:
+    """The keys and shapes of a checkpoint's weight files and train state
+    (8-bit moments as their codes' shapes)."""
+    import torch
+
+    from seervideoldm_tpu_torch.io.checkpoint import (FSTEXT_FILE, STATE_FILE,
+                                                      UNET_FILE)
+
+    out = {}
+    for fname in (UNET_FILE, FSTEXT_FILE):
+        sd = torch.load(os.path.join(path, fname), map_location="cpu",
+                        mmap=True)
+        out[fname] = {k: tuple(v.shape) for k, v in sd.items()}
+    state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       mmap=True)
+    for key in ("masters", "ema"):
+        out[key] = {k: tuple(v.shape) for k, v in (state[key] or {}).items()}
+    for key in ("mu", "nu"):
+        out[key] = {k: tuple((v["codes"] if isinstance(v, dict) else v).shape)
+                    for k, v in state["optimizer"][key].items()}
+    return out
+
+
+def _masters_of(path: str) -> dict:
+    import torch
+
+    from seervideoldm_tpu_torch.io.checkpoint import STATE_FILE
+
+    # mapped: only the masters are read
+    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                      mmap=True)["masters"]
+
+
+def _masters_rel_l2(got: dict, want: dict) -> float:
+    import torch
+
+    names = sorted(want)
+    return _rel_l2(torch.cat([got[n].float().reshape(-1) for n in names]),
+                   torch.cat([want[n].float().reshape(-1) for n in names]))
+
+
+def _tp_train_entry(name: str, raw: dict) -> tuple:
+    """One ``train`` entry run of phase 8 (i)-(l) on this rank: the peak of
+    its steps and of its save apart; returns (its row, its summary)."""
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.train import train
+
+    t0 = _start_run()
+    with _saves_apart() as rec:
+        summary = train(config_from_dict(dict(raw)))
+    row = _end_train_run(t0, rec)
+    row["collectives_checkpoint"] = {op: rec["collectives"].get(op, [0, 0])
+                                     for op in row["collectives"]}
+    row.update(_per_micro(row, summary["micro_steps"]))
+    row.update(
+        sharding=summary["sharding"], global_step=summary["global_step"],
+        micro_steps=summary["micro_steps"], losses=summary["losses"],
+        step_seconds=summary["step_seconds"],
+        s_per_optimizer_step=_steady(summary),
+        param_bytes=summary["param_bytes"],
+        master_bytes=summary["master_bytes"],
+        state_bytes=summary["state_bytes"],
+        optimizer_state_bytes=summary["optimizer_state_bytes"],
+        trainable_params_rank=summary["trainable_params"],
+        largest_unit_bytes=summary["largest_unit_bytes"],
+        checkpoint_written=os.path.isdir(summary["checkpoint"]))
+    torch.cuda.empty_cache()
+    return row, summary
+
+
+def _tp_lora_run(lora_ref: dict, out_dir: str) -> dict:
+    """Phase 8 (l): 7b's (a) (LoRA rank 8 + 8-bit AdamW from the seeded
+    base, phase 7's tree) under ``{model: 2}``, against (a) on one rank."""
+    from seervideoldm_tpu_torch.parallel.distributed import (barrier_sync,
+                                                             is_main_process)
+
+    raw = dict(lora_ref["raw"], mesh_shape={"model": 2},
+               output_dir=os.path.join(out_dir, "train_model2_lora_8bit"))
+    row, summary = _tp_train_entry("train_model2_lora_8bit", raw)
+    row.update(losses_ref=lora_ref["losses"],
+               s_per_optimizer_step_ref=lora_ref["s_per_optimizer_step"],
+               optimizer_state_bytes_per_param=(
+                   summary["optimizer_state_bytes"]
+                   / summary["trainable_params"]))
+    if is_main_process():
+        got, want = (_masters_of(summary["checkpoint"]),
+                     _masters_of(lora_ref["checkpoint"]))
+        b_still = [k for k, t in got.items()
+                   if k.endswith(".lora_b") and not bool(t.abs().max() > 0)]
+        row.update(
+            masters_equal_keys=set(got) == set(want),
+            masters_rel_l2=(_masters_rel_l2(got, want) if set(got) == set(want)
+                            else float("inf")),
+            adapters_b=sum(k.endswith(".lora_b") for k in got),
+            adapters_b_still_zero=len(b_still),
+            checkpoint_layout_equal=(_layout(summary["checkpoint"])
+                                     == _layout(lora_ref["checkpoint"])))
+    barrier_sync()
+    return row
+
+
+def _restore_on_one_rank(raw: dict, path: str, step: int,
+                         held: dict) -> dict:
+    """Rank 0 alone, no mesh: the whole models of ``raw`` for training
+    (built once into ``held`` and restored into again), its optimizer, and
+    ``path``'s checkpoint of ``step`` restored into them; the restored
+    masters and moments against the file's."""
+    import torch
+
+    from seervideoldm_tpu_torch.config import config_from_dict
+    from seervideoldm_tpu_torch.io.checkpoint import (STATE_FILE,
+                                                      CheckpointManager)
+    from seervideoldm_tpu_torch.training.optim import build_optimizer
+    from seervideoldm_tpu_torch.training.trainer import (TrainState,
+                                                         trainable_masters)
+
+    cfg = config_from_dict(dict(raw, mesh_shape=None, zero1=False,
+                                fsdp=False))
+    if "models" not in held:
+        held["models"] = _whole_models(cfg, cfg.trainable_scope)
+        trainable_masters(held["models"])
+    models = held["models"]
+    opt, _ = build_optimizer(models.masters, 1e-5,
+                             use_8bit=bool(cfg.use_8bit_adam),
+                             accumulation_steps=int(
+                                 cfg.gradient_accumulation_steps))
+    state = TrainState.create(opt, ema=float(cfg.ema_decay) > 0.0)
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.dirname(path)).restore(step, state, models)
+    seconds = time.perf_counter() - t0
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       mmap=True)
+    masters_equal = all(torch.equal(t.cpu(), saved["masters"][n])
+                        for n, t in state.masters.items())
+    mine = opt.state_dict()
+
+    def same(a, b):
+        if isinstance(b, dict):
+            return all(same(a[k], b[k]) for k in b)
+        return torch.equal(a.cpu(), b)
+
+    moments_equal = all(same(mine[k][n], saved["optimizer"][k][n])
+                        for k in ("mu", "nu") for n in saved["optimizer"][k])
+    named = models.named_trainable()
+    synced = all(torch.equal(named[n], t.to(named[n].dtype))
+                 for n, t in state.masters.items())
+    return {"tensors": len(state.masters), "masters_equal": masters_equal,
+            "moments_equal": moments_equal, "modules_synced": synced,
+            "count": opt.count, "seconds": seconds}
+
+
+def parallel_rank4(rank: int, data_dir: str, out_dir: str) -> dict:
+    """Phase 8 (i)-(k) on one of 4 ranks, ``{data: 2, model: 2}``;
+    returns each run's numbers from this rank."""
+    from seervideoldm_tpu_torch.parallel.distributed import is_main_process
+    from seervideoldm_tpu_torch.training.optim import lr_schedule
+
+    mesh = {"data": 2, "model": 2}
+    raw = parallel_train_raw(os.path.join(out_dir, "train_d2m2"), data_dir,
+                             mesh, accum=TRAIN_ACCUM,
+                             steps=TP_STRATEGY_OPT_STEPS)
+    runs, held = {}, {}
+    runs["train_d2m2"], ref = _tp_train_entry("train_d2m2", raw)
+    ref_masters = _masters_of(ref["checkpoint"]) if is_main_process() else None
+    lr = raw["learning_rate"] * TRAIN_ACCUM * 2   # scale_lr: x accum x D
+    lr_2 = lr_schedule("cosine", lr, raw["lr_warmup_steps"],
+                       TP_STRATEGY_OPT_STEPS)(TP_STRATEGY_OPT_STEPS - 1)
+    for name, flags in (("train_d2m2_zero1_8bit",
+                         dict(zero1=True, use_8bit_adam=True)),
+                        ("train_d2m2_fsdp", dict(fsdp=True))):
+        run_raw = dict(raw, output_dir=os.path.join(out_dir, name), **flags)
+        row, summary = _tp_train_entry(name, run_raw)
+        row.update(losses_ref=ref["losses"],
+                   state_bytes_ref=ref["state_bytes"],
+                   param_bytes_ref=ref["param_bytes"],
+                   s_per_optimizer_step_ref=_steady(ref))
+        if is_main_process():
+            got = _masters_of(summary["checkpoint"])
+            row["masters_rel_l2"] = _masters_rel_l2(got, ref_masters)
+            norm = math.sqrt(sum(float(t.float().pow(2).sum())
+                                 for t in ref_masters.values()))
+            n = sum(t.numel() for t in ref_masters.values())
+            row["masters_rel_l2_bound"] = (
+                TP_8BIT_STEP_FACTOR * lr_2 * math.sqrt(n) / norm
+                if flags.get("use_8bit_adam") else SHARD_MASTERS_RTOL)
+            row["restore_one_rank"] = _restore_on_one_rank(
+                run_raw, summary["checkpoint"], summary["global_step"], held)
+        _drop_run(run_raw["output_dir"])
+        runs[name] = row
+    held.clear()
+    _drop_run(raw["output_dir"])
+    return runs
+
+
+def phase_parallel(card: str, lora_ref: dict) -> dict:
     """The parallel phase (see the module docstring).  Returns the launch
     counts of the parallel path, summed over its runs (rank 0's)."""
     import torch
@@ -3529,31 +3789,43 @@ def phase_parallel(card: str) -> dict:
         t0 = time.perf_counter()
         results = launch.run(parallel_rank, PAR_RANKS,
                              args=(os.path.join(tmp, "data"),
-                                   os.path.join(tmp, "out")),
+                                   os.path.join(tmp, "out"), lora_ref),
                              backend=transport, timeout=PAR_TIMEOUT)
         wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        transport4 = pick_backend("cuda", PAR4_RANKS)
+        t0 = time.perf_counter()
+        results4 = launch.run(parallel_rank4, PAR4_RANKS,
+                              args=(os.path.join(tmp, "data"),
+                                    os.path.join(tmp, "out")),
+                              backend=transport4, timeout=PAR4_TIMEOUT)
+        wall4 = time.perf_counter() - t0
     except RuntimeError as e:
         raise SmokeFailure(f"parallel: {e}") from e
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main = results[0]
     total = {name: 0 for name in wrappers()}
-    for name, row in main.items():
-        per_rank = [r[name] for r in results]
-        print(json.dumps({"parallel_run": {
-            "run": name, "card": card, "transport": transport,
-            "ranks": PAR_RANKS, **{k: v for k, v in row.items()
-                                   if k not in ("launches", "peak_mem_gb",
-                                                "peak_mem_gb_save")},
-            "launches_per_rank": [r["launches"] for r in per_rank],
-            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in per_rank],
-            **({"peak_mem_gb_save_per_rank": [r["peak_mem_gb_save"]
-                                              for r in per_rank]}
-               if "peak_mem_gb_save" in row else {})}}),
-              flush=True)
-        for k, n in row["launches"].items():
-            total[k] += n
-    print(json.dumps({"parallel_phase": {"seconds": wall}}), flush=True)
+    per_rank_keys = ("launches", "peak_mem_gb", "peak_mem_gb_save",
+                     "param_bytes", "master_bytes", "state_bytes")
+    for ranks, way, group in ((PAR_RANKS, transport, results),
+                              (PAR4_RANKS, transport4, results4)):
+        for name, row in group[0].items():
+            per_rank = [r[name] for r in group]
+            print(json.dumps({"parallel_run": {
+                "run": name, "card": card, "transport": way,
+                "ranks": ranks, **{k: v for k, v in row.items()
+                                   if k not in per_rank_keys},
+                **{f"{k}_per_rank": [r[k] for r in per_rank]
+                   for k in per_rank_keys if k in row}}}), flush=True)
+            for k, n in row["launches"].items():
+                total[k] += n
+    print(json.dumps({"parallel_phase": {"seconds": wall,
+                                         "seconds_4_ranks": wall4}}),
+          flush=True)
+    _check_tp_lora(main["train_model2_lora_8bit"],
+                   [r["train_model2_lora_8bit"] for r in results])
+    _check_tp_strategies(results4)
 
     a = main["sample_seq2_ring"]
     require(a["frames"] == [1, 10, 256, 256, 3] and a["finite"]
@@ -3594,6 +3866,83 @@ def phase_parallel(card: str) -> dict:
             require(row["launches"][k] > 0,
                     f"parallel {name}: {k} was not launched")
     return total
+
+
+def _tp_kernels_launched(what: str, row: dict) -> None:
+    """K1, K2, K7, K8 launched and K3-K5 not on a rank's run under a
+    ``model`` axis."""
+    for k in TP_TRAINING_KERNELS:
+        require(row["launches"][k] > 0, f"parallel {what}: {k} was not "
+                "launched")
+    for k in TP_NOT_LAUNCHED:
+        require(row["launches"][k] == 0,
+                f"parallel {what}: {k} launched under 'model'")
+
+
+def _check_tp_run(what: str, row: dict) -> None:
+    require(row["global_step"] == len(row["losses"]) > 0
+            and row["checkpoint_written"]
+            and all(map(math.isfinite, row["losses"])),
+            f"parallel {what}: {row['global_step']} steps, losses "
+            f"{row['losses']}")
+
+
+def _check_tp_lora(row: dict, per_rank: list) -> None:
+    """Phase 8 (l) against 7b's (a) on one rank."""
+    _check_tp_run("(l)", row)
+    got, want = row["losses"], row["losses_ref"]
+    require(len(got) == len(want) and all(
+        abs(a - b) <= PAR_LOSS_RTOL * abs(b) for a, b in zip(got, want)),
+        f"parallel (l): losses {got} vs one rank's {want}")
+    require(row["masters_equal_keys"] and row["checkpoint_layout_equal"],
+            "parallel (l): the checkpoint's keys or shapes differ from (a)'s")
+    require(row["masters_rel_l2"] <= TRAIN_REF_RTOL,
+            f"parallel (l): masters relative L2 {row['masters_rel_l2']}")
+    require(row["adapters_b"] > 0 and row["adapters_b_still_zero"] == 0,
+            f"parallel (l): {row['adapters_b_still_zero']} of "
+            f"{row['adapters_b']} adapters' B still zero")
+    for r in per_rank:
+        require(r["optimizer_state_bytes_per_param"] <= STATE_BYTES_PER_PARAM,
+                f"parallel (l): {r['optimizer_state_bytes_per_param']:.3f} "
+                "bytes of optimizer state per trainable parameter a rank")
+        _tp_kernels_launched("(l)", r)
+
+
+def _check_tp_strategies(results4: list) -> None:
+    """Phase 8 (i)-(k): (j) and (k) against (i), each rank's bytes, the
+    one-rank restores, the kernels."""
+    main = results4[0]
+    _check_tp_run("(i)", main["train_d2m2"])
+    for name, what in (("train_d2m2_zero1_8bit", "(j)"),
+                       ("train_d2m2_fsdp", "(k)")):
+        row = main[name]
+        _check_tp_run(what, row)
+        require(row["sharding"] == ("zero1" if what == "(j)" else "fsdp"),
+                f"parallel {what}: sharding {row['sharding']}")
+        got, want = row["losses"], row["losses_ref"]
+        require(len(got) == len(want) and all(
+            abs(a - b) <= SHARD_LOSS_RTOL * abs(b) for a, b in zip(got, want)),
+            f"parallel {what}: losses {got} vs (i)'s {want}")
+        require(row["masters_rel_l2"] <= row["masters_rel_l2_bound"],
+                f"parallel {what}: masters relative L2 "
+                f"{row['masters_rel_l2']} > {row['masters_rel_l2_bound']}")
+        back = row["restore_one_rank"]
+        require(back["masters_equal"] and back["moments_equal"]
+                and back["modules_synced"]
+                and back["count"] == row["global_step"],
+                f"parallel {what}: the one-rank restore {back}")
+    for r in results4:
+        for name in ("train_d2m2", "train_d2m2_zero1_8bit",
+                     "train_d2m2_fsdp"):
+            _tp_kernels_launched(name, r[name])
+        j, k = r["train_d2m2_zero1_8bit"], r["train_d2m2_fsdp"]
+        require(j["state_bytes"] <= 0.5 * j["state_bytes_ref"] * 1.01,
+                f"parallel (j): state {j['state_bytes']} B a rank vs (i)'s "
+                f"{j['state_bytes_ref']}")
+        require(k["param_bytes"] <= 0.5 * k["param_bytes_ref"]
+                + k["largest_unit_bytes"],
+                f"parallel (k): parameters {k['param_bytes']} B a rank vs "
+                f"(i)'s {k['param_bytes_ref']}")
 
 
 def _check_tensor_parallel(main: dict, results: list) -> None:
@@ -3987,10 +4336,12 @@ def main() -> int:
         try:
             train_launches, phase7 = phase_training(card, args.profile,
                                                     train_tmp)
-            option_launches = phase_training_options(card, train_tmp, phase7)
+            option_launches, lora_ref = phase_training_options(
+                card, train_tmp, phase7)
+            # phase 8's (l) trains on phase 7's tree from 7b's base
+            par_launches = phase_parallel(card, lora_ref)
         finally:
             shutil.rmtree(train_tmp, ignore_errors=True)
-        par_launches = phase_parallel(card)
         k10_row, fb_launches = phase_floor_budget(card)
         rows["softmax_calib"] = [k10_row]
     except SmokeFailure as e:

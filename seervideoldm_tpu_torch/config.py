@@ -181,7 +181,6 @@ def validate(cfg: Config) -> Config:
                                  "(supported: 'data', 'model', 'seq')")
             if int(size) < 1:
                 raise ValueError(f"mesh_shape {axis}={size} must be >= 1")
-        _validate_model_axis(cfg)
     if cfg.push_to_hub:
         raise ValueError("push_to_hub is not supported: there is no network "
                          "access; upload the checkpoint directory manually")
@@ -198,22 +197,6 @@ def validate(cfg: Config) -> Config:
         raise ValueError(f"vae_scale must be > 0, got {cfg.vae_scale!r}")
     _validate_sampling(cfg)
     return cfg
-
-
-def _validate_model_axis(cfg: Config) -> None:
-    """The strategies not yet ported beside a ``model`` axis of more than
-    one rank (tensor parallelism, ``parallel/sharding.py``), each refused
-    by name."""
-    if int(dict(cfg.mesh_shape).get("model", 1)) <= 1:
-        return
-    refused = (("zero1", bool(cfg.zero1)), ("fsdp", bool(cfg.fsdp)),
-               ("lora_rank > 0", int(cfg.lora_rank or 0) > 0),
-               ("use_8bit_adam", bool(cfg.use_8bit_adam)))
-    for name, on in refused:
-        if on:
-            raise ValueError(f"{name} with a 'model' mesh axis (tensor "
-                             "parallelism) is not ported yet: drop one of "
-                             "the two")
 
 
 def _validate_training_options(cfg: Config) -> None:

@@ -31,7 +31,14 @@ Under a ``model`` axis (``models.tensor_parallel``) every rank calls
 and the modules' own split weights -- is gathered to rank 0 along its split
 dimension (``TensorParallel.gather_dict``), so the files hold the keys and
 shapes of a single-rank save; a restore cuts each rank's slices from the
-whole tensors (``TensorParallel.local_dict``).
+whole tensors (``TensorParallel.local_dict``).  8-bit moments are saved in
+the whole leaves' blocks (``TensorParallel.gather_q`` / ``local_q``).
+Under both a plan and a ``model`` axis the save streams in two stages,
+one group or unit at a time: the shards are gathered to data rank 0 of
+each model index on the host, then the parts are joined over the model
+ranks on the host of rank 0 (``ShardPlan._join``); a restore cuts the
+slices, then the shards.  No rank holds the whole unsharded state on the
+card.
 """
 from __future__ import annotations
 
@@ -76,16 +83,6 @@ def export_state_dicts(models, weights: Optional[dict] = None,
     return out
 
 
-def _names(plan, tensors: Optional[dict]):
-    """The state ``tensors`` (by name, or by group under a plan) by name
-    on the host of the writing rank; None on the other ranks."""
-    if tensors is None:
-        return None
-    if plan is None:
-        return _to_cpu(tensors)
-    return plan.to_names(tensors)
-
-
 def _load(plan, tensors: dict, whole: dict) -> None:
     """``whole`` (by name) into the state ``tensors`` in place."""
     if plan is not None:
@@ -95,11 +92,12 @@ def _load(plan, tensors: dict, whole: dict) -> None:
         t.copy_(whole[name])
 
 
-def _optimizer_by(fn, state: dict) -> dict:
-    """``state`` (``Optimizer.state_dict``) with ``fn`` applied to each of
-    its by-name tensor dicts (the moments and the accumulator)."""
-    return {k: fn(v) if k in ("mu", "nu", "acc") else v
-            for k, v in state.items()}
+def _local_shapes(plan, state) -> dict:
+    """``{name: shape}`` of this rank's trainable tensors."""
+    if plan is None:
+        return {n: tuple(t.shape) for n, t in state.masters.items()}
+    return {n: s for layout in plan.layouts.values()
+            for n, s in zip(layout.names, layout.shapes)}
 
 
 def _to_cpu(obj):
@@ -136,20 +134,23 @@ class CheckpointManager:
 
         plan, tp = models.sharding, models.tensor_parallel
         path = self.path_for_step(step)
-        if tp is not None:
+        if plan is not None:
+            # the two stages (shards over data, then parts over model)
+            masters = plan.to_names(state.masters)
+            ema = plan.to_names(state.ema) if state.ema is not None else None
+            optimizer = plan.optimizer_state(state.optimizer)
+            base = (plan.module_weights() if plan.units
+                    else tp.module_weights(models) if tp is not None
+                    else None)
+        elif tp is not None:
             masters = tp.gather_dict(state.masters)
             ema = tp.gather_dict(state.ema)
-            optimizer = _optimizer_by(tp.gather_dict,
-                                      state.optimizer.state_dict())
+            optimizer = tp.gather_optimizer(state.optimizer.state_dict(),
+                                            _local_shapes(plan, state))
             base = tp.module_weights(models)
         else:
-            masters = _names(plan, state.masters)
-            ema = _names(plan, state.ema)
-            if plan is None:
-                optimizer, base = _to_cpu(state.optimizer.state_dict()), None
-            else:
-                optimizer = plan.optimizer_state(state.optimizer)
-                base = plan.module_weights()
+            masters, ema = _to_cpu(state.masters), _to_cpu(state.ema)
+            optimizer, base = _to_cpu(state.optimizer.state_dict()), None
         if (plan is None and tp is None) or is_main_process():
             # under a mesh with ``seq`` each seq line's data rank 0 holds
             # the gathered state; the first rank alone writes it
@@ -188,11 +189,12 @@ class CheckpointManager:
                            map_location="cpu")
         plan, tp = models.sharding, models.tensor_parallel
         if tp is not None:
-            # this rank's slices of the whole tensors
+            # this rank's slices of the whole tensors (then, under a plan,
+            # its shards of those)
             saved["masters"] = tp.local_dict(saved["masters"])
             saved["ema"] = tp.local_dict(saved["ema"])
-            saved["optimizer"] = _optimizer_by(tp.local_dict,
-                                               saved["optimizer"])
+            saved["optimizer"] = tp.local_optimizer(
+                saved["optimizer"], _local_shapes(plan, state))
         names = (set(state.masters) if plan is None else
                  {n for layout in plan.layouts.values() for n in layout.names})
         missing = names ^ set(saved["masters"])

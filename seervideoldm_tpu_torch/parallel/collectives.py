@@ -79,6 +79,15 @@ def staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def to_transport(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` where ``group``'s backend can move it: a host tensor goes to
+    the current card for NCCL, anything else stays where it is."""
+    if (not t.is_cuda and group_size(group) > 1
+            and dist.get_backend(group) == "nccl"):
+        return t.to(torch.device("cuda", torch.cuda.current_device()))
+    return t
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
     buf = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=True)
     buf.copy_(t)

@@ -3,8 +3,12 @@ and FSDP over the ``data`` axis (``zero1_state_sharding``,
 ``fsdp_param_sharding`` / ``fsdp_state_sharding``), and tensor parallelism
 over the ``model`` axis (``tensor_parallel_rules``, ``infer_param_sharding``
 and, for ``shard_params``, ``shard_tensor_parallel``; the last section of
-this file).  The two are not combined: ``config.validate`` refuses
-``zero1`` and ``fsdp`` beside a ``model`` axis.
+this file).  The two combine: beside a ``model`` axis the plan is built
+over each rank's tensor-parallel slices (``shard_training`` after
+``shard_tensor_parallel``), its groups reduce-scattered and gathered over
+the ``data`` line of the rank's model index, as the JAX package keeps the
+TP layout of the parameters under ``zero1_state_sharding`` and lets
+``fsdp_state_sharding`` shard them further.
 
 ZeRO-1 and FSDP are beyond the reference and leave the training math as it is:
 the same losses and updates as the replicated data-parallel run.  The
@@ -64,6 +68,14 @@ resume lays each group out on the host and keeps this rank's shard
 replicated in both modes (they are a few MB), their moments and EMA
 sharded; under ``fsdp`` each unit applies the adapters' delta to its
 gathered weights.
+
+Beside a ``model`` axis: each flat group lays this rank's parts of split
+tensors first (``FlatLayout.split_end``), so the clip's norm takes two
+partial sums of squares per shard -- the split ones summed over ``data``
+and then over ``model``, the replicated ones over ``data`` only
+(``ShardPlan.global_norm``); a save joins each group's or unit's leaves
+over the model ranks after gathering its shards (``ShardPlan._join``), and
+a restore cuts the slices before the shards.
 """
 from __future__ import annotations
 
@@ -76,7 +88,8 @@ import torch
 import torch.nn as nn
 
 from .collectives import (all_gather, all_gather_flat, all_reduce_,
-                          gather_flat, group_rank, reduce_scatter)
+                          gather_flat, group_rank, reduce_scatter,
+                          to_transport)
 
 ALIGN = 256
 GROUP_ELEMENTS = 1 << 24    # a replicated group's leaves, before padding
@@ -102,21 +115,33 @@ def decide_mode(zero1: bool, fsdp: bool, n_data: int):
 
 class FlatLayout:
     """Leaves ``names`` of ``shapes`` in one flat buffer split into ``n``
-    shards; this rank holds shard ``rank``."""
+    shards; this rank holds shard ``rank``.  Under a ``model`` axis the
+    leaves in ``split`` (this rank's parts of split tensors) come first and
+    end at ``split_end``."""
 
-    def __init__(self, names, shapes, n: int, rank: int):
+    def __init__(self, names, shapes, n: int, rank: int, split=()):
         self.names = list(names)
         self.shapes = [tuple(s) for s in shapes]
         self.numels = [math.prod(s) for s in self.shapes]
         self.offsets, end = [], 0
-        for numel in self.numels:
+        self.split_end = 0
+        for name, numel in zip(self.names, self.numels):
             self.offsets.append(end)
             end += -(-numel // ALIGN) * ALIGN
+            if name in split:
+                if self.split_end != self.offsets[-1]:
+                    raise ValueError(f"split leaf {name} after a whole one")
+                self.split_end = end
         unit = n * ALIGN
         self.total = max(unit, -(-end // unit) * unit)
         self.shard_numel = self.total // n
         self.n, self.rank = n, rank
         self.lo = rank * self.shard_numel
+
+    def split_count(self) -> int:
+        """How many of this rank's shard's elements lie in split leaves
+        (they come first)."""
+        return min(max(self.split_end - self.lo, 0), self.shard_numel)
 
     def views(self, flat: torch.Tensor) -> list:
         """The leaves as views of a whole flat buffer."""
@@ -261,6 +286,10 @@ class ShardPlan:
         self.group = mesh.group("data")
         self.n, self.rank = mesh.axis_size("data"), mesh.axis_index("data")
         self.seq_group = mesh.group("seq")
+        # the data x seq ranks of this model index: the loss pair's sum
+        self.replica_group = mesh.replica_group()
+        self.tp: Optional[TensorParallel] = None
+        self.split: set = set()      # this rank's parts of split tensors
         self.layouts: dict = {}      # group -> FlatLayout
         self.masters: dict = {}      # group -> master shard
         self.buffers: dict = {}      # replicated group -> whole buffer
@@ -289,13 +318,13 @@ class ShardPlan:
             by_dtype.setdefault(masters[name].dtype, []).append(name)
         for group in by_dtype.values():
             chunk, size = [], 0
-            for name in group + [None]:
+            for name in self._split_first(group) + [None]:
                 numel = masters[name].numel() if name else 0
                 if chunk and (name is None or size + numel > GROUP_ELEMENTS):
                     key = f"replicated{len(self.replicated)}"
                     layout = FlatLayout(chunk, [masters[n].shape
                                                 for n in chunk],
-                                        self.n, self.rank)
+                                        self.n, self.rank, self.split)
                     flat = layout.flatten([masters[n] for n in chunk])
                     for n, view in zip(chunk, layout.views(flat)):
                         param = params.get(masters[n].data_ptr())
@@ -357,9 +386,10 @@ class ShardPlan:
                                []).append(slot)
         parts, lo = [], 0
         for (dtype, trains), slots in by_kind.items():
+            slots = sorted(slots, key=lambda sl: sl[2] not in self.split)
             names = [sl[2] for sl in slots]
             layout = FlatLayout(names, [sl[3].shape for sl in slots], self.n,
-                                self.rank)
+                                self.rank, self.split)
             part = layout.local(layout.flatten(
                 [sl[3].detach() for sl in slots])).view(torch.uint8)
             key = (f"{unit.name}:{str(dtype).split('.')[-1]}" if trains
@@ -388,6 +418,11 @@ class ShardPlan:
             self.masters[b.key] = b.anchor
         for _, _, _, p in unit.slots:
             p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    def _split_first(self, names: list) -> list:
+        """``names`` with this rank's parts of split tensors first (the
+        norm's two partial sums are then two slices of a shard)."""
+        return sorted(names, key=lambda n: n not in self.split)
 
     def _pre(self, unit):
         def hook(module, args):
@@ -474,12 +509,23 @@ class ShardPlan:
         return out
 
     def global_norm(self, tensors) -> torch.Tensor:
-        """The global norm of the sharded gradient: the shards' sums of
-        squares, all-reduced over ``data``."""
-        sq = torch.stack([n.float() for n in torch._foreach_norm(tensors)])
-        total = (sq * sq).sum().reshape(1)
-        all_reduce_(total, self.group)
-        return total[0].sqrt()
+        """The global norm of the sharded gradient (``tensors`` in the
+        order of ``masters``): the shards' sums of squares, all-reduced
+        over ``data``.  Under a ``model`` axis the squares of split leaves
+        (each group's first elements) are summed over ``data`` and then
+        over ``model``, those of replicated leaves over ``data`` only: the
+        norm of one rank's gradient."""
+        if self.tp is None:
+            total = _sum_squares(tensors).reshape(1)
+            all_reduce_(total, self.group)
+            return total[0].sqrt()
+        counts = [self.layouts[g].split_count() for g in self.masters]
+        parts = torch.stack([
+            _sum_squares([t[:k] for t, k in zip(tensors, counts)]),
+            _sum_squares([t[k:] for t, k in zip(tensors, counts)])])
+        all_reduce_(parts, self.group)
+        all_reduce_(parts[:1], self.tp.group)
+        return parts.sum().sqrt()
 
     @torch.no_grad()
     def after_step(self, models) -> None:
@@ -501,37 +547,53 @@ class ShardPlan:
     # A checkpoint streams: one group or one unit at a time is gathered to
     # rank 0 of ``data`` only, moved to the host at once and cut into
     # leaves there, so no rank ever holds more of the unsharded state on
-    # the card than the largest group.  Every rank of ``data`` calls these
-    # in the same order; the other ranks get None.
+    # the card than the largest group.  Under a ``model`` axis a second
+    # stage joins those leaves' parts over the model ranks of the writing
+    # line (``TensorParallel.gather_dict``) on the host, group by group.
+    # Every rank calls these in the same order; the ones that do not write
+    # get None.
 
     def _whole(self, shard: torch.Tensor):
         return gather_flat(shard.detach(), self.group, device="cpu")
 
+    def _join(self, part: Optional[dict]):
+        """The second stage: ``part`` (by name, on data rank 0) with its
+        split tensors joined over ``model``."""
+        return part if self.tp is None else self.tp.gather_dict(part)
+
+    def _writes(self) -> bool:
+        """True on the rank the two stages leave the whole state on."""
+        return self.rank == 0 and (self.tp is None or (
+            self.tp.writes() and self.tp.rank == 0))
+
     def to_names(self, shards: dict):
         """``{group: shard}`` -> ``{name: whole tensor}`` on the host of
-        rank 0, None elsewhere."""
+        the writing rank, None elsewhere."""
         out = {}
         for g, shard in shards.items():
             full = self._whole(shard)
-            if full is not None:
-                out.update(zip(self.layouts[g].names,
-                               (v.clone() for v in
-                                self.layouts[g].views(full))))
-        return out if self.rank == 0 else None
+            part = None if full is None else dict(zip(
+                self.layouts[g].names,
+                (v.clone() for v in self.layouts[g].views(full))))
+            out.update(self._join(part) or {})
+        return out if self._writes() else None
 
     def module_weights(self):
         """Every unit's weights ``{"<model>.<name>": whole tensor}`` (fsdp;
-        under zero1 the modules hold them whole) on the host of rank 0,
-        None elsewhere."""
+        under zero1 the modules hold them whole) on the host of the
+        writing rank, None elsewhere."""
         out = {}
         for unit in self.units:
             whole = self._whole(unit.shard)
-            if whole is None:
-                continue
-            for b, full in zip(unit.buckets, unit.split(whole)):
-                out.update(zip((sl[2] for sl in b.slots),
-                               (v.clone() for v in b.layout.views(full))))
-        return out if self.rank == 0 else None
+            part = None
+            if whole is not None:
+                part = {}
+                for b, full in zip(unit.buckets, unit.split(whole)):
+                    part.update(zip((sl[2] for sl in b.slots),
+                                    (v.clone() for v in
+                                     b.layout.views(full))))
+            out.update(self._join(part) or {})
+        return out if self._writes() else None
 
     def load_names(self, shards: dict, whole: dict) -> None:
         """``{name: whole tensor}`` into this rank's ``{group: shard}``
@@ -551,24 +613,30 @@ class ShardPlan:
                "acc": (self.to_names(state["acc"])
                        if state["acc"] is not None else None)}
         for key in ("mu", "nu"):
-            first = next(iter(state[key].values()), None)
-            if isinstance(first, dict):
-                out[key] = self._q_to_names(state[key])
+            if is_quantized(state[key]):
+                out[key] = self._q_to_names(state[key], key == "mu")
             else:
                 out[key] = self.to_names(state[key])
-        return out if self.rank == 0 else None
+        return out if self._writes() else None
 
-    def _q_to_names(self, qs: dict) -> dict:
+    def _q_to_names(self, qs: dict, signed: bool) -> dict:
         out = {}
         for g, q in qs.items():
+            layout = self.layouts[g]
             codes, scales = self._whole(q["codes"]), self._whole(q["scales"])
-            if codes is None:
-                continue
-            codes, scales = codes.view(-1, ALIGN), scales.view(-1, 1)
-            for i, name in enumerate(self.layouts[g].names):
-                b0, nb = self.layouts[g].blocks(i)
-                out[name] = {"codes": codes[b0:b0 + nb].clone(),
-                             "scales": scales[b0:b0 + nb].clone()}
+            part = None
+            if codes is not None:
+                codes, scales = codes.view(-1, ALIGN), scales.view(-1, 1)
+                part = {}
+                for i, name in enumerate(layout.names):
+                    b0, nb = layout.blocks(i)
+                    part[name] = {"codes": codes[b0:b0 + nb].clone(),
+                                  "scales": scales[b0:b0 + nb].clone()}
+            if self.tp is not None:
+                part = self.tp.gather_q(part, dict(zip(layout.names,
+                                                       layout.shapes)),
+                                        signed)
+            out.update(part or {})
         return out
 
     def load_optimizer_state(self, optimizer, saved: dict) -> None:
@@ -579,8 +647,7 @@ class ShardPlan:
         if state["acc"] is not None and saved.get("acc") is not None:
             self.load_names(state["acc"], saved["acc"])
         for key in ("mu", "nu"):
-            first = next(iter(state[key].values()), None)
-            if isinstance(first, dict):
+            if is_quantized(state[key]):
                 # a block no leaf owns keeps the zero moment's code
                 local[key] = self._q_from_names(state[key], saved[key],
                                                 -128 if key == "nu" else 0)
@@ -620,12 +687,15 @@ class ShardPlan:
 
 def shard_training(models, mode: str, mesh, lora_scale: float = 0.0
                    ) -> ShardPlan:
-    """Shard ``models`` (built for training, ``trainable_masters`` taken,
-    LoRA enabled if it is on) for ``mode`` over ``mesh``'s ``data`` axis;
-    the plan is also ``models.sharding``.  Under fsdp the modules keep
-    empty placeholders and ``models.masters`` only the replicated
-    masters."""
+    """Shard ``models`` (built for training, cut to this rank's slices
+    under a ``model`` axis, ``trainable_masters`` taken, LoRA enabled if it
+    is on) for ``mode`` over ``mesh``'s ``data`` axis; the plan is also
+    ``models.sharding``.  Under fsdp the modules keep empty placeholders
+    and ``models.masters`` only the replicated masters."""
     plan = ShardPlan(mode, mesh)
+    plan.tp = models.tensor_parallel
+    if plan.tp is not None:
+        plan.split = set(plan.tp.splits)
     masters = models.masters
     taken = set()
     if mode == "fsdp":
@@ -641,6 +711,12 @@ def shard_training(models, mode: str, mesh, lora_scale: float = 0.0
     models.masters = {n: t for n, t in masters.items() if n not in taken}
     models.sharding = plan
     return plan
+
+
+def _sum_squares(tensors) -> torch.Tensor:
+    """The sum of squares of every element of ``tensors``, fp32."""
+    sq = torch.stack([n.float() for n in torch._foreach_norm(tensors)])
+    return (sq * sq).sum()
 
 
 def param_bytes(models) -> int:
@@ -712,6 +788,26 @@ ROW = Split(1)
 # one rank every hidden row and the other every gate row), so the product
 # hidden * gelu(gate) is local -- the JAX package's Megatron GEGLU
 GEGLU_COLUMN = Split(0, 2)
+
+
+PREFIX_LORA = "lora."    # the adapters' names among the masters
+
+
+def is_quantized(moment: Optional[dict]) -> bool:
+    """True for an 8-bit moment's ``{name: {"codes", "scales"}}``."""
+    return isinstance(next(iter((moment or {}).values()), None), dict)
+
+
+def _map_optimizer(state: dict, tensors, quantized) -> dict:
+    """``state`` (an optimizer state dict) with ``tensors(dict)`` applied
+    to its by-name tensor dicts and ``quantized(dict, signed)`` to 8-bit
+    moments."""
+    out = dict(state)
+    out["acc"] = tensors(state.get("acc"))
+    for key in ("mu", "nu"):
+        out[key] = (quantized(state[key], key == "mu")
+                    if is_quantized(state[key]) else tensors(state[key]))
+    return out
 
 
 def tensor_parallel_rules() -> list[tuple[str, Split]]:
@@ -814,6 +910,78 @@ class TensorParallel:
         self.m = mesh.axis_size("model")
         self.rank = mesh.axis_index("model")
         self.splits = splits
+        # trainable tensors held whole on every model rank whose gradient
+        # there is a partial sum (LoRA's factor that a split leaves whole)
+        self.partial: set = set()
+
+    def whole_shape(self, name: str, shape) -> tuple:
+        """The whole tensor's shape from this rank's part's."""
+        shape = list(shape)
+        split = self.splits.get(name)
+        if split is not None:
+            shape[split.dim] *= self.m
+        return tuple(shape)
+
+    def add_lora(self, lora: dict) -> dict:
+        """This rank's parts of whole adapters (``{"<path>.lora_a" |
+        ".lora_b": tensor}``, drawn as one rank draws them), registered
+        under their ``"lora.<key>"`` names.  ``W + s (A @ B)^T`` with W
+        (out, in), A (in, r), B (r, out): under a column split of W (its
+        rows) B keeps its columns of ``out`` and A stays whole; under a row
+        split A keeps its rows of ``in`` and B stays whole.  The whole
+        factor sees only this rank's slice of the product, so its gradient
+        is a partial sum over the model ranks (``partial``,
+        ``sum_partial``)."""
+        out = {}
+        for key, t in lora.items():
+            a_side = key.endswith(".lora_a")
+            stem = key[:-len("lora_a")]
+            split = self.splits.get("unet." + stem + "weight")
+            name = PREFIX_LORA + key
+            part = None
+            if split is not None:
+                if split.halves != 1:
+                    raise ValueError(f"LoRA on a split of halves: {key}")
+                # A (in, r) keeps its rows under a row split, B (r, out)
+                # its columns under a column split
+                part = ((Split(0) if a_side else None) if split.dim == 1
+                        else (None if a_side else Split(1)))
+                if part is None:
+                    self.partial.add(name)
+            if part is None:
+                out[key] = t
+                continue
+            self.splits[name] = part
+            with torch.no_grad():
+                local = tp_slice(t.detach(), part, self.m, self.rank)
+            out[key] = local.requires_grad_(t.requires_grad)
+        return out
+
+    def sum_partial(self, grads: dict) -> None:
+        """In place: the gradients of ``partial`` tensors summed over the
+        model ranks (one all-reduce); every model rank then holds the
+        whole factor's gradient, as a replicated tensor's."""
+        names = [n for n in grads if n in self.partial]
+        if not names:
+            return
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        all_reduce_(flat, self.group)
+        for n, part in zip(names, flat.split([grads[n].numel()
+                                              for n in names])):
+            grads[n] = part.view_as(grads[n])
+
+    def keeps_blocks(self, name: str, shape) -> bool:
+        """True when the 8-bit moments' blocks of 256 over this rank's
+        part (local ``shape``) of ``name`` are blocks of the whole leaf:
+        the part's contiguous runs in the whole leaf (a column split's one
+        run, or one a half; a row split's one a row) are whole multiples of
+        256.  Then the part's codes and scales are the whole leaf's."""
+        split = self.splits.get(name)
+        if split is None:
+            return True
+        run = shape[split.dim] // split.halves * math.prod(
+            shape[split.dim + 1:])
+        return run % ALIGN == 0
 
     def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's part of the tensor ``name`` (itself when it is not
@@ -849,27 +1017,124 @@ class TensorParallel:
         move in one ``gather_flat`` per dtype.  Every rank calls it."""
         if tensors is None or not self.writes():
             return None
-        out = {k: t.detach().cpu() for k, t in tensors.items()
-               if prefix + k not in self.splits}
+        return self._join({k: (t, self.splits.get(prefix + k))
+                           for k, t in tensors.items()})
+
+    def _join(self, entries: dict):
+        """``{key: (part, Split or None)}`` -> ``{key: whole}`` on the CPU
+        of model rank 0 (None elsewhere): a None split's part as it is, the
+        others gathered, one ``gather_flat`` per dtype."""
+        out = {k: t.detach().cpu() for k, (t, split) in entries.items()
+               if split is None}
         by_dtype: dict = {}
-        for k, t in tensors.items():
-            if prefix + k in self.splits:
+        for k, (t, split) in entries.items():
+            if split is not None:
                 by_dtype.setdefault(t.dtype, []).append(k)
         for dtype in sorted(by_dtype, key=str):
             keys = by_dtype[dtype]
-            flat = torch.cat([tensors[k].detach().reshape(-1) for k in keys])
-            whole = gather_flat(flat, self.group, dst=0, device="cpu")
+            flat = torch.cat([entries[k][0].detach().reshape(-1)
+                              for k in keys])
+            whole = gather_flat(to_transport(flat, self.group), self.group,
+                                dst=0, device="cpu")
             if whole is None:
                 continue
             ranks = whole.chunk(self.m)
             offset = 0
             for k in keys:
-                t = tensors[k]
+                t, split = entries[k]
                 parts = [r[offset:offset + t.numel()].view(t.shape)
                          for r in ranks]
                 offset += t.numel()
-                out[k] = tp_join(parts, self.splits[prefix + k])
+                out[k] = tp_join(parts, split)
         return out if group_rank(self.group) == 0 else None
+
+    def gather_q(self, qs: Optional[dict], shapes: dict, signed: bool):
+        """``gather_dict`` of one 8-bit moment (``{name: {"codes",
+        "scales"}}`` in blocks of this rank's parts, ``shapes`` their local
+        shapes): the whole leaves' codes and scales, as a single rank
+        keeps them, on the CPU of model rank 0.  A part whose blocks are
+        the whole leaf's (``keeps_blocks``) joins its codes and scales
+        (bit for bit); any other split part is dequantized, joined in fp32
+        and quantized again in the whole leaf's blocks (``signed``: the
+        first moment's map, else the second's), which moves a value by at
+        most half a code step of its whole-leaf block."""
+        from ..training import optim8bit as q8
+
+        if qs is None or not self.writes():
+            return None
+        entries = {}
+        for name, q in qs.items():
+            codes, scales = q["codes"].cpu(), q["scales"].cpu()
+            split, shape = self.splits.get(name), shapes[name]
+            if split is None:
+                entries[name] = ({"codes": codes, "scales": scales}, None)
+            elif self.keeps_blocks(name, shape):
+                entries[name + "#codes"] = (codes.reshape(shape), split)
+                entries[name + "#scales"] = (
+                    scales.expand(-1, ALIGN).reshape(shape), split)
+            else:
+                deq = q8.dequantize_signed if signed else q8.dequantize_sqrt
+                entries[name + "#values"] = (deq(q8.Q(codes, scales), shape),
+                                             split)
+        plain = {k: v for k, v in entries.items() if v[1] is not None}
+        joined = self._join(plain)
+        if joined is None:
+            return None
+        out = {k: v for k, (v, split) in entries.items() if split is None}
+        quant = q8.quantize_signed if signed else q8.quantize_sqrt
+        for name in qs:
+            if name + "#codes" in joined:
+                out[name] = {"codes": q8.blocked(joined[name + "#codes"]),
+                             "scales": q8.blocked(
+                                 joined[name + "#scales"])[:, :1].clone()}
+            elif name + "#values" in joined:
+                codes, scales = quant(joined[name + "#values"])
+                out[name] = {"codes": codes, "scales": scales}
+        return out
+
+    def local_q(self, qs: Optional[dict], shapes: dict, signed: bool):
+        """The reverse of ``gather_q`` on every rank: this rank's parts'
+        codes and scales of whole leaves' (local ``shapes``); a part that
+        does not keep the whole leaf's blocks is dequantized whole, cut and
+        quantized again in its own blocks."""
+        from ..training import optim8bit as q8
+
+        if qs is None:
+            return None
+        out = {}
+        quant = q8.quantize_signed if signed else q8.quantize_sqrt
+        deq = q8.dequantize_signed if signed else q8.dequantize_sqrt
+        for name, q in qs.items():
+            split = self.splits.get(name)
+            if split is None:
+                out[name] = q
+                continue
+            whole = self.whole_shape(name, shapes[name])
+            cut = lambda t: tp_slice(t, split, self.m, self.rank)  # noqa: E731
+            if self.keeps_blocks(name, shapes[name]):
+                scales = q["scales"].expand(-1, ALIGN).reshape(whole)
+                out[name] = {"codes": q8.blocked(cut(q["codes"].reshape(
+                                 whole))),
+                             "scales": q8.blocked(cut(scales))[:, :1].clone()}
+            else:
+                codes, scales = quant(cut(deq(q8.Q(q["codes"], q["scales"]),
+                                              whole)))
+                out[name] = {"codes": codes, "scales": scales}
+        return out
+
+    def gather_optimizer(self, state: dict, shapes: dict):
+        """``Optimizer.state_dict`` of this rank's parts, whole (the
+        moments, 8-bit or not, and the accumulator) on the CPU of model
+        rank 0 of the writing line."""
+        return _map_optimizer(state, self.gather_dict,
+                              lambda qs, signed: self.gather_q(qs, shapes,
+                                                               signed))
+
+    def local_optimizer(self, saved: dict, shapes: dict) -> dict:
+        """A whole optimizer state dict cut to this rank's parts."""
+        return _map_optimizer(saved, self.local_dict,
+                              lambda qs, signed: self.local_q(qs, shapes,
+                                                              signed))
 
     def module_weights(self, models) -> Optional[dict]:
         """``{"<model>.<name>": whole tensor}`` of every split weight of

@@ -40,8 +40,12 @@ rank, and the entry prints the JAX entry's line when it ignores one.
 attention and feed-forward weights, and their masters and moments, over M
 ranks (tensor parallelism, ``parallel.sharding.shard_tensor_parallel``);
 the ranks of one model group share a batch, the masters are compared
-within each model index, and a checkpoint holds the whole tensors.
-``zero1``, ``fsdp``, LoRA and ``use_8bit_adam`` are refused beside it.
+within each model index, and a checkpoint holds the whole tensors.  Every
+strategy runs beside it, as in the JAX entry: LoRA draws each adapter
+whole and cuts it with its projection, 8-bit moments keep blocks of 256
+over a rank's parts (``training/optim8bit.py`` says which leaves keep one
+rank's codes), and ``zero1`` / ``fsdp`` shard a rank's parts over
+``data``, the clip's norm summing split squares over ``model`` too.
 
 ``train(cfg, device)`` is the same loop as a Python API; it returns a
 summary dict (steps taken, seconds per optimizer step, losses, the
@@ -124,14 +128,16 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         adapters = enable_lora(models, lora_rank, gen, scope=cfg.lora_targets)
         lscale = lora_scale(lora_rank, cfg.lora_alpha)
         if main:
+            count = param_count(adapters, models.tensor_parallel)
             print(f"lora: rank {lora_rank} scope {cfg.lora_targets} -- "
-                  f"{param_count(adapters) / 1e6:.2f}M adapter params",
-                  flush=True)
+                  f"{count / 1e6:.2f}M adapter params", flush=True)
     masters = trainable_masters(models)
     n_trainable = sum(t.numel() for t in masters.values())
     tp = models.tensor_parallel
     plan, norm_fn = None, None
     if mode is not None:
+        # over this rank's slices; its norm also sums split squares over
+        # the model ranks
         plan = shard_training(models, mode, mesh, lscale)
         masters, norm_fn = plan.masters, plan.global_norm
     elif tp is not None:

@@ -27,6 +27,14 @@ the parameters when its forward returns, would not give it).
 ``inference_params`` merges the delta into the UNet's weights: the saved
 checkpoint is indistinguishable from a full fine-tune, and every sampling
 entry loads it strictly.
+
+Under a ``model`` axis each adapter is drawn whole and cut with the
+weight it adapts (``parallel.sharding.TensorParallel.add_lora``): B keeps
+its output columns under a column split, A its input rows under a row
+split, and the other factor stays whole, its gradient summed over the
+model ranks.  The delta of the two parts is the part of the whole delta,
+so ``apply_lora`` and the FSDP gather merge on the parts; a checkpoint
+joins the adapters and the base on the writing rank and merges there.
 """
 from __future__ import annotations
 
@@ -71,11 +79,14 @@ def _adapter_key(weight_name: str, leaf: str) -> str:
 
 
 def init_lora(unet: nn.Module, rank: int, generator: torch.Generator,
-              scope: str = "attention") -> dict:
+              scope: str = "attention",
+              shapes: Optional[Mapping[str, tuple]] = None) -> dict:
     """The adapters of every targeted weight (in, out) = its ``(in_features,
     out_features)``: ``lora_a`` (in, rank) normal / sqrt(in), drawn from
     ``generator`` in the order of ``lora_target_paths``; ``lora_b`` (rank,
-    out) zeros.  fp32 on the UNet's device, requiring a gradient."""
+    out) zeros.  fp32 on the UNet's device, requiring a gradient.
+    ``shapes`` (``{path: (out, in)}``) replaces a weight's own shape: the
+    whole weight's, for a UNet that holds a tensor-parallel part."""
     if rank < 1:
         raise ValueError(f"lora rank must be >= 1, got {rank}")
     paths = lora_target_paths(unet, scope)
@@ -85,7 +96,7 @@ def init_lora(unet: nn.Module, rank: int, generator: torch.Generator,
     params = dict(unet.named_parameters())
     out = {}
     for path in paths:
-        out_dim, in_dim = params[path].shape
+        out_dim, in_dim = (shapes or {}).get(path, params[path].shape)
         dev = params[path].device
         a = torch.randn(in_dim, rank, generator=generator, device=dev)
         out[_adapter_key(path, "lora_a")] = (a / math.sqrt(in_dim)
@@ -145,8 +156,13 @@ def lora_scale(rank: int, alpha: Optional[float]) -> float:
     return (float(alpha) if alpha is not None else float(rank)) / float(rank)
 
 
-def param_count(lora: Mapping[str, torch.Tensor]) -> int:
-    return sum(t.numel() for t in lora.values())
+def param_count(lora: Mapping[str, torch.Tensor], tp=None) -> int:
+    """Elements of the adapters; of the whole ones under a tensor-parallel
+    layout ``tp``."""
+    if tp is None:
+        return sum(t.numel() for t in lora.values())
+    return sum(math.prod(tp.whole_shape(PREFIX + k, t.shape))
+               for k, t in lora.items())
 
 
 def split_lora(trainable: Mapping[str, torch.Tensor]
@@ -163,14 +179,23 @@ def enable_lora(models, rank: int, generator: torch.Generator,
     """Under LoRA: the whole UNet frozen (its masters dropped), FSText
     keeping its masters, the adapters made (``init_lora``) into
     ``models.lora`` and trained under ``"lora.<key>"``.  Returns the
-    adapters."""
+    adapters.  Under a ``model`` axis (``models.tensor_parallel``) each
+    adapter is drawn whole, as one rank draws it, and cut with the
+    projection it adapts (``TensorParallel.add_lora``)."""
     if models.masters is None:
         raise ValueError("models were built for sampling: pass "
                          "trainable_scope to SeerModels.initialize")
     models.unet.requires_grad_(False)
     models.masters = {n: t for n, t in models.masters.items()
                       if n.startswith("fstext.")}
-    models.lora = init_lora(models.unet, rank, generator, scope)
+    tp = models.tensor_parallel
+    shapes = None
+    if tp is not None:
+        shapes = {n: tp.whole_shape("unet." + n, p.shape)
+                  for n, p in models.unet.named_parameters()}
+    models.lora = init_lora(models.unet, rank, generator, scope, shapes)
+    if tp is not None:
+        models.lora = tp.add_lora(models.lora)
     models.masters.update({PREFIX + k: t for k, t in models.lora.items()})
     return models.lora
 

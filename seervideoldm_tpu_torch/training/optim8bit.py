@@ -20,6 +20,30 @@ tensor and (blocks, 1) scale tensor per chunk of leaves, so an update is a
 few whole-chunk tensor ops (the gradients copied in and the steps read out
 with ``torch._foreach_copy_``), never a Python loop over elements; a chunk
 holds at most ``CHUNK_BLOCKS`` blocks, which bounds the fp32 temporaries.
+
+Under a ``model`` axis a rank holds parts of the split leaves
+(``parallel/sharding.py``), and the blocks are taken over each part as it
+lies on the rank (the JAX package's GSPMD program blocks the whole leaf).
+A part is one or more runs of the whole leaf's flattened elements: a
+column split's part one run (the GEGLU projection's one a half), a row
+split's one a row.  Where each run is a whole number of blocks (its length
+a multiple of 256; ``TensorParallel.keeps_blocks``), the part's blocks
+are the whole leaf's and its codes and scales equal one rank's bit for
+bit.  Elsewhere -- every row split whose ``in / M`` is not a multiple of
+256 (SD-1.5's ``to_out.0`` at 320 / 640 / 1280 channels over 2 ranks) and
+LoRA's B under a column split -- a block's absmax is taken over other
+elements than one rank's, and a dequantized moment differs from one
+rank's by at most one code step of its block (half a step in each
+layout): ``absmax / 127`` for ``m``, ``absmax(sqrt v) / 255`` in sqrt space
+for ``v``.  The first update is exact either way (its direction uses the
+moments before they are quantized); from the second on such a leaf's
+update moves by what that step changes in ``m_hat / (sqrt(v_hat) +
+eps)``.  Replicated leaves are whole on every rank and keep one rank's
+codes.  A checkpoint holds the whole leaves' blocks: kept blocks join as
+they are, the others are dequantized, joined in fp32 and quantized again
+(``TensorParallel.gather_q``; a restore cuts the other way,
+``local_q``), each way at most half a code step.  The state stays at
+2 bytes an element plus a scale a block of the rank's parts.
 """
 from __future__ import annotations
 

@@ -32,7 +32,11 @@ Under ``model`` each rank holds its slices of the split weights
 group compute one loss, and the reduce runs over the ``data`` x ``seq``
 ranks of this rank's model index only (``Mesh.replica_group``): a split
 gradient is this rank's slice, a replicated one the same on every model
-rank.  The clip's norm counts each once (``TensorParallel.global_norm_fn``).
+rank.  A LoRA factor that a split leaves whole sees only this rank's slice
+of its product, so its gradient is summed over the model ranks
+(``TensorParallel.sum_partial``).  The clip's norm counts each once
+(``TensorParallel.global_norm_fn``, or ``ShardPlan.global_norm`` under a
+sharded state).
 
 Parameters and dtypes: frozen weights are in the compute dtype.  Each
 trainable parameter has an fp32 master that the optimizer updates; the
@@ -52,7 +56,9 @@ Under ``zero1`` / ``fsdp`` (``models.sharding``, ``parallel/sharding.py``)
 the optimizer's names are the plan's groups and its parameters their
 master shards: the gradients arrive as data-mean shards, the EMA runs on
 the shards, and after a sync step ``ShardPlan.after_step`` rebuilds what
-the modules compute with.
+the modules compute with.  Beside a ``model`` axis the shards are of this
+rank's slices, and the loss pair is reduced over the replica group as
+above.
 """
 from __future__ import annotations
 
@@ -270,7 +276,10 @@ def make_train_step(models: SeerModels,
         mesh = get_activation_mesh()
         if mesh is not None:
             loss, mse, grads = _reduce(mesh, loss, mse, grads)
-        return loss, mse, dict(zip(names, grads))
+        grads = dict(zip(names, grads))
+        if models.tensor_parallel is not None:
+            models.tensor_parallel.sum_partial(grads)
+        return loss, mse, grads
 
     def _sharded_loss_and_grads(plan, batch, noise, timesteps):
         """The sharded state's gradients: the replicated parameters'
@@ -285,9 +294,13 @@ def make_train_step(models: SeerModels,
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = {n: torch.zeros_like(p, dtype=torch.float32) if g is None
                  else g.float() for n, p, g in zip(names, params, grads)}
+        # summed over the data x seq ranks of this model index (the ranks
+        # of one model group hold one loss), a mean over data
         pair = torch.stack([loss.detach().float(), mse.detach().float()])
-        all_reduce_(pair)
+        all_reduce_(pair, plan.replica_group)
         pair /= plan.n
+        if models.tensor_parallel is not None:
+            models.tensor_parallel.sum_partial(grads)
         return pair[0], pair[1], plan.reduce_grads(grads)
 
     def _reduce(mesh, loss, mse, grads):

@@ -19,8 +19,8 @@ in ``tests/torch_tp_workers.py``), each rank holding its slices.
   (PAB caches the summed residual, ToMe and FreeU act on replicated
   tokens): 5-step loops under ``{model: 2}`` against one rank, rtol 1e-3
   (the bound of ``test_knobs_under_seq_match_one_rank``);
-- the config and mesh accept ``model``; ``zero1``, ``fsdp``, LoRA and
-  8-bit beside it are refused by name; serving and eval refuse any mesh.
+- the config and mesh accept ``model``, and ``zero1``, ``fsdp``, LoRA and
+  8-bit beside it; serving and eval refuse any mesh.
 """
 import jax
 import jax.numpy as jnp
@@ -291,11 +291,19 @@ def test_config_accepts_model_axis():
     ({"zero1": True}, "zero1"), ({"fsdp": True}, "fsdp"),
     ({"lora_rank": 4}, "lora_rank"), ({"use_8bit_adam": True},
                                       "use_8bit_adam")])
-def test_config_refuses_each_strategy_beside_model_axis(raw, name):
-    with pytest.raises(ValueError, match=name):
-        config_from_dict({"mesh_shape": {"data": 2, "model": 2}, **raw})
-    # each alone, or beside a model axis of one rank, is accepted
-    config_from_dict({"mesh_shape": {"data": 2, "model": 1}, **raw})
+def test_config_accepts_each_strategy_beside_model_axis(raw, name):
+    """Every training strategy the JAX entry places on any mesh is taken
+    beside a ``model`` axis of more than one rank (the train entry runs
+    them: ``tests/test_torch_tensor_parallel_strategies.py``); the JAX
+    entry's own checks still hold (LoRA with the reference scope only)."""
+    for shape in ({"data": 2, "model": 2}, {"model": 2},
+                  {"data": 2, "model": 1}):
+        cfg = config_from_dict({"mesh_shape": shape, **raw})
+        assert cfg.get(name) == raw[name] and cfg.mesh_shape == shape
+    if name == "lora_rank":
+        with pytest.raises(ValueError, match="trainable_scope"):
+            config_from_dict({"mesh_shape": {"data": 2, "model": 2}, **raw,
+                              "trainable_scope": "all"})
 
 
 @pytest.mark.parametrize("entry", ["serve", "eval"])

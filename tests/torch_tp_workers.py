@@ -295,3 +295,182 @@ def layout_case(rank):
             "replica_peers": [int(t) for t in all_gather(
                 me, mesh.replica_group())],
             "frames": mesh.frame_range(5)}
+
+
+# ------------------------------------- strategies beside the model axis
+
+def _by_name(d):
+    """Nested dicts of tensors as nested dicts of numpy arrays."""
+    if isinstance(d, dict):
+        return {k: _by_name(v) for k, v in d.items()}
+    return d.detach().cpu().numpy().copy() if torch.is_tensor(d) else d
+
+
+def strategy_run(sizes, jparams, batch, draws, case, mesh):
+    """One training run of ``case`` on this rank under ``mesh`` (None: one
+    rank alone): the reference scope from the JAX weights, then the
+    ``model`` cut, LoRA (``case["lora"]``: whole adapters by port key, cut
+    with their projections), the sharded state the JAX entry's decision
+    gives for ``zero1`` / ``fsdp``, AdamW (lr, eps, accumulation 2, EMA
+    0.9, 8-bit with ``use_8bit``), a restore (``(dir, step)``), then
+    ``steps`` micro-steps on this rank's rows with the draws after the
+    restored step; checkpoints at ``save`` (``{step: dir}``).  Returns the
+    losses, the clip's norms, the first micro-step's gradients joined
+    (``grads``), the adapters as drawn (joined) and the bytes this rank
+    holds."""
+    from seervideoldm_tpu_torch.io.checkpoint import CheckpointManager
+    from seervideoldm_tpu_torch.parallel.distributed import barrier_sync
+    from seervideoldm_tpu_torch.parallel.sharding import (decide_mode,
+                                                          param_bytes,
+                                                          shard_training)
+    from seervideoldm_tpu_torch.training import lora, optim, trainer
+
+    models = build(sizes, jparams, trainable_scope="reference")
+    set_activation_mesh(mesh)
+    tp = shard_tensor_parallel(models, mesh) if mesh is not None else None
+    out = {}
+    scale = 0.0
+    if case.get("lora"):
+        rank = next(iter(case["lora"].values())).shape[-1]
+        lora.enable_lora(models, rank, torch.Generator().manual_seed(7))
+        out["lora_draw"] = {k: whole(tp, lora.PREFIX + k,
+                                     t.detach()).numpy().copy()
+                            for k, t in models.lora.items()}
+        with torch.no_grad():
+            for k, t in models.lora.items():
+                src = _t(case["lora"][k])
+                t.copy_(tp.local(lora.PREFIX + k, src) if tp else src)
+        trainer.trainable_masters(models)
+        scale = case.get("lora_scale", 0.5)
+    n_data = mesh.axis_size("data") if mesh is not None else 1
+    mode, _ = decide_mode(case.get("zero1", False), case.get("fsdp", False),
+                          n_data)
+    plan = shard_training(models, mode, mesh, scale) if mode else None
+    params = plan.masters if plan is not None else models.masters
+    norm_fn = (plan.global_norm if plan is not None
+               else tp.global_norm_fn(list(params)) if tp is not None
+               else None)
+    opt, _ = optim.build_optimizer(
+        params, case["lr"], warmup_steps=0, total_steps=10,
+        accumulation_steps=2, eps=case["eps"],
+        max_grad_norm=case.get("max_grad_norm", 0.3),
+        use_8bit=case.get("use_8bit", False), norm_fn=norm_fn)
+    state = trainer.TrainState.create(opt, ema=True)
+    step = trainer.make_train_step(models, cond_frames=sizes["cond"],
+                                   ema_decay=0.9, lora_scale=scale)
+    first = 0
+    if case.get("restore"):
+        root, saved_step = case["restore"]
+        CheckpointManager(root, lora_scale=scale).restore(saved_step, state,
+                                                          models)
+        first = 2 * saved_step
+    rows = (mesh.batch_slice(batch["latents"].shape[0]) if mesh is not None
+            else slice(None))
+    local = {k: _t(v)[rows] for k, v in batch.items()}
+
+    def draw(d):
+        return _t(d["noise"])[rows], torch.as_tensor(d["ts"])[rows]
+
+    if case.get("grads"):
+        _, _, g = step.loss_and_grads(opt.names, local, *draw(draws[first]))
+        if plan is not None:
+            g = plan.to_names(g)
+        elif tp is not None:
+            g = {n: tp.whole(n, t) for n, t in g.items()}
+        out["grads"] = None if g is None else _by_name(g)
+    def save(root, at):
+        # every rank under a sharded or split state, else rank 0
+        if (mesh is None or plan is not None or tp is not None
+                or torch.distributed.get_rank() == 0):
+            CheckpointManager(root, lora_scale=scale).save(at, state, models)
+        if mesh is not None:
+            barrier_sync()
+
+    losses, norms = [], []
+    for i, d in enumerate(draws[first:first + case.get("steps", 4)]):
+        noise, ts = draw(d)
+        m = step(state, local, noise=noise, timesteps=ts)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        micro = first + i + 1
+        if micro % 2 == 0 and micro // 2 in case.get("save", {}):
+            save(case["save"][micro // 2], micro // 2)
+    for at, root in case.get("resave", {}).items():
+        save(root, at)      # the restored state written again, as it is
+    out.update(losses=losses, grad_norms=norms, mode=mode,
+               coords=dict(mesh.coords) if mesh is not None else {},
+               state_bytes=opt.state_bytes() + opt.acc_bytes() + sum(
+                   t.numel() * t.element_size() for t in state.ema.values()),
+               moment_bytes=opt.state_bytes(),
+               param_bytes=param_bytes(models),
+               master_bytes=sum(t.numel() * t.element_size()
+                                for t in opt.params),
+               largest_unit_bytes=(plan.largest_unit_bytes()
+                                   if plan is not None else 0),
+               trainable_local=sum(t.numel() for t in opt.params),
+               split_names={n: tuple(sp) for n, sp in (
+                   tp.splits.items() if tp is not None else ())},
+               partial_names=sorted(tp.partial) if tp is not None else [])
+    if tp is not None and plan is None:
+        out["keeps_blocks"] = {n: tp.keeps_blocks(n, t.shape)
+                               for n, t in models.masters.items()}
+    if case.get("keep_local"):
+        # this rank's 8-bit moments (or moments) as they lie
+        out["local_state"] = _by_name(opt.state_dict())
+        out["local_shapes"] = {n: tuple(t.shape)
+                               for n, t in models.masters.items()}
+    if plan is not None:
+        # this rank's share of the padding beyond an even split
+        pad = 0.0
+        for g, layout in plan.layouts.items():
+            size = plan.masters[g].element_size()
+            pad += (layout.total - sum(layout.numels)) / plan.n * size
+        out["pad_bytes"] = pad
+    set_activation_mesh(None)
+    return out
+
+
+def strategy_cases(rank, sizes, jparams, batch, draws, cases):
+    """Every case of ``cases`` in order, each under its ``mesh`` (a shape
+    over every rank, or None: rank 0 alone while the others wait).
+    Returns ``{case: [every rank's numbers]}`` on rank 0."""
+    from seervideoldm_tpu_torch.parallel.distributed import barrier_sync
+
+    out = {}
+    for name, case in cases.items():
+        if case["mesh"] is None:
+            row = (strategy_run(sizes, jparams, batch, draws, case, None)
+                   if rank == 0 else None)
+            barrier_sync()
+        else:
+            row = strategy_run(sizes, jparams, batch, draws, case,
+                               create_mesh(case["mesh"]))
+        out[name] = row
+    rows = _gather_objects(out)
+    return ({name: [r[name] for r in rows] for name in cases}
+            if rank == 0 else None)
+
+
+def _gather_objects(obj):
+    """Every rank's ``obj``, in rank order, on every rank."""
+    world = torch.distributed.get_world_size()
+    got = [None] * world
+    torch.distributed.all_gather_object(got, obj)
+    return got
+
+
+def entry_runs(rank, raws):
+    """The ``train`` entry on this rank for each config of ``raws`` in
+    turn, its printed lines captured."""
+    import contextlib
+    import io
+
+    from seervideoldm_tpu_torch.train import train
+
+    out = []
+    for raw in raws:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            summary = train(dict(raw), device="cpu")
+        out.append({"stdout": text.getvalue(), "summary": summary})
+    return out
