@@ -1,0 +1,6 @@
+"""attn_roofline.serve: the CrossAttention and WindowTemporalAttention sites' roofline bound over their kernels' device time, %."""
+from seerbench import readings
+
+
+def read(record):
+    return readings.roofline(record, "attn")

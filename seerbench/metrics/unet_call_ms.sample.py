@@ -1,0 +1,6 @@
+"""unet_call_ms.sample: CUDA-event ms per UNet forward in the window."""
+from seerbench import readings
+
+
+def read(record):
+    return readings.mean_ms(record, "unet_ms")
