@@ -1,0 +1,6 @@
+"""resnet_bwd_ms.train: CUDA-event ms of the program's ``site.resnet.bwd`` spans (the resnet sites' backward) summed, per micro-step of the profiled step."""
+from seerbench import program_spans
+
+
+def read(record):
+    return program_spans.backward_ms("resnet")

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..parallel.collectives import all_reduce_
+from ..utils import profiling
 from .pab import mode_to_flags
 from .schedules import DDIMTables
 
@@ -96,10 +97,14 @@ def make_eps_fn(unet_apply: UNetApply, context: torch.Tensor,
         out = guidance_rescale * rescaled + (1.0 - guidance_rescale) * e_t32
         return out.to(e_t.dtype)
 
+    meter = profiling.unet_meter(context.device)
+
     def call(x, ts, ctx, flags):
-        if pab_cache is None:
-            return unet_apply(x, ts, ctx)[:, cond_f:]
-        return unet_apply(x, ts, ctx, pab=flags, pab_cache=pab_cache)[:, cond_f:]
+        with meter:
+            if pab_cache is None:
+                return unet_apply(x, ts, ctx)[:, cond_f:]
+            return unet_apply(x, ts, ctx, pab=flags,
+                              pab_cache=pab_cache)[:, cond_f:]
 
     def eps(img: torch.Tensor, t: int, pab_flags: Optional[dict] = None):
         x_cat = img if x0_emb is None else torch.cat([x0_emb, img], dim=1)
@@ -167,25 +172,26 @@ def ddim_sample_loop(unet_apply: UNetApply, x_T: torch.Tensor,
                          cache, group)
     img = x_T
     for i, t in enumerate(tables.timesteps.tolist()):
-        a_t, a_prev = tables.alphas[i], tables.alphas_prev[i]
-        sigma, sqrt_1m = tables.sigmas[i], tables.sqrt_one_minus_alphas[i]
-        e_t = eps_fn(img, t, flags[i])
-        img32 = img.float()
-        sqrt_a = float(np.sqrt(a_t))
-        if prediction_type == "v_prediction":
-            v_t = e_t
-            e_t = sqrt_a * v_t + float(sqrt_1m) * img32
-            pred_x0 = sqrt_a * img32 - float(sqrt_1m) * v_t
-        else:
-            pred_x0 = (img32 - float(sqrt_1m) * e_t) / sqrt_a
-        c_dir = np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma ** 2,
-                                   np.float32(0.0)))
-        x_prev = float(np.sqrt(a_prev)) * pred_x0 + float(c_dir) * e_t
-        if eta_generator is not None:
-            noise = torch.randn(img.shape, generator=eta_generator,
-                                device=img.device, dtype=torch.float32)
-            x_prev = x_prev + float(sigma * np.float32(temperature)) * noise
-        img = x_prev.to(x_T.dtype)
+        with profiling.span("ddim.step", step=i):
+            a_t, a_prev = tables.alphas[i], tables.alphas_prev[i]
+            sigma, sqrt_1m = tables.sigmas[i], tables.sqrt_one_minus_alphas[i]
+            e_t = eps_fn(img, t, flags[i])
+            img32 = img.float()
+            sqrt_a = float(np.sqrt(a_t))
+            if prediction_type == "v_prediction":
+                v_t = e_t
+                e_t = sqrt_a * v_t + float(sqrt_1m) * img32
+                pred_x0 = sqrt_a * img32 - float(sqrt_1m) * v_t
+            else:
+                pred_x0 = (img32 - float(sqrt_1m) * e_t) / sqrt_a
+            c_dir = np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma ** 2,
+                                       np.float32(0.0)))
+            x_prev = float(np.sqrt(a_prev)) * pred_x0 + float(c_dir) * e_t
+            if eta_generator is not None:
+                noise = torch.randn(img.shape, generator=eta_generator,
+                                    device=img.device, dtype=torch.float32)
+                x_prev = x_prev + float(sigma * np.float32(temperature)) * noise
+            img = x_prev.to(x_T.dtype)
     return img
 
 

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .ddim import UNetApply, check_prediction, make_eps_fn, pab_steps
 from .schedules import DDIMTables
 
@@ -58,27 +59,28 @@ def dpm_solver_sample_loop(unet_apply: UNetApply, x_T: torch.Tensor,
     img = x_T
     x0_prev, h_prev = None, np.float32(1.0)
     for i, t in enumerate(tables.timesteps.tolist()):
-        a_t, a_prev = tables.alphas[i], tables.alphas_prev[i]
-        e_t = eps_fn(img, t, flags[i])
-        img32 = img.float()
-        alpha_t, sigma_t = np.sqrt(a_t), np.sqrt(np.float32(1.0) - a_t)
-        alpha_s, sigma_s = np.sqrt(a_prev), np.sqrt(np.float32(1.0) - a_prev)
-        if prediction_type == "v_prediction":
-            x0 = float(alpha_t) * img32 - float(sigma_t) * e_t
-        else:
-            x0 = (img32 - float(sigma_t) * e_t) / float(alpha_t)
-        h = _lam(a_prev) - _lam(a_t)
-        d = x0
-        if order == 2:
-            degenerate = h == 0.0 or h_prev <= 0.0
-            first = (i == 0 or degenerate
-                     or (lower_order_final and i == num_steps - 1))
-            if not first:
-                r = h_prev / h
-                d = x0 + (x0 - x0_prev) / float(np.float32(2.0) * r)
-        with np.errstate(over="ignore"):
-            c_img = sigma_s / sigma_t
-            c_d = alpha_s * np.expm1(-h)
-        img = (float(c_img) * img32 - float(c_d) * d).to(x_T.dtype)
-        x0_prev, h_prev = x0, h
+        with profiling.span("dpm.step", step=i):
+            a_t, a_prev = tables.alphas[i], tables.alphas_prev[i]
+            e_t = eps_fn(img, t, flags[i])
+            img32 = img.float()
+            alpha_t, sigma_t = np.sqrt(a_t), np.sqrt(np.float32(1.0) - a_t)
+            alpha_s, sigma_s = np.sqrt(a_prev), np.sqrt(np.float32(1.0) - a_prev)
+            if prediction_type == "v_prediction":
+                x0 = float(alpha_t) * img32 - float(sigma_t) * e_t
+            else:
+                x0 = (img32 - float(sigma_t) * e_t) / float(alpha_t)
+            h = _lam(a_prev) - _lam(a_t)
+            d = x0
+            if order == 2:
+                degenerate = h == 0.0 or h_prev <= 0.0
+                first = (i == 0 or degenerate
+                         or (lower_order_final and i == num_steps - 1))
+                if not first:
+                    r = h_prev / h
+                    d = x0 + (x0 - x0_prev) / float(np.float32(2.0) * r)
+            with np.errstate(over="ignore"):
+                c_img = sigma_s / sigma_t
+                c_d = alpha_s * np.expm1(-h)
+            img = (float(c_img) * img32 - float(c_d) * d).to(x_T.dtype)
+            x0_prev, h_prev = x0, h
     return img

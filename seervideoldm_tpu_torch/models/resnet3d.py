@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import InflatedConv
 from ..ops.norms import GroupNorm
+from ..utils import profiling
 
 
 class Upsample3D(nn.Module):
@@ -72,6 +73,7 @@ class ResnetBlock3D(nn.Module):
         self.conv_shortcut = (InflatedConv(in_channels, out_ch, 1)
                               if in_channels != out_ch else None)
 
+    @profiling.site("resnet")
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))

@@ -70,6 +70,7 @@ from ..ops.norms import GroupNorm, LayerNorm
 from ..ops.tome import bipartite_soft_matching_2d
 from ..parallel.activation import FrameShard, model_group
 from ..parallel.collectives import copy_to_model, row_parallel_linear
+from ..utils import profiling
 
 
 def pab_residual(pab, key: str, kind: str, compute_fn) -> torch.Tensor:
@@ -77,12 +78,14 @@ def pab_residual(pab, key: str, kind: str, compute_fn) -> torch.Tensor:
     this step's flag for ``kind`` says so, else computed and stored."""
     flags, cache = pab
     if flags[kind]:
+        profiling.count(f"pab.reused.{kind}")
         if key not in cache:
             raise ValueError(
                 f"PAB cache read before it was written ({key}): the first "
                 "sampler step must use the all-compute mode so every "
                 "attention site stores its delta before any step reuses it")
         return cache[key]
+    profiling.count(f"pab.computed.{kind}")
     delta = compute_fn()
     cache[key] = delta
     return delta
@@ -115,6 +118,7 @@ class FeedForward(nn.Module):
         return (self.net[0].proj.weight, self.net[0].proj.bias,
                 self.net[2].weight, self.net[2].bias)
 
+    @profiling.site("ff")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp_group is not None:
             hidden = self.net[0](copy_to_model(x, self.tp_group))
@@ -128,6 +132,7 @@ class FeedForward(nn.Module):
         return feed_forward(x, *self.weights())
 
 
+@profiling.site("ff")
 def ln_ff_residual(norm: LayerNorm, ff: FeedForward,
                    x: torch.Tensor) -> torch.Tensor:
     """``x + ff(norm(x))``; LN prologue and residual epilogue fused into the
@@ -141,6 +146,7 @@ def ln_ff_residual(norm: LayerNorm, ff: FeedForward,
     return ff(norm(x)) + x
 
 
+@profiling.site("ff")
 def ln_ff_proj_residual(norm: LayerNorm, ff: FeedForward, x: torch.Tensor,
                         proj_out: InflatedConv, res: torch.Tensor) -> torch.Tensor:
     """``res + proj_out(x + ff(norm(x)))`` as one kernel (the caller has

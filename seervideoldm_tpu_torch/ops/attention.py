@@ -52,6 +52,7 @@ from .kernels.swat_attention import swat_attention, swat_attention_tables
 from .ring import ring_attention_applicable, ring_window_attention
 from .rotary import apply_rotary, inv_freq, rotary_freqs, rotary_tables
 from .windows import select_window_size, window_partition, window_reverse
+from ..utils import profiling
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -154,6 +155,7 @@ class CrossAttention(nn.Module):
             self.rotary_emb = RotaryEmbedding(min(32, dim_head))
         self.site = ""  # qualified name, the key of its attention maps
 
+    @profiling.site("attn")
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 attention_slice: Optional[int] = None,
@@ -217,6 +219,7 @@ class WindowTemporalAttention(nn.Module):
         self.to_out = _out_proj(inner, query_dim)
         self.rotary_emb = RotaryEmbedding(min(32, dim_head))
 
+    @profiling.site("attn")
     def forward(self, x: torch.Tensor,
                 frames: Optional[FrameShard] = None) -> torch.Tensor:
         b, f, h, w, c = x.shape

@@ -48,6 +48,7 @@ from ..parallel.activation import (frame_local, frame_shard,
                                    get_activation_mesh)
 from ..parallel.collectives import all_gather_cat, group_size
 from ..training.optim import trainable_names
+from ..utils import profiling
 from ..utils.device import cast_for_compute, resolve_device
 
 
@@ -174,15 +175,18 @@ class SeerPipeline:
                                device=self.device, dtype=dtype)
 
     @torch.no_grad()
+    @profiling.span("pipe.encode_text", events=True)
     def encode_text(self, input_ids, attention_mask) -> torch.Tensor:
         return self.m.clip(self._tensor(input_ids, torch.long),
                            self._tensor(attention_mask, torch.long))
 
     @torch.no_grad()
+    @profiling.span("pipe.fstext", events=True)
     def fstext(self, clip_emb: torch.Tensor) -> torch.Tensor:
         return self.m.fstext(clip_emb)
 
     @torch.no_grad()
+    @profiling.span("pipe.vae_encode", events=True)
     def vae_encode_video(self, video: torch.Tensor,
                          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(b, f, h, w, 3) in [-1, 1] -> (b, f, h/8, w/8, 4) scaled
@@ -200,6 +204,7 @@ class SeerPipeline:
         return z.reshape(b, f, *z.shape[1:])
 
     @torch.no_grad()
+    @profiling.span("pipe.vae_decode", events=True)
     def vae_decode_video(self, latents: torch.Tensor) -> torch.Tensor:
         """(b, f, h', w', 4) scaled latents -> (b, f, h, w, 3) in [0, 1]."""
         return frame_local(self._decode, latents)
@@ -234,6 +239,7 @@ class SeerPipeline:
         return all_gather_cat(img, shard.group, 1, future)
 
     @torch.no_grad()
+    @profiling.span("pipe.sample", events=True)
     def sample_latents(self, x_T: torch.Tensor, x0_emb: torch.Tensor,
                        context: torch.Tensor,
                        uncond_context: Optional[torch.Tensor] = None,
@@ -303,6 +309,7 @@ class SeerPipeline:
                                       *uncond.shape[1:])
 
     @torch.no_grad()
+    @profiling.pipeline_call("pipe.edit")
     def edit(self, video, input_ids, attention_mask, uncond_ids, uncond_mask,
              cond_frames: int, edit_strength: float,
              generator: torch.Generator, ddim_steps: int = 30,
@@ -353,6 +360,7 @@ class SeerPipeline:
         return self._gather_rows(self.vae_decode_video(edited), data)
 
     @torch.no_grad()
+    @profiling.pipeline_call("pipe.generate")
     def generate(self, cond_video, input_ids, attention_mask, uncond_ids,
                  uncond_mask, num_frames: int, generator: torch.Generator,
                  ddim_steps: int = 30, guidance_scale: float = 7.5,
@@ -372,6 +380,7 @@ class SeerPipeline:
             guidance_scale=guidance_scale, **knobs)
 
     @torch.no_grad()
+    @profiling.pipeline_call("pipe.rollout")
     def generate_rollout(self, cond_video, prompts_tok: list, uncond_ids,
                          uncond_mask, num_frames: int, total_frames: int,
                          generator: torch.Generator, ddim_steps: int = 30,

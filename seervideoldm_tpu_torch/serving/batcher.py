@@ -21,6 +21,8 @@ import threading
 from concurrent.futures import Future
 from typing import Any, Callable, Sequence
 
+from ..utils import profiling
+
 
 class BatcherOverloaded(RuntimeError):
     """Raised by submit() when the admission queue is full — callers should
@@ -57,9 +59,14 @@ class DynamicBatcher:
         # and its Future would never resolve
         self._lifecycle = threading.Lock()
         # telemetry: batch-size distribution is the signal for tuning
-        # max_batch/max_wait against real traffic
+        # max_batch/max_wait against real traffic; refusals and failed
+        # batches say when the queue or the handler gave out
         self.batches = 0
         self.requests = 0
+        self.refused = 0
+        self.failed_batches = 0
+        profiling.register_counters("serve", self, "batches", "requests",
+                                    "refused", "failed_batches")
         # on_idle must not raise: it runs on the worker, between batches
         self._idle_s = idle_s if on_idle is not None else None
         self._on_idle = on_idle
@@ -97,6 +104,7 @@ class DynamicBatcher:
             try:
                 self._q.put_nowait((item, fut))
             except queue.Full:
+                self.refused += 1
                 raise BatcherOverloaded(
                     f"queue full ({self._q.maxsize} pending)") from None
         return fut
@@ -157,6 +165,7 @@ class DynamicBatcher:
                         f"{len(items)} requests"
                     )
             except Exception as exc:  # noqa: BLE001 — propagate to callers
+                self.failed_batches += 1
                 for f in futures:
                     f.set_exception(exc)
                 continue

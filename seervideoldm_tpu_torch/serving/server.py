@@ -11,6 +11,15 @@ the standard library's ``ThreadingHTTPServer``.
 API:
   GET  /healthz             -> {"ok": true, "batches": N, "requests": M,
                                 "latency_p50_s": ..., "latency_p95_s": ...}
+      batches / requests: the batches the batcher formed and the requests
+      they carried; latency_p50_s / p95_s: over this service's completed
+      ``serve.request`` spans still in the tracer's ring, submission to
+      video.  Beside them, ``utils.profiling.counters()`` reads the
+      serving counters where they are kept: ``serve.batches``,
+      ``serve.requests``, ``serve.refused`` (requests refused as
+      ``BatcherOverloaded``, 503), ``serve.failed_batches`` (batches whose
+      handler raised, 500) and ``serve.padded_rows`` (rows added to fill
+      ``max_batch``, the warm-up's included).
   POST /generate            body: {"prompt": str, "image": base64 png/jpeg,
                                    "negative_prompt": str (optional)}
                             -> image/gif (cond frames + generated frames)
@@ -30,6 +39,13 @@ same.)
 The batch runs on the batcher's worker thread, under ``torch.no_grad()``
 and on the pipeline's own device.  An error there (a kernel's included)
 reaches every request of its batch, which the HTTP layer answers with 500.
+
+Spans (``utils/profiling.py``): each request's ``serve.request``
+(submission to result, on the client's thread) and ``serve.queue``
+(submission to the start of its batch's handler call), each batch's
+``serve.batch`` (the handler call: the batch counter, real and padded
+rows, the request ids), under a mesh ``serve.broadcast``, and
+``pipe.copy_out`` (the videos to the host).
 
 Under a mesh (several ranks, ``parallel.distributed``) rank 0 is the front
 end and the other ranks follow (``follow``).  Rank 0's worker thread
@@ -58,12 +74,11 @@ import base64
 import contextlib
 import functools
 import io
+import itertools
 import json
 import sys
 import threading
-import time
 import traceback
-from collections import deque
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
@@ -74,6 +89,7 @@ import torch
 from ..data.transforms import image_to_model_input
 from ..parallel.collectives import all_reduce_, broadcast_arrays, to_transport
 from ..parallel.distributed import rank, world_size
+from ..utils import profiling
 from ..utils.viz import gif_bytes
 from .batcher import BatcherOverloaded, DynamicBatcher
 
@@ -83,6 +99,10 @@ MAX_BODY_BYTES = 32 * 1024 * 1024
 # next header would otherwise run into on an idle server
 HEARTBEAT_S = 10.0
 OP_BATCH, OP_IDLE, OP_STOP = 1, 2, 3
+# request ids (every service's, so that a span names one request) and
+# service ids (a service's spans among others')
+_request_ids = itertools.count()
+_service_ids = itertools.count()
 
 
 @dataclass
@@ -92,6 +112,8 @@ class GenRequest:
     # the classifier-free guidance's negative direction: the uncond CLIP
     # embedding comes from this text instead of ""
     negative_prompt: str = ""
+    request_id: int = -1
+    submitted: Optional[int] = None  # profiling.now() at submission
 
 
 def batch_seed(seed: int, counter: int) -> int:
@@ -128,8 +150,9 @@ class GenerationService:
         self.seed = int(seed)
         self._counter = 0
         self._lock = threading.Lock()
-        # end-to-end request latency (queue wait + sampling), last 256
-        self._latencies: deque = deque(maxlen=256)
+        self._id = next(_service_ids)
+        self.padded_rows = 0
+        profiling.register_counters("serve", self, "padded_rows")
         self._tok_uc = tokenizer([""] * max_batch)
         self.ranks = world_size()
         # under a mesh: the error that put the ranks out of step, and what
@@ -165,15 +188,19 @@ class GenerationService:
         """As ``generate`` with a preprocessed (res, res, 3) [-1, 1] image,
         so the HTTP layer decodes the image in its own error class (a bad
         image is the client's 400, not a 500)."""
-        req = GenRequest(prompt=prompt, image=image,
-                         negative_prompt=negative_prompt)
-        t0 = time.monotonic()
-        result = self.batcher.submit(req).result(timeout=timeout_s)
-        self._latencies.append(time.monotonic() - t0)
-        return result
+        rid = next(_request_ids)
+        with profiling.coarse("serve.request", service=self._id,
+                              request=rid) as rec:
+            req = GenRequest(prompt=prompt, image=image,
+                             negative_prompt=negative_prompt, request_id=rid,
+                             submitted=rec.start)
+            return self.batcher.submit(req).result(timeout=timeout_s)
 
     def stats(self) -> dict:
-        lat = sorted(self._latencies)
+        lat = sorted((r["end"] - r["start"]) / 1e9
+                     for r in profiling.spans("serve.request")
+                     if r["ids"]["service"] == self._id
+                     and "error" not in r["ids"])
 
         def pct(p):
             return round(lat[min(len(lat) - 1, int(p * len(lat)))], 3)
@@ -195,17 +222,28 @@ class GenerationService:
         if self.failed is not None or self._stopped:
             raise RuntimeError("the service has stopped" if self._stopped
                                else f"the service failed: {self.failed!r}")
-        with torch.no_grad(), self._on_device():
+        start = profiling.now()
+        for r in reqs:
+            if r.submitted is not None:
+                profiling.record("serve.queue", r.submitted, start,
+                                 request=r.request_id)
+        pad = self.max_batch - len(reqs)
+        self.padded_rows += pad
+        with profiling.coarse("serve.batch", rows=len(reqs), padded=pad,
+                              requests=[r.request_id for r in reqs]), \
+                torch.no_grad(), self._on_device():
             return self._sample(reqs)
 
     def _sample(self, reqs) -> list:
         n = len(reqs)
         msg = self._pack(reqs)
+        profiling.tag(batch=int(msg[0][1]))
         if self.ranks == 1:
             videos = self._run(msg)
         else:
             try:
-                broadcast_arrays(msg)
+                with profiling.span("serve.broadcast"):
+                    broadcast_arrays(msg)
                 videos = self._run(msg)
                 _all_done()
             except BaseException as exc:
@@ -268,7 +306,8 @@ class GenerationService:
         else:
             videos = self.pipe.generate(cond, toks[0], toks[1], uc_ids,
                                         uc_mask, **common)
-        return videos.float().cpu().numpy()
+        with profiling.span("pipe.copy_out", events=True):
+            return videos.float().cpu().numpy()
 
     def warmup(self) -> None:
         """One padded batch before the server listens, on the worker thread

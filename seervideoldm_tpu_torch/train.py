@@ -49,7 +49,10 @@ rank's codes), and ``zero1`` / ``fsdp`` shard a rank's parts over
 
 ``train(cfg, device)`` is the same loop as a Python API; it returns a
 summary dict (steps taken, seconds per optimizer step, losses, the
-checkpoint's path).
+checkpoint's path).  Spans (``utils/profiling.py``): ``train.step``, always
+on, one per optimizer step, data loading included (its host time is the
+summary's ``step_seconds``), and ``train.loader`` around each fetch from
+the loader (detailed tier).
 """
 from __future__ import annotations
 
@@ -77,9 +80,22 @@ from .training.lora import enable_lora, lora_scale, param_count
 from .training.optim import build_optimizer
 from .training.trainer import (TrainState, make_train_step, prepare_batch_fn,
                                trainable_masters)
+from .utils import profiling
 from .utils.device import set_numerics
 
 LOG_EVERY = 50
+_END = object()
+
+
+def _fetched(loader):
+    """The loader's batches, each fetch a ``train.loader`` span."""
+    batches = iter(loader)
+    while True:
+        with profiling.span("train.loader"):
+            item = next(batches, _END)
+        if item is _END:
+            return
+        yield item
 
 
 def _write_sidecar(cfg: Config, global_step: int, epoch: int,
@@ -232,33 +248,18 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                   "the start")
         resume_skip = 0
 
-    pending: list = []        # (step, window-mean loss, grad norm, start, end)
+    pending: list = []        # (step, window-mean loss, grad norm)
     window_losses: list = []  # micro-step losses of the current window
-    step_seconds: list = []   # per optimizer step, data loading included
-
-    def mark():
-        """A point in time that costs the device no wait: a CUDA event on
-        the current stream, the host clock on the CPU."""
-        if dev.type != "cuda":
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    def seconds_between(start, end) -> float:
-        if dev.type != "cuda":
-            return end - start
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
+    # per optimizer step, data loading included: the ``train.step`` spans'
+    # host time
+    step_seconds: list = []
 
     def flush_pending() -> None:
-        # device scalars and step times are fetched in batches, not once
-        # per step
-        for gs, dev_loss, dev_gnorm, start, end in pending:
+        # device scalars are fetched in batches, not once per step
+        for gs, dev_loss, dev_gnorm in pending:
             loss, lr = float(dev_loss), float(schedule_fn(gs))
             losses_train.update(loss, gs)
             lr_meter.update(lr, gs)
-            step_seconds.append(seconds_between(start, end))
             if writer is not None:
                 writer.add_scalar("loss", loss, gs)
                 writer.add_scalar("lr", lr, gs)
@@ -277,7 +278,7 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
         barrier_sync()
 
     log_time = time.time()
-    step_start = mark()
+    step_start = profiling.now()
     epoch = start_epoch
     done = global_step >= int(cfg.max_train_steps)
     for epoch in range(start_epoch, int(cfg.num_train_epochs)):
@@ -285,7 +286,7 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
             break
         loader.set_epoch(epoch,
                          skip_batches=resume_skip if epoch == start_epoch else 0)
-        for videos, prompts in loader:
+        for videos, prompts in _fetched(loader):
             tok = tokenizer(prompts)
             reseed(prep_gen, 0)
             reseed(step_gen, 1)
@@ -303,10 +304,12 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
             if mesh.size > 1 and replicas and mesh.replicas > 1:
                 # the ranks of one model index hold the same slices
                 assert_replicas_equal(replicas, group=mesh.replica_group())
-            step_end = mark()
+            step = profiling.record("train.step", step_start,
+                                    step=global_step)
+            step_seconds.append((step.end - step.start) / 1e9)
             pending.append((global_step, torch.stack(window_losses).mean(),
-                            metrics["grad_norm"], step_start, step_end))
-            step_start = step_end
+                            metrics["grad_norm"]))
+            step_start = step.end
             window_losses = []
             if len(pending) >= 10 or global_step % int(cfg.save_steps) == 0:
                 flush_pending()
@@ -320,7 +323,8 @@ def train(cfg: Union[Config, dict], device=None) -> dict:
                       flush=True)
             if global_step % int(cfg.save_steps) == 0:
                 save(epoch)
-                step_start = mark()  # a save is not part of the next step
+                # a save is not part of the next step
+                step_start = profiling.now()
             if global_step >= int(cfg.max_train_steps):
                 done = True
                 break

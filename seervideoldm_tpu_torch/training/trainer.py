@@ -17,6 +17,13 @@ One micro-step follows the reference hot loop:
 VAE and CLIP encoding is a separate ``prepare`` function under
 ``no_grad``: those models are frozen.
 
+Spans (``utils/profiling.py``, detailed tier): ``train.prepare``,
+``train.forward`` (the loss), ``train.backward`` (the ``torch.autograd``
+call, the parent of the sites' backward spans), ``train.optimizer``
+(``Optimizer.update``), each with CUDA events, and ``train.sync`` (the
+compute copies and the EMA after a sync step); ``train.optimizer``'s id
+``micro`` is the state's micro-step count.
+
 Under a registered mesh (``parallel.activation``): each ``data`` rank holds
 its own batch, and the trainable gradients are averaged over ``data``.
 Under ``seq`` every rank of a replica holds the whole batch and noise, the
@@ -75,6 +82,7 @@ from ..parallel.activation import (frame_local, frame_shard,
                                    get_activation_mesh)
 from ..parallel.collectives import all_reduce_
 from ..pipelines.text_video import SeerModels
+from ..utils import profiling
 from .lora import lora_applied
 from .optim import Optimizer
 
@@ -139,6 +147,7 @@ def prepare_batch_fn(models: SeerModels, sample_posterior: bool = True,
     down = 2 ** (len(vcfg.block_out_channels) - 1)
 
     @torch.no_grad()
+    @profiling.span("train.prepare", events=True)
     def prepare(video, input_ids, attention_mask, cond_frames: int,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None) -> dict:
@@ -252,6 +261,14 @@ def make_train_step(models: SeerModels,
             loss = mse
         return loss + loss_text / len(shard.counts), mse
 
+    def _differentiate(params, batch, noise, timesteps):
+        """The loss pair and its gradients with respect to ``params``."""
+        with profiling.span("train.forward", events=True):
+            loss, mse = loss_fn(batch, noise, timesteps)
+        with profiling.span("train.backward", events=True, autograd=True):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss, mse, grads
+
     def loss_and_grads(names, batch, noise, timesteps):
         """``(loss, mse, {name: fp32 gradient})``: under a mesh the global
         values, the gradients reduced over every rank; under a sharded
@@ -266,8 +283,8 @@ def make_train_step(models: SeerModels,
         # the adapted weights stay in place through the backward, where a
         # remat block recomputes its forward
         with torch.enable_grad(), adapted:
-            loss, mse = loss_fn(batch, noise, timesteps)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            loss, mse, grads = _differentiate(params, batch, noise,
+                                              timesteps)
         # the master's gradient is the compute copy's, cast to fp32; a
         # parameter the loss does not reach gets zeros
         grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
@@ -290,8 +307,8 @@ def make_train_step(models: SeerModels,
                    if lora_scale > 0.0 and plan.mode == "zero1"
                    else contextlib.nullcontext())
         with torch.enable_grad(), adapted, plan.training_pass():
-            loss, mse = loss_fn(batch, noise, timesteps)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            loss, mse, grads = _differentiate(params, batch, noise,
+                                              timesteps)
         grads = {n: torch.zeros_like(p, dtype=torch.float32) if g is None
                  else g.float() for n, p, g in zip(names, params, grads)}
         # summed over the data x seq ranks of this model index (the ranks
@@ -337,22 +354,24 @@ def make_train_step(models: SeerModels,
 
         loss, mse, grads = loss_and_grads(state.optimizer.names, batch, noise,
                                           timesteps)
-        did_sync, gnorm = state.optimizer.update(grads)
+        with profiling.span("train.optimizer", events=True, micro=state.step):
+            did_sync, gnorm = state.optimizer.update(grads)
         state.step += 1
         if did_sync:
-            if models.sharding is not None:
-                models.sharding.after_step(models)
-            else:
-                sync_compute_copies(models)
-            if ema_decay > 0.0:
-                # LitEma warmup; advances only when the weights changed
-                n = state.optimizer.count
-                d = min(ema_decay, (1.0 + n) / (10.0 + n))
-                with torch.no_grad():
-                    ema = [state.ema[k] for k in state.optimizer.names]
-                    torch._foreach_mul_(ema, d)
-                    torch._foreach_add_(ema, state.optimizer.params,
-                                        alpha=1.0 - d)
+            with profiling.span("train.sync"):
+                if models.sharding is not None:
+                    models.sharding.after_step(models)
+                else:
+                    sync_compute_copies(models)
+                if ema_decay > 0.0:
+                    # LitEma warmup; advances only when the weights changed
+                    n = state.optimizer.count
+                    d = min(ema_decay, (1.0 + n) / (10.0 + n))
+                    with torch.no_grad():
+                        ema = [state.ema[k] for k in state.optimizer.names]
+                        torch._foreach_mul_(ema, d)
+                        torch._foreach_add_(ema, state.optimizer.params,
+                                            alpha=1.0 - d)
         return {"loss": loss, "grad_norm": gnorm, "mse": mse,
                 "did_sync": did_sync}
 

@@ -1,7 +1,7 @@
-"""``seervideoldm_tpu_torch/utils/profiling.py`` on the CPU: the JAX module's
-interface (``trace``, ``annotate``, ``StepTimer``, NaN checks) over
-``torch.profiler`` and module hooks.  Device time (``kernel_ms``) exists
-only with a card: here it is None."""
+"""``seervideoldm_tpu_torch/utils/profiling.py`` on the CPU: ``trace`` with a
+``span`` inside it, and the NaN checks, over ``torch.profiler`` and module
+hooks.  Device time (``kernel_ms``) exists only with a card: here it is
+None.  The tracer itself: ``test_torch_tracing.py``."""
 import json
 import os
 
@@ -13,23 +13,20 @@ from seervideoldm_tpu_torch.utils import profiling
 
 
 def test_trace_and_annotate_write_a_named_region(tmp_path):
+    """A ``span`` inside ``trace`` is a named region of the trace (and a
+    record of the tracer); the kernel table and the idle gaps are
+    written beside it."""
+    profiling.reset()
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("floor_budget_region"):
+        with profiling.span("pipe.floor_budget_region"):
             torch.randn(64, 64) @ torch.randn(64, 64)
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "floor_budget_region" in names
+    assert "pipe.floor_budget_region" in names
+    assert [s["name"] for s in profiling.spans()] == ["pipe.floor_budget_region"]
     assert os.path.getsize(tmp_path / "kernels.txt") > 0
-
-
-def test_step_timer_summary_keys():
-    timer = profiling.StepTimer(skip_first=1)
-    for _ in range(3):
-        with timer:
-            torch.randn(32, 32).sum()
-    summary = timer.summary()
-    assert set(summary) == {"steps", "mean_s", "p50_s", "p95_s"}
-    assert summary["steps"] == 3 and summary["mean_s"] >= 0.0
+    assert (tmp_path / "idle.txt").is_file()
+    profiling.reset()
 
 
 def test_kernel_ms_without_a_card():
