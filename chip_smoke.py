@@ -10,7 +10,7 @@ no result line):
 
 1. device: CUDA present, compute capability (9, 0); prints the card's name
    and power limit as nvidia-smi reports them;
-2. build: compiles the four CUDA sources under ``seervideoldm_tpu_torch/
+2. build: compiles the five CUDA sources under ``seervideoldm_tpu_torch/
    csrc`` with nvcc for sm_90a, all at once, and prints the build time,
    each kernel's registers and spills (``-Xptxas -v``) and the shared
    memory a CTA of the attention forward and of the attention backward's
@@ -47,7 +47,16 @@ no result line):
    40), K2 (96, 1024, 40), K3 / K4 (12288, 320), K5 (3072, 640); then the
    serving path's (path ``serving``: ``configs/serve.yaml``'s batch of 4,
    CFG batch 8, no gradient), K1 (64, 12, 32, 32, 40), K2 (768, 1024,
-   40), K3 / K4 (98304, 320), K5 (24576, 640);
+   40), K3 / K4 (98304, 320), K5 (24576, 640); last K11 (GroupNorm, SiLU
+   on or off) at the serving path's UNet levels 0 and 2, the VAE
+   decoder's top level, the sampling path's UNet shapes (CFG batch 2, every
+   channel count of a UNet call), the training path's (batch 1, under
+   autograd through ``GroupNormFn``) and odd shapes, each held to its
+   plain halves by ``ops/kernels/group_norm.py::check_against_plain`` (the
+   moments against fp64, the apply kernel bit for bit on the kernel's own
+   moments, each output within one bf16 ulp of the normalised value before
+   the SiLU), the training rows' gradients also equal to autograd's
+   through the plain halves (``check_gradients_against_plain``);
 4. reference: one SeerUNet call at narrow widths (64/128) and the main
    path's 256 px / 12 frame / CFG-batch-2 shapes, bf16 with the kernels on
    the card against the port's plain path in fp32 on the CPU, same weights
@@ -62,7 +71,8 @@ no result line):
    1280), 256 px, 12 frames, 2 cond frames, CFG 7.5, random weights from a
    seed, 30 DDIM steps (the shipped config's count); launch counts are
    zeroed just before and read just after, and every kernel must have run
-   its count per step x steps;
+   its count per step x steps, K11 (GroupNorm) ``GN_PER_UNET_CALL`` times
+   inside each UNet call and more around them (the VAE's norms);
    checks the frames (finite, (1, 10, 256, 256, 3), in [0, 1]);
 6b. sampling knobs, on phase 6's pipeline after a narrow-width reference
    (SeerUNet 64/128 at the main path's shapes, as phase 4: one call in a
@@ -158,8 +168,10 @@ no result line):
    synthetic Something-Something-v2 tree written from a numpy seed to a
    temporary directory: 256 px, 12 frames, 2 cond frames, batch 1,
    accumulation 2 (the shipped ``configs/train.yaml`` values) with
-   ``text_loss`` on, 4 optimizer steps; launch counts zeroed just before and read just after, each
-   kernel must have run its count per micro-step; losses finite; read back
+   ``text_loss`` on, 4 optimizer steps; launch counts zeroed just before
+   and read just after, each kernel must have run its count per
+   micro-step, K11 ``GN_PER_UNET_CALL`` times inside each micro-step's
+   UNet call; losses finite; read back
    from the checkpoint it wrote, every trainable fp32 master moved and
    every frozen SeerUNet / FSText weight equals its seeded initial value;
    the checkpoint is loaded and sampled for a few DDIM steps;
@@ -405,6 +417,9 @@ K10_CHECK_REPS = (0, 1, 2, 4, 64)
 K10_CHECK_SCALE = 30.0
 K10_REPS = 64
 MUFU_EX2_PER_CLK_PER_SM = 16   # CUDA C++ Programming Guide, cc 9.0
+# K11 calls a SeerUNet call at SD-1.5 widths: 22 resnets x 2, 32
+# transformer sites, conv_norm_out
+GN_PER_UNET_CALL = 77
 STEP_OVER_SITES = (0.5, 2.0)
 FORWARD_KERNELS = ("swat_attention_tables", "flash_attention", "ln_geglu_ff",
                    "ln_geglu_ff_proj", "geglu_ff")
@@ -900,6 +915,58 @@ def case_geglu(gen, mode, n, c, grad=False):
     return _as_path_calls(case, (x, res), grad)
 
 
+
+def case_group_norm(gen, shape, groups, eps, silu, grad=False):
+    """K11 at a main-path shape: bf16 ``x`` (channels last), an fp32 affine
+    near (1, 0); the library yardstick is ``F.group_norm`` (+ ``F.silu``)
+    on the channels-first view, which the port never calls.  ``grad``:
+    the training path's call, a ``GroupNorm`` module's under autograd
+    (``GroupNormFn``), its gradients checked beside its output."""
+    import torch
+    import torch.nn.functional as F
+
+    from seervideoldm_tpu_torch.ops import norms
+    from seervideoldm_tpu_torch.ops.kernels import group_norm as GN
+
+    x = _randn(shape, gen, torch.bfloat16)
+    c = shape[-1]
+    weight = 1.0 + _randn((c,), gen, torch.float32, 0.1)
+    bias = _randn((c,), gen, torch.float32, 0.1)
+    w16, b16 = weight.to(x.dtype), bias.to(x.dtype)
+    if grad:
+        norm = norms.GroupNorm(groups, c, eps).cuda()
+        with torch.no_grad():
+            norm.weight.copy_(weight)
+            norm.bias.copy_(bias)
+        dy = _randn(shape, gen, torch.bfloat16)
+
+    def plain():
+        mean, rstd = norms.group_norm_moments_plain(x, groups, eps)
+        return norms.group_norm_apply_plain(x, mean, rstd, weight, bias, silu)
+
+    def library():
+        y = F.group_norm(x.movedim(-1, 1), groups, w16, b16, eps)
+        return F.silu(y) if silu else y
+
+    def kernel():
+        if grad:
+            return norms.group_norm_silu(norm, x) if silu else norm(x)
+        return GN.group_norm(x, groups, eps, weight, bias, silu)
+
+    def checks():
+        row = GN.check_against_plain(x, groups, eps, weight, bias, silu)
+        if grad:
+            grads = GN.check_gradients_against_plain(norm, x, dy, silu)
+            row["checks_ok"] = row["checks_ok"] and grads.pop("checks_ok")
+            row.update(grads)
+        return row
+
+    case = dict(name="group_norm", kernel=kernel, plain=plain,
+                library=library, flops=0.0, nbytes=4.0 * x.numel(),
+                checks=checks, shape=f"{tuple(shape)} groups {groups} eps "
+                                     f"{eps} silu {silu}")
+    return _as_path_calls(case, (x,), grad)
+
 KERNEL_META = {
     "swat_attention_tables": (
         "seervideoldm_tpu_torch/csrc/swat_attention.cu",
@@ -927,6 +994,9 @@ KERNEL_META = {
         "seervideoldm_tpu/ops/pallas/swat_attention.py:801"),
     "softmax_calib": ("seervideoldm_tpu_torch/csrc/softmax_calib.cu",
                       "tools/floor_budget.py:110"),
+    "group_norm": ("seervideoldm_tpu_torch/csrc/group_norm.cu",
+                   "none: seervideoldm_tpu/ops/norms.py:15 GroupNorm is "
+                   "left to XLA"),
 }
 
 
@@ -1011,6 +1081,44 @@ KERNEL_CASES = (
     ("tensor_parallel", case_flash, (24, 1024, 40, False, True)),
     ("tensor_parallel", case_swat_bwd, (4, 6, 32, 40)),
     ("tensor_parallel", case_flash_bwd, (24, 1024, 40)),
+    # K11 (appended, so the cases above keep their draws): the serving
+    # path's UNet level 0 (CFG batch 8, 12 frames, 32 x 32: the resnets'
+    # c = 320 and the up path's c = 960, SiLU on) and level 2 (8 x 8,
+    # c = 1280, a transformer site's norm, SiLU off), the VAE decoder's top
+    # level (one clip's 12 frames at 256 x 256, c = 128, 4 channels a
+    # group), then odd shapes: rows no multiple of a CTA's slices, one
+    # batch element, eps 1e-5, c / groups of 10 and 30
+    ("serving", case_group_norm, ((8, 12, 32, 32, 320), 32, 1e-6, True)),
+    ("serving", case_group_norm, ((8, 12, 32, 32, 960), 32, 1e-6, True)),
+    ("serving", case_group_norm, ((8, 12, 8, 8, 1280), 32, 1e-6, False)),
+    ("sampling", case_group_norm, ((12, 256, 256, 128), 32, 1e-6, True)),
+    (None, case_group_norm, ((2, 12, 64, 64, 320), 32, 1e-6, True)),
+    (None, case_group_norm, ((1, 7, 13, 11, 640), 32, 1e-5, False)),
+    (None, case_group_norm, ((3, 5, 9, 9, 1920), 64, 1e-5, True)),
+    # K11 at a 256 px sampling UNet call's norms (CFG batch 2, 12 frames,
+    # 2 x per_b CTAs of the serving rows' batch 8): every channel count a
+    # call normalises, each at a level where it runs, the resnets' SiLU on
+    # and the transformer sites' off; then the training micro-step's
+    # (batch 1, under autograd: GroupNormFn forward, the plain halves'
+    # gradients)
+    ("sampling", case_group_norm, ((2, 12, 32, 32, 320), 32, 1e-6, True)),
+    ("sampling", case_group_norm, ((2, 12, 32, 32, 320), 32, 1e-6, False)),
+    ("sampling", case_group_norm, ((2, 12, 16, 16, 640), 32, 1e-6, True)),
+    ("sampling", case_group_norm, ((2, 12, 32, 32, 960), 32, 1e-6, True)),
+    ("sampling", case_group_norm, ((2, 12, 8, 8, 1280), 32, 1e-6, False)),
+    ("sampling", case_group_norm, ((2, 12, 4, 4, 1280), 32, 1e-6, True)),
+    ("sampling", case_group_norm, ((2, 12, 16, 16, 1920), 32, 1e-6, True)),
+    ("sampling", case_group_norm, ((2, 12, 8, 8, 2560), 32, 1e-6, True)),
+    ("training", case_group_norm, ((1, 12, 32, 32, 320), 32, 1e-6, True,
+                                   True)),
+    ("training", case_group_norm, ((1, 12, 32, 32, 320), 32, 1e-6, False,
+                                   True)),
+    ("training", case_group_norm, ((1, 12, 16, 16, 640), 32, 1e-6, True,
+                                   True)),
+    ("training", case_group_norm, ((1, 12, 8, 8, 1280), 32, 1e-6, False,
+                                   True)),
+    ("training", case_group_norm, ((1, 12, 16, 16, 1920), 32, 1e-6, True,
+                                   True)),
 )
 
 
@@ -1075,6 +1183,9 @@ def check_case(case: dict) -> dict:
     if "halves" in case:
         row.update(case["halves"]())
         row["ok"] = row["ok"] and row["up_ok"] and row["down_ok"]
+    if "checks" in case:
+        row.update(case["checks"]())
+        row["ok"] = row["ok"] and row["checks_ok"]
     row["ms"] = time_ms(case["kernel"])
     row["plain_ms"] = time_ms(case["plain"], iters=5, warmup=1)
     with case.get("library_context", contextlib.nullcontext)():
@@ -1337,7 +1448,8 @@ def phase_end_to_end(card: str, profile: str | None) -> tuple:
 
     reset_launches()
     t0 = time.perf_counter()
-    samples, cond = generate_video(pipe, tok, cfg, image, prompt)
+    with unet_group_norms() as gn_per_call:
+        samples, cond = generate_video(pipe, tok, cfg, image, prompt)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = read_launches()
@@ -1354,14 +1466,59 @@ def phase_end_to_end(card: str, profile: str | None) -> tuple:
         "cfg_batch": 2, "frames": frames, "seconds": elapsed,
         "frames_per_s": frames / elapsed, "s_per_step": elapsed / steps,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}}), flush=True)
+        "launches": launches,
+        "group_norm_outside_unet": launches["group_norm"] - sum(gn_per_call)
+        }}), flush=True)
     for name, per_step in PER_STEP.items():
         require(launches[name] == per_step * steps,
                 f"e2e: {name} launched {launches[name]} times, expected "
                 f"{per_step} x {steps} steps")
+    require_group_norms("e2e", gn_per_call, steps, launches)
+    require(launches["group_norm"] > sum(gn_per_call),
+            "e2e: the VAE's GroupNorms did not run through K11")
     if profile:
         profile_step(pipe, profile)
     return launches, pipe, tok, cfg
+
+
+@contextlib.contextmanager
+def unet_group_norms():
+    """Yields a list that receives K11's launches inside each SeerUNet
+    call (a wrapper around ``SeerUNet.forward``)."""
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet
+    from seervideoldm_tpu_torch.ops.kernels import group_norm as GN
+
+    per_call = []
+    forward = SeerUNet.forward
+
+    def counted(self, *args, **kwargs):
+        before = GN.group_norm.launches
+        out = forward(self, *args, **kwargs)
+        per_call.append(GN.group_norm.launches - before)
+        return out
+
+    SeerUNet.forward = counted
+    try:
+        yield per_call
+    finally:
+        SeerUNet.forward = forward
+
+
+def require_group_norms(where: str, per_call: list, calls: int,
+                        launches: dict) -> None:
+    """K11 ran ``GN_PER_UNET_CALL`` times inside each of ``calls`` SeerUNet
+    calls (``unet_group_norms``'s list), at least as often in all, and each
+    norm with its own moments kernel (no ``seq`` group on one card)."""
+    require(per_call == [GN_PER_UNET_CALL] * calls,
+            f"{where}: K11 per UNet call {sorted(set(per_call))} over "
+            f"{len(per_call)} calls, expected {GN_PER_UNET_CALL} in each of "
+            f"{calls}")
+    require(launches["group_norm"] >= sum(per_call),
+            f"{where}: {launches['group_norm']} K11 launches in all, fewer "
+            f"than inside the UNet calls")
+    require(launches["group_norm_moments"] == launches["group_norm"],
+            f"{where}: {launches['group_norm_moments']} K11 moments launches"
+            f" for {launches['group_norm']} norms")
 
 
 # ------------------------------------------------------- sampling knobs
@@ -1575,7 +1732,7 @@ def phase_knobs(card: str, pipe, tok, cfg) -> dict:
                                                 dtype=np.uint8)
     prompt = "push the green cup to the left"
     clip = (1, nf - f1, res, res, 3)
-    total = {name: 0 for name in PER_STEP}
+    total = {name: 0 for name in wrappers()}
 
     def add(launches):
         for name in total:
@@ -2073,7 +2230,7 @@ def phase_serving(card: str, pipe, tok) -> dict:
     n_frames = int(serve.num_frames)
     calls = len(pipe.schedule.ddim_tables(int(serve.ddim_steps)).timesteps)
     expect, _ = _pab_expected(calls, pab_config_from(serve))
-    total = {name: 0 for name in PER_STEP}
+    total = {name: 0 for name in wrappers()}
 
     def measured(what, fn, want=None):
         torch.cuda.synchronize()
@@ -2887,7 +3044,8 @@ def phase_training(card: str, profile: str | None, tmp: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    summary = train(config_from_dict(dict(raw)))
+    with unet_group_norms() as gn_per_call:
+        summary = train(config_from_dict(dict(raw)))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = read_launches()
@@ -2931,6 +3089,7 @@ def phase_training(card: str, profile: str | None, tmp: str) -> tuple:
         require(launches[name] == per * micro_steps,
                 f"training: {name} launched {launches[name]} times, "
                 f"expected {per} x {micro_steps} micro-steps")
+    require_group_norms("training", gn_per_call, micro_steps, launches)
     # measured by the entry per optimizer step (CUDA events around its
     # micro-steps, data loading included, the save excluded); the first
     # carries cuBLAS/cuDNN set-up, so report the rest
@@ -2950,7 +3109,9 @@ def phase_training(card: str, profile: str | None, tmp: str) -> tuple:
         "train_entry_seconds": elapsed, "peak_mem_gb": peak,
         "optimizer_state_bytes": summary["optimizer_state_bytes"],
         "launches": launches,
-        "launches_per_micro_step": PER_MICRO_STEP}}), flush=True)
+        "launches_per_micro_step": dict(PER_MICRO_STEP,
+                                        group_norm=GN_PER_UNET_CALL)}}),
+        flush=True)
     if profile:
         models, _ = load_models(cfg, "cuda",
                                 trainable_scope=cfg.trainable_scope)
@@ -3058,7 +3219,8 @@ def _option_run(card: str, run: str, raw: dict, opt_steps: int,
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    summary = train(config_from_dict(dict(raw)))
+    with unet_group_norms() as gn_per_call:
+        summary = train(config_from_dict(dict(raw)))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = read_launches()
@@ -3074,6 +3236,8 @@ def _option_run(card: str, run: str, raw: dict, opt_steps: int,
         require(launches[name] == per * micro,
                 f"training options {run}: {name} launched {launches[name]} "
                 f"times, expected {per} x {micro} micro-steps")
+    require_group_norms(f"training options {run}", gn_per_call, micro,
+                        launches)
     masters = torch.load(os.path.join(summary["checkpoint"], STATE_FILE),
                          map_location="cpu")["masters"]
     return summary, masters, launches, elapsed, peak
@@ -3204,7 +3368,7 @@ def phase_training_options(card: str, tmp: str, phase7: dict) -> tuple:
     start = write_seeded_base(phase7["raw"], base_dir)
     base = dict(phase7["raw"], max_train_steps=OPTION_OPT_STEPS,
                 save_steps=OPTION_OPT_STEPS, **_base_keys(base_dir))
-    total = {name: 0 for name in PER_STEP}
+    total = {name: 0 for name in wrappers()}
 
     def add(launches):
         for name in total:
@@ -4729,6 +4893,15 @@ def main() -> int:
                     "path", "shape", "max_abs_err", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms", "library_backend")}
                 for r in shapes]))
+        if name == "group_norm":
+            # K11's launches above are its apply kernel's; its moments
+            # kernel counts on a wrapper of its own, one a norm on one card
+            kernels[-1]["moments_launches"] = sum(
+                d["group_norm_moments"] for d in (
+                    launches, knob_launches, serving_launches,
+                    pretrained_launches, eval_launches, serving_mesh_launches,
+                    eval_mesh_launches, probe_launches, train_launches,
+                    option_launches, par_launches, fb_launches))
     print(json.dumps({"phase_seconds": {
         "card": card, "phases": done.seconds,
         "total_seconds": time.perf_counter() - done.t0}}))

@@ -14,7 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import InflatedConv
-from ..ops.norms import GroupNorm
+from ..ops.norms import GroupNorm, group_norm_silu
 from ..utils import profiling
 
 
@@ -76,10 +76,10 @@ class ResnetBlock3D(nn.Module):
     @profiling.site("resnet")
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(group_norm_silu(self.norm1, x))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(group_norm_silu(self.norm2, h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

@@ -44,11 +44,10 @@ from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import InflatedConv
-from ..ops.norms import GroupNorm
+from ..ops.norms import GroupNorm, group_norm_silu
 from ..ops.remat import save_attn_contexts
 from ..parallel.activation import frame_shard, seq_group
 from .embeddings import TimestepEmbedding, timestep_embedding
@@ -233,5 +232,5 @@ class SeerUNet(nn.Module):
             else:
                 sample = self._block(block, sample, states, emb, freeu=freeu)
 
-        sample = F.silu(self.conv_norm_out(sample))
+        sample = group_norm_silu(self.conv_norm_out, sample)
         return self.conv_out(sample)

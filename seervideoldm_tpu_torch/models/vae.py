@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import conv2d_nhwc
-from ..ops.norms import GroupNorm
+from ..ops.norms import GroupNorm, group_norm_silu
 
 VAE_SCALE = 0.18215
 
@@ -58,8 +58,8 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(group_norm_silu(self.norm1, x))
+        h = self.conv2(group_norm_silu(self.norm2, h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -165,7 +165,7 @@ class Encoder(nn.Module):
         for block in self.down_blocks:
             x = block(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(group_norm_silu(self.conv_norm_out, x))
 
 
 class Decoder(nn.Module):
@@ -191,7 +191,7 @@ class Decoder(nn.Module):
         x = self.mid_block(self.conv_in(z))
         for block in self.up_blocks:
             x = block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(group_norm_silu(self.conv_norm_out, x))
 
 
 class AutoencoderKL(nn.Module):

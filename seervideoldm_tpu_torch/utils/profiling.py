@@ -56,8 +56,9 @@ gradients are bit-identical.
 and, read where they are kept, never copied: the serving counters of each
 live ``DynamicBatcher`` and ``GenerationService`` (``serve.*``,
 ``register_counters``), the kernel wrappers' launches
-(``kernels.<name>.launches``) and the collectives' calls and bytes
-(``collectives.<op>.calls`` / ``.bytes``).  ``reset()`` clears the ring
+(``kernels.<name>.launches``; K11's ``kernels.group_norm.sharded`` too)
+and the collectives' calls and bytes (``collectives.<op>.calls`` /
+``.bytes``).  ``reset()`` clears the ring
 and the tracer's own counters; the others belong to their owners.
 
 Beside the tracer:
@@ -509,6 +510,8 @@ def counters() -> dict:
 
     for name, fn in launch_counters().items():
         out[f"kernels.{name}.launches"] = fn.launches
+        if hasattr(fn, "sharded"):
+            out[f"kernels.{name}.sharded"] = fn.sharded
     for op, (calls, nbytes) in stats.items():
         out[f"collectives.{op}.calls"] = calls
         out[f"collectives.{op}.bytes"] = nbytes

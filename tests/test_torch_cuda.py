@@ -18,6 +18,11 @@ as their two halves, the up and the down kernel, each alone.  K6 and K9 (the
 pre-rotated and in-kernel-trig modes of the SWAT kernels) the same, with
 ``rot_dim`` 0 and 32.  K10 (the softmax calibration): the final scores and
 the row sums within 1e-5 relative of its plain version, from 0 passes up.
+K11 (GroupNorm + SiLU), by ``ops/kernels/group_norm.py``'s own checks:
+the moments within 1e-5 of fp64, the apply kernel bit for bit the plain
+apply on the kernel's moments, every output within one bf16 ulp before the
+SiLU of the plain chain's, at every channel count the port uses;
+``GroupNormFn``'s gradients equal the plain halves'.
 The evaluation scorers (I3D, C3D, the CLIP ViT; plain PyTorch ops in fp32)
 on the card against the CPU within 1e-3 relative L2.  ZeRO-1 and FSDP on 2
 gloo ranks sharing the card against the replicated run, with the gathered
@@ -708,3 +713,133 @@ def test_sharded_training_on_the_card(gen):
     for name in ("swat_attention_tables", "flash_attention", "ln_geglu_ff",
                  "swat_attention_tables_bwd", "flash_attention_bwd"):
         assert launches[name] > 0, (name, launches)
+
+
+# ------------------------------------------------------------ K11 GroupNorm
+
+def _gn_affine(gen, c):
+    w = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return w, 0.1 * torch.randn(c, generator=gen, device="cuda")
+
+
+def _check_group_norm(x, groups, eps, w, b, silu):
+    """K11 held to its plain halves by the wrapper's own check (the one
+    ``chip_smoke.py`` makes, with the same limits), one apply and one
+    moments launch counted for a norm call."""
+    from seervideoldm_tpu_torch.ops.kernels import group_norm as GN
+
+    before = GN.group_norm.launches, GN.group_norm_moments.launches
+    readings = GN.check_against_plain(x, groups, eps, w, b, silu)
+    torch.cuda.synchronize()
+    assert readings["checks_ok"], readings
+    # the moments alone, the apply on them, then a whole norm call
+    assert (GN.group_norm.launches - before[0],
+            GN.group_norm_moments.launches - before[1]) == (2, 2)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("c", [128, 256, 512, 320, 640, 960, 1280, 1920, 2560])
+def test_group_norm_kernel_channels(gen, c, silu):
+    """Every channel count the port normalises: the VAE's as 4-D images,
+    the UNet's as 5-D videos, 32 groups (c / groups 4 to 80)."""
+    shape = (2, 24, 20, c) if c in (128, 256, 512) else (2, 3, 10, 12, c)
+    x = _randn(gen, *shape)
+    _check_group_norm(x, 32, 1e-6, *_gn_affine(gen, c), silu)
+
+
+@pytest.mark.parametrize("shape,eps,silu", [
+    ((1, 4, 16, 16, 320), 1e-6, True), ((8, 3, 8, 8, 640), 1e-5, False),
+    ((2, 37, 29, 960), 1e-5, True), ((8, 12, 4, 4, 1280), 1e-6, False),
+    ((2, 7, 13, 11, 320), 1e-6, True),      # rows no multiple of the tile
+    ((1, 3, 1, 1, 2560), 1e-5, True)])      # fewer rows than slices
+def test_group_norm_kernel_shapes(gen, shape, eps, silu):
+    x = _randn(gen, *shape)
+    _check_group_norm(x, 32, eps, *_gn_affine(gen, shape[-1]), silu)
+
+
+def test_group_norm_kernel_offset_mean(gen):
+    """|mean| 100 x the standard deviation: the Welford sums and Chan's
+    merges keep the variance where a sum of squares would cancel."""
+    c = 320
+    x = (100.0 + torch.randn(2, 4, 16, 16, c, generator=gen, device="cuda")
+         ).to(torch.bfloat16)
+    _check_group_norm(x, 32, 1e-6, *_gn_affine(gen, c), True)
+
+
+def test_group_norm_back_to_back_calls(gen):
+    """The moments kernel's tickets reset: calls of other B and C one after
+    the other each come out right."""
+    for shape in ((8, 3, 8, 8, 320), (2, 3, 4, 4, 1280), (8, 3, 8, 8, 320),
+                  (1, 64, 64, 128), (8, 3, 8, 8, 320)):
+        x = _randn(gen, *shape)
+        _check_group_norm(x, 32, 1e-6, *_gn_affine(gen, shape[-1]), True)
+
+
+def test_group_norm_fn_gradients(gen):
+    """``GroupNormFn`` (K11 forward, the plain halves recomputed backward)
+    against autograd through the plain halves, with and without SiLU; a
+    frozen affine gets no gradient."""
+    from seervideoldm_tpu_torch.ops import norms
+    from seervideoldm_tpu_torch.ops.kernels import group_norm as GN
+
+    c = 320
+    norm = norms.GroupNorm(32, c, 1e-6).cuda()
+    with torch.no_grad():
+        w, b = _gn_affine(gen, c)
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+    x = _randn(gen, 2, 3, 8, 8, c)
+    g = _randn(gen, 2, 3, 8, 8, c)
+    for silu in (True, False):
+        readings = GN.check_gradients_against_plain(norm, x, g, silu)
+        assert readings["checks_ok"], readings
+    norm.requires_grad_(False)
+    readings = GN.check_gradients_against_plain(norm, x, g, True)
+    assert readings["checks_ok"], readings
+    x = x.detach().requires_grad_()
+    norm(x).backward(g)
+    assert norm.weight.grad is None and norm.bias.grad is None
+    assert x.grad is not None
+
+
+def test_group_norm_refuses_uncovered_shapes(gen):
+    """On the card K11 runs or raises: no fallback to the plain chain."""
+    from seervideoldm_tpu_torch.ops import norms
+    from seervideoldm_tpu_torch.ops.kernels import group_norm as GN
+
+    x = _randn(gen, 2, 4, 4, 12)
+    with pytest.raises(ValueError, match="not covered"):
+        GN.group_norm(x, 4, 1e-6, *_gn_affine(gen, 12))
+    with pytest.raises(ValueError, match="not covered"):
+        norms.GroupNorm(4, 12).cuda()(x)
+    for dtype in (torch.float16, torch.float32):
+        with pytest.raises(ValueError, match="takes bf16"):
+            GN.group_norm(_randn(gen, 2, 4, 4, 16).to(dtype), 4, 1e-6,
+                          *_gn_affine(gen, 16))
+
+
+def test_group_norm_launches_per_unet_call(gen):
+    """A narrow SeerUNet call counts one K11 call per GroupNorm module of
+    the UNet, none sharded on one card."""
+    from seervideoldm_tpu_torch.models.unet3d import SeerUNet, SeerUNetConfig
+    from seervideoldm_tpu_torch.ops.kernels import group_norm as GN
+    from seervideoldm_tpu_torch.ops.norms import GroupNorm
+    from seervideoldm_tpu_torch.utils.device import cast_for_compute
+
+    cfg = SeerUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
+                         norm_num_groups=8, cross_attention_dim=64,
+                         attention_head_dim=2)
+    with torch.device("cuda"):
+        unet = cast_for_compute(SeerUNet(cfg), torch.bfloat16)
+    x = _randn(gen, 2, 12, 32, 32, 4)
+    ctx = _randn(gen, 2, 12, 77, 64)
+    ts = torch.tensor([500, 500], device="cuda")
+    before = (GN.group_norm.launches, GN.group_norm_moments.launches,
+              GN.group_norm.sharded)
+    with torch.no_grad():
+        unet(x, ts, ctx)
+    torch.cuda.synchronize()
+    norms = sum(isinstance(m, GroupNorm) for m in unet.modules())
+    assert (GN.group_norm.launches - before[0],
+            GN.group_norm_moments.launches - before[1],
+            GN.group_norm.sharded - before[2]) == (norms, norms, 0)

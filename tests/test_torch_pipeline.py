@@ -175,6 +175,7 @@ def test_full_width_unet_call_reaches_every_kernel(monkeypatch):
     number of times."""
     from seervideoldm_tpu_torch.models import transformer3d
     from seervideoldm_tpu_torch.ops import attention
+    from seervideoldm_tpu_torch.ops.kernels import group_norm
 
     calls = {}
 
@@ -188,6 +189,7 @@ def test_full_width_unet_call_reaches_every_kernel(monkeypatch):
         monkeypatch.setattr(attention, name, counting(name))
     for name in ("ln_geglu_ff", "ln_geglu_ff_proj", "geglu_ff"):
         monkeypatch.setattr(transformer3d, name, counting(name))
+    monkeypatch.setattr(group_norm, "group_norm", counting("group_norm"))
     unet = cast_for_compute(_meta(SeerUNet), torch.bfloat16)
     with torch.device("meta"):
         x = torch.empty(2, 12, 32, 32, 4, dtype=torch.bfloat16)
@@ -195,4 +197,5 @@ def test_full_width_unet_call_reaches_every_kernel(monkeypatch):
         out = unet(x, torch.zeros(2, dtype=torch.int32), ctx)
     assert out.shape == (2, 12, 32, 32, 4)
     assert calls == {"swat_attention_tables": 5, "flash_attention": 5,
-                     "ln_geglu_ff": 5, "ln_geglu_ff_proj": 5, "geglu_ff": 10}
+                     "ln_geglu_ff": 5, "ln_geglu_ff_proj": 5, "geglu_ff": 10,
+                     "group_norm": 77}
