@@ -56,7 +56,13 @@ no result line):
    moments against fp64, the apply kernel bit for bit on the kernel's own
    moments, each output within one bf16 ulp of the normalised value before
    the SiLU), the training rows' gradients also equal to autograd's
-   through the plain halves (``check_gradients_against_plain``);
+   through the plain halves (``check_gradients_against_plain``); last
+   Stable Video Diffusion XT's shapes (path ``svd``: CFG batch 2, 25
+   frames of 72 x 128 latents, head dim 64): K2 at levels 0-2 (9216
+   tokens, the streamed form, and 2304, their plain versions row by row;
+   576), K3 at level 0's 460800 rows, K5 at level 1's 115200, K11 per
+   frame at levels 0-2, over a clip's frames at level 0 and at the
+   temporal decoder's top level (25 frames at 576 x 1024);
 4. reference: one SeerUNet call at narrow widths (64/128) and the main
    path's 256 px / 12 frame / CFG-batch-2 shapes, bf16 with the kernels on
    the card against the port's plain path in fp32 on the CPU, same weights
@@ -164,6 +170,13 @@ no result line):
    cond frames, DDIM 30, DPM++ 20, one warm and one timed run a mode),
    all five modes: every row finite, K1-K5 launched; a ``quality_probe``
    line (PAB's relative RMSE, every row, the summary, launches);
+6h. Stable Video Diffusion XT (``phase_svd``): its UNet and temporal
+   decoder at published widths on random weights, one UNet call at the
+   ``svd-xt.sample.576`` cell's shapes and one 25-frame decode to
+   576 x 1024, each after a warm-up and under counter 0: K2
+   ``SVD_K2_PER_UNET_CALL`` times in the UNet call, K11 once a norm
+   (``SVD_GN_PER_UNET_CALL``, ``SVD_GN_PER_DECODE``), outputs finite; an
+   ``svd`` line per call (seconds, peak GB, launches);
 7. training: the port's ``train`` entry at the same full width on a
    synthetic Something-Something-v2 tree written from a numpy seed to a
    temporary directory: 256 px, 12 frames, 2 cond frames, batch 1,
@@ -274,11 +287,11 @@ no result line):
    ``save_attn`` and ``block``): ``save_attn`` launches the forward kernels
    as often as ``none``, ``block`` more;
 10. prints the ``kernels`` line (each kernel's ``launches`` summed over
-    phases 6, 6b, 6e, 6c, 6d, 6f, 6g, 7, 7b, 8 and 9, with each phase's
+    phases 6, 6b, 6e, 6c, 6d, 6f, 6g, 6h, 7, 7b, 8 and 9, with each phase's
     own count beside it: ``sampling_launches``, ``knobs_launches``,
     ``serving_launches``, ``pretrained_launches``, ``eval_launches``,
     ``serving_mesh_launches`` and ``eval_mesh_launches`` (rank 0's),
-    ``probe_launches``, ``training_launches``,
+    ``probe_launches``, ``svd_launches``, ``training_launches``,
     ``training_options_launches``, ``parallel_launches``,
     ``floor_budget_launches``), the card line and the result line; before
     them a ``phase_seconds`` line (each phase's wall seconds, which stderr
@@ -420,6 +433,16 @@ MUFU_EX2_PER_CLK_PER_SM = 16   # CUDA C++ Programming Guide, cc 9.0
 # K11 calls a SeerUNet call at SD-1.5 widths: 22 resnets x 2, 32
 # transformer sites, conv_norm_out
 GN_PER_UNET_CALL = 77
+# phase 6h, Stable Video Diffusion XT at its published shapes: K2 calls a
+# UNet call (5 spatial self-attention sites each at 9216, 2304 and 576
+# tokens; the mid block's 144 run plain), K11 calls a UNet call (22
+# resnets x 4 norms, 16 transformer sites, conv_norm_out) and a 25-frame
+# decode (14 resnets x 4, the mid attention's norm once a frame,
+# conv_norm_out)
+SVD_FRAMES, SVD_LATENT_HW = 25, (72, 128)
+SVD_K2_PER_UNET_CALL = 15
+SVD_GN_PER_UNET_CALL = 105
+SVD_GN_PER_DECODE = 14 * 4 + SVD_FRAMES + 1
 STEP_OVER_SITES = (0.5, 2.0)
 FORWARD_KERNELS = ("swat_attention_tables", "flash_attention", "ln_geglu_ff",
                    "ln_geglu_ff_proj", "geglu_ff")
@@ -628,6 +651,34 @@ def case_flash(gen, batch, n, d, causal=False, grad=False):
         plan=K.plan(batch, n, n, d, causal),
         shape=f"({batch}, {n}, {d}){' causal' if causal else ''}"),
         (q, k, v), grad)
+
+
+def case_flash_rows(gen, batch, n, d):
+    """``case_flash`` (sampling, not causal) whose plain version runs one
+    row of the batch at a time: Stable Video Diffusion's spatial
+    self-attention, where the whole batch's fp32 logits would not fit
+    (250 rows of 9216^2 are 85 GB)."""
+    import torch
+
+    from seervideoldm_tpu_torch.ops.kernels import flash_attention as K
+
+    bf = torch.bfloat16
+    q, k, v = (_randn((batch, n, d), gen, bf) for _ in range(3))
+    scale = d ** -0.5
+    library, backend, context = fused_sdpa(q, k, v, scale, False)
+
+    def plain():
+        return torch.cat([K.flash_attention_plain(q[i:i + 1], k[i:i + 1],
+                                                  v[i:i + 1], scale)
+                          for i in range(batch)])
+
+    return _as_path_calls(dict(
+        name="flash_attention", kernel=lambda: K.flash_attention(q, k, v, scale),
+        plain=plain, library=library, library_backend=backend,
+        library_context=context, flops=4.0 * batch * n * n * d,
+        exps=float(batch * n * n), nbytes=4.0 * batch * n * d * 2,
+        plan=K.plan(batch, n, n, d),
+        shape=f"({batch}, {n}, {d}), plain row by row"), (q, k, v), False)
 
 
 def case_swat(gen, batch, f, h, d, grad=False):
@@ -1119,6 +1170,27 @@ KERNEL_CASES = (
                                    True)),
     ("training", case_group_norm, ((1, 12, 16, 16, 1920), 32, 1e-6, True,
                                    True)),
+    # K2 at Stable Video Diffusion XT's spatial self-attention (appended,
+    # so the cases above keep their draws): 576 x 1024 latents, 25 frames,
+    # CFG batch 2, head dim 64; level 0 (5 heads, 9216 tokens: the streamed
+    # kv > 4096 form) and level 1 (10 heads, 2304 tokens)
+    ("svd", case_flash_rows, (250, 9216, 64)),
+    ("svd", case_flash_rows, (500, 2304, 64)),
+    # then level 2 (20 heads, 576 tokens); K3 at level 0's 50 x 9216 rows
+    # (the spatial and the temporal FFs alike, c = 320) and K5 at level 1's
+    # 50 x 2304 (c = 640); K11 per frame (the 50 frames folded into the
+    # batch) at levels 0-2, over the clip's 25 frames (a temporal resnet's
+    # norm at level 0) and at the temporal decoder's top level (one clip,
+    # 25 frames at 576 x 1024, c = 128: 1.9 G elements)
+    ("svd", case_flash, (1000, 576, 64)),
+    ("svd", case_geglu, (1, 460800, 320)),
+    ("svd", case_geglu, (0, 115200, 640)),
+    ("svd", case_group_norm, ((50, 72, 128, 320), 32, 1e-6, True)),
+    ("svd", case_group_norm, ((50, 72, 128, 320), 32, 1e-6, False)),
+    ("svd", case_group_norm, ((50, 36, 64, 640), 32, 1e-6, True)),
+    ("svd", case_group_norm, ((50, 18, 32, 1280), 32, 1e-6, False)),
+    ("svd", case_group_norm, ((2, 25, 72, 128, 320), 32, 1e-6, True)),
+    ("svd", case_group_norm, ((1, 25, 576, 1024, 128), 32, 1e-5, True)),
 )
 
 
@@ -2995,6 +3067,84 @@ def phase_quality_probe(card: str) -> dict:
     return launches
 
 
+def phase_svd(card: str) -> dict:
+    """Phase 6h: Stable Video Diffusion XT's UNet and temporal decoder at
+    published widths on random weights from ``SEED``: one UNet call at the
+    cell's shapes (CFG batch 2, ``SVD_FRAMES`` frames of ``SVD_LATENT_HW``
+    latents) and one decode of those frames to 576 x 1024, each after a
+    warm-up call, with the launch counts zeroed just before and read just
+    after; K2 ``SVD_K2_PER_UNET_CALL`` times in the UNet call, K11 once a
+    norm (``SVD_GN_PER_UNET_CALL``, ``SVD_GN_PER_DECODE``) with a moments
+    launch each.  Returns the two calls' launches."""
+    import torch
+
+    from seervideoldm_tpu_torch.models.svd_unet import \
+        UNetSpatioTemporalConditionModel
+    from seervideoldm_tpu_torch.models.svd_vae import \
+        AutoencoderKLTemporalDecoder
+    from seervideoldm_tpu_torch.utils.device import cast_for_compute
+
+    def counted(what: str, call, out_shape: tuple, k2: int, k11: int):
+        call()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        seconds, launches = time.perf_counter() - t0, read_launches()
+        require(tuple(out.shape) == out_shape,
+                f"svd {what}: output shaped {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()) and float(out.float().std())
+                > 0.0, f"svd {what}: non-finite or constant output")
+        require(launches["flash_attention"] == k2,
+                f"svd {what}: K2 launched {launches['flash_attention']} "
+                f"times, expected {k2}")
+        require(launches["group_norm"] == k11
+                and launches["group_norm_moments"] == k11,
+                f"svd {what}: K11 launched {launches['group_norm']} times "
+                f"({launches['group_norm_moments']} moments), expected {k11}")
+        print(json.dumps({"svd": {
+            "card": card, "call": what, "shape": list(out_shape),
+            "seconds": seconds,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}}), flush=True)
+        return launches
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf, (h, w) = torch.bfloat16, SVD_LATENT_HW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(SEED)
+        unet = UNetSpatioTemporalConditionModel()
+    cast_for_compute(unet, bf).eval().requires_grad_(False)
+    sample = _randn((2, SVD_FRAMES, h, w, 8), gen, bf)
+    context = torch.cat([torch.zeros(1, 1, 1024, device="cuda", dtype=bf),
+                         _randn((1, 1, 1024), gen, bf)])
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device="cuda")
+    with torch.no_grad():
+        unet_launches = counted(
+            "unet", lambda: unet(sample, 0.25 * math.log(700.0), context, ids),
+            (2, SVD_FRAMES, h, w, 4), SVD_K2_PER_UNET_CALL,
+            SVD_GN_PER_UNET_CALL)
+    del unet, sample
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(SEED)
+        vae = AutoencoderKLTemporalDecoder()
+    cast_for_compute(vae, bf).eval().requires_grad_(False)
+    latents = _randn((1, SVD_FRAMES, h, w, 4), gen, bf)
+    with torch.no_grad():
+        decode_launches = counted(
+            "decode", lambda: vae.decode(latents),
+            (1, SVD_FRAMES, 8 * h, 8 * w, 3), 0, SVD_GN_PER_DECODE)
+    del vae, latents
+    torch.cuda.empty_cache()
+    return {name: unet_launches[name] + decode_launches[name]
+            for name in unet_launches}
+
+
 def phase_training(card: str, profile: str | None, tmp: str) -> tuple:
     """The port's ``train`` entry at full SD-1.5 width on a synthetic
     Sthv2 tree written under ``tmp``, then sampling from the checkpoint it
@@ -4834,6 +4984,8 @@ def main() -> int:
         del serve_rows
         probe_launches = phase_quality_probe(card)
         done("6g probe")
+        svd_launches = phase_svd(card)
+        done("6h svd")
         torch.cuda.empty_cache()
         train_tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
         try:
@@ -4858,7 +5010,7 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         row, shapes = rows[name][0], rows[name]
         # each path is driven with the counts zeroed just before and read
-        # just after; `launches` is the sum over the twelve paths (the
+        # just after; `launches` is the sum over the thirteen paths (the
         # parallel paths': rank 0's, summed over their runs; the knob
         # phase's: summed over its eight runs; serving's: over its
         # in-process batches; the training options': over their three runs)
@@ -4869,7 +5021,7 @@ def main() -> int:
                       + pretrained_launches[name] + eval_launches[name]
                       + serving_mesh_launches[name]
                       + eval_mesh_launches[name] + probe_launches[name]
-                      + train_launches[name] + option_launches[name]
+                      + svd_launches[name] + train_launches[name] + option_launches[name]
                       + par_launches[name] + fb_launches[name]),
             sampling_launches=launches[name],
             knobs_launches=knob_launches[name],
@@ -4879,6 +5031,7 @@ def main() -> int:
             serving_mesh_launches=serving_mesh_launches[name],
             eval_mesh_launches=eval_mesh_launches[name],
             probe_launches=probe_launches[name],
+            svd_launches=svd_launches[name],
             training_launches=train_launches[name],
             training_options_launches=option_launches[name],
             parallel_launches=par_launches[name],
@@ -4900,7 +5053,8 @@ def main() -> int:
                 d["group_norm_moments"] for d in (
                     launches, knob_launches, serving_launches,
                     pretrained_launches, eval_launches, serving_mesh_launches,
-                    eval_mesh_launches, probe_launches, train_launches,
+                    eval_mesh_launches, probe_launches, svd_launches,
+                    train_launches,
                     option_launches, par_launches, fb_launches))
     print(json.dumps({"phase_seconds": {
         "card": card, "phases": done.seconds,

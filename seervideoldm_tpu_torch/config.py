@@ -173,8 +173,31 @@ def parse_remat(value: Any) -> Any:
                      "True/block, save_attn)")
 
 
+# The architecture (the extras key ``model``): "seer" (SeerPipeline, the
+# default) or "svd_xt" (Stable Video Diffusion XT, SVDPipeline: image ->
+# video, no prompt), whose keys are read from the extras with the published
+# defaults of StableVideoDiffusionPipeline (``svd_settings``).
+MODELS = ("seer", "svd_xt")
+SVD_DEFAULTS = dict(height=576, width=1024, num_inference_steps=25,
+                    min_guidance_scale=1.0, max_guidance_scale=3.0, fps=7,
+                    motion_bucket_id=127, noise_aug_strength=0.02)
+
+
+def model_of(cfg: Config) -> str:
+    return cfg.get("model") or "seer"
+
+
+def svd_settings(cfg: Config) -> dict:
+    """The ``model: svd_xt`` sampling keys, each cast to its default's
+    type."""
+    return {k: type(v)(cfg.get(k, v)) for k, v in SVD_DEFAULTS.items()}
+
+
 def validate(cfg: Config) -> Config:
     cfg.remat = parse_remat(cfg.remat)
+    if model_of(cfg) not in MODELS:
+        raise ValueError(f"model must be one of {MODELS}, got "
+                         f"{model_of(cfg)!r}")
     if cfg.mesh_shape is not None:
         for axis, size in dict(cfg.mesh_shape).items():
             if axis not in ("data", "model", "seq"):

@@ -3,11 +3,9 @@ entry (port of ``seervideoldm_tpu/evaluation/clip_sim.py``): the mean
 cosine similarity between each generated frame's CLIP image embedding and
 the prompt's CLIP text embedding (GODIVA / NUWA protocol).
 
-- ``CLIPVisionModel``: HF ``CLIPVisionTransformer`` semantics under HF's
-  names (``vision_model.embeddings.patch_embedding``, the upstream
-  ``pre_layrnorm`` spelling, ``encoder.layers.N`` of the port's
-  ``CLIPEncoderLayer`` with a full, non-causal mask, ``post_layernorm``);
-  returns the pooled class token ``(b, hidden)``;
+- ``CLIPVisionModel`` (``models/clip_vision.py``, quick-GELU by
+  default): the image tower, returning the pooled class token
+  ``(b, hidden)``;
 - ``CLIPProjections``: the two no-bias projection heads of HF
   ``CLIPModel``;
 - ``preprocess_frames``: the OpenAI CLIP transform on square frames,
@@ -22,81 +20,15 @@ Weights come from a local HF ``CLIPModel`` state dict through
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.clip_text import CLIPEncoder, CLIPTextConfig
-from ..ops.norms import LayerNorm
+from ..models.clip_vision import CLIPVisionConfig, CLIPVisionModel  # noqa: F401
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
-
-
-@dataclass(frozen=True)
-class CLIPVisionConfig:
-    image_size: int = 224
-    patch_size: int = 14
-    hidden_size: int = 1024
-    intermediate_size: int = 4096
-    num_hidden_layers: int = 24
-    num_attention_heads: int = 16
-    projection_dim: int = 768
-    layer_norm_eps: float = 1e-5
-
-
-class CLIPVisionEmbeddings(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
-        super().__init__()
-        d = cfg.hidden_size
-        self.class_embedding = nn.Parameter(torch.randn(d) * 0.02)
-        self.patch_embedding = nn.Conv2d(3, d, cfg.patch_size,
-                                         stride=cfg.patch_size, bias=False)
-        n = (cfg.image_size // cfg.patch_size) ** 2 + 1
-        self.position_embedding = nn.Embedding(n, d)
-        nn.init.normal_(self.position_embedding.weight, std=0.02)
-
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        patches = self.patch_embedding(pixels).flatten(2).transpose(1, 2)
-        cls = self.class_embedding.to(patches.dtype).expand(
-            patches.shape[0], 1, -1)
-        return (torch.cat([cls, patches], dim=1)
-                + self.position_embedding.weight[None])
-
-
-class CLIPVisionTransformer(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
-        super().__init__()
-        layer_cfg = CLIPTextConfig(
-            hidden_size=cfg.hidden_size,
-            intermediate_size=cfg.intermediate_size,
-            num_hidden_layers=cfg.num_hidden_layers,
-            num_attention_heads=cfg.num_attention_heads,
-            layer_norm_eps=cfg.layer_norm_eps)
-        self.embeddings = CLIPVisionEmbeddings(cfg)
-        self.pre_layrnorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.encoder = CLIPEncoder(layer_cfg)
-        self.post_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-
-
-class CLIPVisionModel(nn.Module):
-    def __init__(self, config: CLIPVisionConfig = CLIPVisionConfig()):
-        super().__init__()
-        self.config = config
-        self.vision_model = CLIPVisionTransformer(config)
-
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """pixels (b, 3, S, S), CLIP-normalized -> pooled (b, hidden)."""
-        vm = self.vision_model
-        x = vm.pre_layrnorm(vm.embeddings(pixels))
-        n = x.shape[1]
-        mask = torch.ones(1, 1, n, n, dtype=torch.bool, device=x.device)
-        for layer in vm.encoder.layers:
-            x = layer(x, mask)
-        return vm.post_layernorm(x[:, 0])
 
 
 class CLIPProjections(nn.Module):

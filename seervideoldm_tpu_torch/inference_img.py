@@ -22,6 +22,12 @@ attention rotates K/V around a ring, or gathers them when
 prompt batch, ``model`` the attention heads and feed-forward hidden units
 of every model (tensor parallelism); rank 0 writes the GIF.
 
+``model: svd_xt`` (``configs/inference_svd_xt.yaml``) samples Stable
+Video Diffusion XT instead: the image alone (no prompt), resized to
+``height`` x ``width``, ``num_frames`` frames from ``num_inference_steps``
+Euler steps (``pipelines/image_video.py``); all frames go to the GIF.  It
+runs on one card, without ``mesh_shape`` or ``total_frames``.
+
 ``generate_video`` is the same path as a Python API (a config dict or
 ``Config``, a numpy image), with no GIF written.
 """
@@ -30,13 +36,16 @@ from __future__ import annotations
 import sys
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-from .config import (Config, config_from_dict, parse_args,
-                     sampler_schedule_from, sampling_kwargs_from)
+from .config import (Config, config_from_dict, model_of, parse_args,
+                     sampler_schedule_from, sampling_kwargs_from,
+                     svd_settings)
 from .data.transforms import image_to_model_input
+from .pipelines.image_video import SVDPipeline
 from .pipelines.loading import (load_finetuned, load_models,
-                                resolve_finetuned_dir)
+                                load_svd_models, resolve_finetuned_dir)
 from .pipelines.text_video import SeerPipeline
 from .parallel.distributed import initialize_distributed, is_main_process
 from .parallel.mesh import create_mesh
@@ -46,11 +55,16 @@ from .utils.viz import save_visualization_onegif
 
 def build_pipeline(cfg: Union[Config, dict], device=None,
                    mesh: bool = True):
-    """``(SeerPipeline, tokenizer, cfg)`` for a config on ``device``.
+    """``(SeerPipeline, tokenizer, cfg)`` for a config on ``device``, or
+    ``(SVDPipeline, None, cfg)`` under ``model: svd_xt``.
     ``mesh=False`` registers no mesh: each rank samples its own batches
     (the eval entry's per-rank shard of the split)."""
     if isinstance(cfg, dict):
         cfg = config_from_dict(cfg)
+    if model_of(cfg) == "svd_xt":
+        set_numerics()
+        return SVDPipeline(load_svd_models(cfg, device),
+                           vae_scale=float(cfg.vae_scale)), None, cfg
     dev = initialize_distributed(device)
     set_numerics()
     models, tokenizer = load_models(
@@ -61,6 +75,30 @@ def build_pipeline(cfg: Union[Config, dict], device=None,
     pipe = SeerPipeline(models, schedule=sampler_schedule_from(cfg),
                         vae_scale=float(cfg.vae_scale))
     return pipe, tokenizer, cfg
+
+
+def generate_svd_video(pipe: SVDPipeline, cfg: Config, image):
+    """``image``: a PIL image or (h, w, 3) uint8 array, resized to
+    ``height`` x ``width`` (``config.svd_settings``).  Returns (frames
+    (1, num_frames, height, width, 3) in [0, 1], the image (1, 1, height,
+    width, 3) in [-1, 1])."""
+    from PIL import Image
+
+    s = svd_settings(cfg)
+    if not isinstance(image, Image.Image):
+        image = Image.fromarray(image)
+    image = image.convert("RGB").resize((s["width"], s["height"]),
+                                        Image.BICUBIC)
+    x = torch.from_numpy(np.asarray(image, dtype=np.float32) / 127.5 - 1.0)
+    gen = torch.Generator(device=pipe.device).manual_seed(int(cfg.seed))
+    frames = pipe.generate(
+        x[None], gen, num_frames=int(cfg.num_frames),
+        steps=s["num_inference_steps"],
+        min_guidance_scale=s["min_guidance_scale"],
+        max_guidance_scale=s["max_guidance_scale"], fps=s["fps"],
+        motion_bucket_id=s["motion_bucket_id"],
+        noise_aug_strength=s["noise_aug_strength"])
+    return frames, x[None, None]
 
 
 def generate_video(pipe: SeerPipeline, tokenizer, cfg: Config, image,
@@ -105,8 +143,11 @@ def main(argv: Optional[list[str]] = None, device=None) -> Optional[str]:
     from PIL import Image
 
     with Image.open(cfg.image_path) as img:
-        samples, cond = generate_video(pipe, tokenizer, cfg, img,
-                                       cfg.input_text_prompts or "")
+        if model_of(cfg) == "svd_xt":
+            samples, cond = generate_svd_video(pipe, cfg, img)
+        else:
+            samples, cond = generate_video(pipe, tokenizer, cfg, img,
+                                           cfg.input_text_prompts or "")
     if not is_main_process():
         return None
     path = save_visualization_onegif(samples.cpu().numpy(),

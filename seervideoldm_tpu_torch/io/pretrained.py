@@ -13,6 +13,9 @@ module's ``state_dict`` keys after a few renames:
 - SeerUNet from SD-1.5's 2D UNet (inflation): every key of the file lands
   on a parameter of the same shape, and what stays fresh must be the
   temporal attentions;
+- Stable Video Diffusion (``convert_svd``): the UNet and the image
+  encoder under their released names, the VAE with the mid-attention
+  renames above (its encoder and its temporal decoder);
 - SeerUNet and FSText: ``rotary_emb.freqs`` buffers are never read but
   recomputed from ``theta = 10000`` (JAX ``convert.py:111``).
 
@@ -112,6 +115,18 @@ def convert_clip_projections(state_dict: Mapping[str, torch.Tensor],
     sd = {k: state_dict[k]
           for k in ("visual_projection.weight", "text_projection.weight")}
     return _strict(projections, load_into(projections, sd))
+
+
+def convert_svd(unet_sd: Mapping[str, torch.Tensor],
+                vae_sd: Mapping[str, torch.Tensor],
+                image_sd: Mapping[str, torch.Tensor], models) -> list[str]:
+    """SVD's ``unet``, ``vae`` (``AutoencoderKLTemporalDecoder``) and
+    ``image_encoder`` (HF ``CLIPVisionModelWithProjection``) state dicts
+    into ``SVDModels`` (``pipelines/image_video.py``), each strictly."""
+    _strict(models.unet, load_into(models.unet, unet_sd))
+    _strict(models.vae, load_into(models.vae, vae_sd, VAE_RENAMES))
+    return _strict(models.image_encoder, load_into(
+        models.image_encoder, image_sd, skip=lambda k: "position_ids" in k))
 
 
 def _recompute_rotary(module: nn.Module) -> None:

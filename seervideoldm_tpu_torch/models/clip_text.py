@@ -1,7 +1,11 @@
 """CLIP ViT-L/14 text encoder (port of
 ``seervideoldm_tpu/models/clip_text.py``): last hidden state ``(b, 77, 768)``
 under a causal mask and the tokenizer's padding mask; quick_gelu, pre-LN,
-learned positions.  Module names follow the HF ``CLIPTextModel`` state dict
+learned positions.  ``hidden_act`` (an argument of ``CLIPMLP``,
+``CLIPEncoderLayer`` and ``CLIPEncoder``) picks the MLP's activation
+(``quick_gelu``, CLIP ViT-L/14's, or ``gelu``, the exact erf form of
+OpenCLIP's ViT-H/14, which ``models/clip_vision.py`` builds from these
+layers).  Module names follow the HF ``CLIPTextModel`` state dict
 (``text_model.encoder.layers.N.self_attn.q_proj`` ...).  Under a
 ``model`` axis (``parallel.sharding.shard_tensor_parallel``) the attention
 holds its slice of the heads (``q/k/v_proj`` column, ``out_proj``
@@ -37,6 +41,13 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def exact_gelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="none")
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": exact_gelu}
+
+
 class CLIPAttention(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -65,16 +76,17 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, hidden_act: str = "quick_gelu"):
         super().__init__()
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.act = ACTIVATIONS[hidden_act]
         self.tp_group = None  # the model group once split (parallel/sharding)
 
     def forward(self, x):
         if self.tp_group is None:
-            return self.fc2(quick_gelu(self.fc1(x)))
-        hidden = quick_gelu(self.fc1(copy_to_model(x, self.tp_group)))
+            return self.fc2(self.act(self.fc1(x)))
+        hidden = self.act(self.fc1(copy_to_model(x, self.tp_group)))
         return row_parallel_linear(hidden, self.fc2.weight, self.fc2.bias,
                                    self.tp_group)
 
@@ -83,11 +95,11 @@ class CLIPEncoderLayer(nn.Module):
     # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
     fsdp_unit = True
 
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, hidden_act: str = "quick_gelu"):
         super().__init__()
         self.self_attn = CLIPAttention(cfg)
         self.layer_norm1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.mlp = CLIPMLP(cfg)
+        self.mlp = CLIPMLP(cfg, hidden_act)
         self.layer_norm2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, x, mask):
@@ -104,9 +116,9 @@ class CLIPEmbeddings(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, hidden_act: str = "quick_gelu"):
         super().__init__()
-        self.layers = nn.ModuleList([CLIPEncoderLayer(cfg)
+        self.layers = nn.ModuleList([CLIPEncoderLayer(cfg, hidden_act)
                                      for _ in range(cfg.num_hidden_layers)])
 
 

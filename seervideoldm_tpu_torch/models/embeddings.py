@@ -3,6 +3,7 @@ diffusers ``Timesteps`` / ``TimestepEmbedding`` semantics)."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,12 +31,14 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 class TimestepEmbedding(nn.Module):
-    """linear_1 -> silu -> linear_2 (diffusers parameter names)."""
+    """linear_1 -> silu -> linear_2 (diffusers parameter names);
+    ``out_dim`` (default ``time_embed_dim``) is linear_2's width."""
 
-    def __init__(self, in_dim: int, time_embed_dim: int):
+    def __init__(self, in_dim: int, time_embed_dim: int,
+                 out_dim: Optional[int] = None):
         super().__init__()
         self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))

@@ -7,6 +7,7 @@ spatial only.  Layout ``(b, f, h, w, c)``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -14,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import InflatedConv
-from ..ops.norms import GroupNorm, group_norm_silu
+from ..ops.norms import GroupNorm, frame_group_norm, group_norm_silu
 from ..utils import profiling
 
 
@@ -54,16 +55,22 @@ class Downsample3D(nn.Module):
 
 
 class ResnetBlock3D(nn.Module):
-    """GN(fp32) -> SiLU -> conv -> +temb -> GN -> SiLU -> conv (+shortcut)."""
+    """GN(fp32) -> SiLU -> conv -> +temb -> GN -> SiLU -> conv (+shortcut).
+
+    The GroupNorm statistics span every frame of a clip (Seer's inflated
+    resnet), or each frame alone with ``frame_norm`` (diffusers'
+    ``ResnetBlock2D`` over the folded frames: Stable Video Diffusion's
+    spatial resnet)."""
 
     # an FSDP unit: gathers its weights whole per call (parallel/sharding.py)
     fsdp_unit = True
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 512, groups: int = 32,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, frame_norm: bool = False):
         super().__init__()
         out_ch = out_channels or in_channels
+        self.frame_norm = frame_norm
         self.norm1 = GroupNorm(groups, in_channels, eps)
         self.conv1 = InflatedConv(in_channels, out_ch, 3, padding=1)
         self.time_emb_proj = (nn.Linear(temb_channels, out_ch)
@@ -76,10 +83,12 @@ class ResnetBlock3D(nn.Module):
     @profiling.site("resnet")
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(group_norm_silu(self.norm1, x))
+        norm_silu = (functools.partial(frame_group_norm, silu=True)
+                     if self.frame_norm else group_norm_silu)
+        h = self.conv1(norm_silu(self.norm1, x))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = self.conv2(group_norm_silu(self.norm2, h))
+        h = self.conv2(norm_silu(self.norm2, h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

@@ -43,6 +43,8 @@ MIN_ROWS_PER_THREAD = 4  # fewer CTAs where a thread would walk fewer rows
 # difference in the statistics is more than one bf16 ulp of the output
 MOMENTS_RTOL = 1e-5
 ABS_FLOOR, SHIFT_RTOL = 1e-6, 1e-6
+# elements a slice of the check holds at once
+CHECK_CHUNK = 1 << 26
 
 _SMS: dict[int, int] = {}
 _TICKETS: dict[tuple, torch.Tensor] = {}
@@ -206,6 +208,21 @@ def _bf16_step(t: torch.Tensor, steps: int) -> torch.Tensor:
         torch.bfloat16)
 
 
+def _moments64(x: torch.Tensor, groups: int) -> tuple:
+    """(var, mean), each (b, groups) fp64, of a channels-last ``x``: two
+    passes over slices of ``CHECK_CHUNK`` elements, so that no fp64 copy
+    of a large ``x`` is alive at once."""
+    b, c = x.shape[0], x.shape[-1]
+    xs = x.reshape(b, -1, groups, c // groups)
+    rows = max(1, CHECK_CHUNK // (b * c))
+    starts = range(0, xs.shape[1], rows)
+    n = xs.shape[1] * (c // groups)
+    mean = sum(xs[:, i:i + rows].double().sum(dim=(1, 3)) for i in starts) / n
+    var = sum(((xs[:, i:i + rows].double() - mean[:, None, :, None]) ** 2)
+              .sum(dim=(1, 3)) for i in starts) / n
+    return var, mean
+
+
 def check_against_plain(x: torch.Tensor, groups: int, eps: float,
                         weight: torch.Tensor, bias: torch.Tensor,
                         silu: bool) -> dict:
@@ -218,8 +235,10 @@ def check_against_plain(x: torch.Tensor, groups: int, eps: float,
     value at most one bf16 ulp away (SiLU then applied), or within
     ABS_FLOOR + SHIFT_RTOL x |shift|: where |mean| is many standard
     deviations, the fp32 affine x * scale + shift cancels and a ~1e-7
-    change of the statistics is many ulps of an output near 0.  Returns
-    the readings and ``checks_ok``."""
+    change of the statistics is many ulps of an output near 0.  (2) and
+    (3) compare slices of ``CHECK_CHUNK`` elements, so that a large ``x``
+    (the temporal VAE decoder's 1.9 G elements) fits beside its copies.
+    Returns the readings and ``checks_ok``."""
     import torch.nn.functional as F
 
     from .. import norms
@@ -228,28 +247,33 @@ def check_against_plain(x: torch.Tensor, groups: int, eps: float,
         x = x.detach()
         b, c = x.shape[0], x.shape[-1]
         mean, rstd = group_norm_moments(x, groups, eps)
-        flat = x.double().reshape(b, -1, groups, c // groups)
-        var64, mean64 = torch.var_mean(flat, dim=(1, 3), unbiased=False)
+        var64, mean64 = _moments64(x, groups)
         rstd64 = torch.rsqrt(var64 + eps)
         mean_err = float(((mean.double() - mean64).abs()
                           / (mean64.abs() + var64.sqrt())).max())
         rstd_err = float(((rstd.double() - rstd64).abs() / rstd64).max())
         shared = group_norm(x, groups, eps, weight, bias, silu, (mean, rstd))
-        exact = norms.group_norm_apply_plain(x, mean, rstd, weight, bias, silu)
-        apply_ulps = int((_bf16_key(shared) - _bf16_key(exact)).abs().max())
         got = group_norm(x, groups, eps, weight, bias, silu)
         m, r = norms.group_norm_moments_plain(x, groups, eps)
-        y = norms.group_norm_apply_plain(x, m, r, weight, bias)
-        cands = [_bf16_step(y, s) for s in (0, -1, 1)]
-        if silu:
-            cands = [F.silu(t) for t in cands]
         shift = (m * r).repeat_interleave(c // groups, dim=-1) * weight
-        floor = ABS_FLOOR + SHIFT_RTOL * shift.abs().reshape(
-            (b,) + (1,) * (x.dim() - 2) + (c,))
-        ok = (got - cands[0]).float().abs() <= floor
-        for t in cands:
-            ok |= got == t
-        outside = int((~ok).sum())
+        floor = (ABS_FLOOR + SHIFT_RTOL * shift.abs())[:, None]
+        xs, ss, gs = (t.reshape(b, -1, c) for t in (x, shared, got))
+        rows = max(1, CHECK_CHUNK // (b * c))
+        apply_ulps = outside = 0
+        for i in range(0, xs.shape[1], rows):
+            xi, gi = xs[:, i:i + rows], gs[:, i:i + rows]
+            exact = norms.group_norm_apply_plain(xi, mean, rstd, weight, bias,
+                                                 silu)
+            apply_ulps = max(apply_ulps, int(
+                (_bf16_key(ss[:, i:i + rows]) - _bf16_key(exact)).abs().max()))
+            y = norms.group_norm_apply_plain(xi, m, r, weight, bias)
+            cands = [_bf16_step(y, s) for s in (0, -1, 1)]
+            if silu:
+                cands = [F.silu(t) for t in cands]
+            ok = (gi - cands[0]).float().abs() <= floor
+            for t in cands:
+                ok |= gi == t
+            outside += int((~ok).sum())
     return dict(moments_mean_rel_err=mean_err, moments_rstd_rel_err=rstd_err,
                 apply_ulps_on_kernel_moments=apply_ulps,
                 outside_one_ulp=outside,

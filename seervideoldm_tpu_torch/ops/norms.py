@@ -140,6 +140,16 @@ def group_norm_silu(norm: "GroupNorm", x: torch.Tensor) -> torch.Tensor:
     return _group_norm(norm, x, silu=True)
 
 
+def frame_group_norm(norm: "GroupNorm", x: torch.Tensor,
+                     silu: bool = False) -> torch.Tensor:
+    """``norm`` (then SiLU) with statistics per frame of a ``(b, f, h, w,
+    c)`` tensor, the frames folded into the batch as diffusers' 2-D layers
+    see them (Stable Video Diffusion's spatial layers)."""
+    b, f = x.shape[:2]
+    flat = x.reshape(b * f, *x.shape[2:])
+    return _group_norm(norm, flat, silu).reshape(x.shape)
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over the last axis of a channels-last tensor, fp32
     statistics; torch ``nn.GroupNorm(num_groups, C)`` semantics."""

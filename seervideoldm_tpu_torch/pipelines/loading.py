@@ -18,6 +18,13 @@ JAX package's keys; the top-level ``tome_ratio`` / ``tome_min_tokens`` and
 ``freeu`` go into the UNet config unless ``model_overrides.unet`` names
 the same key (``unet_config_from``).
 
+``model: svd_xt`` builds Stable Video Diffusion XT instead
+(``load_svd_models``: ``SVDModels`` of ``pipelines/image_video.py``,
+random from ``cfg.seed``, widths from ``model_overrides`` under
+``svd_unet`` / ``vae`` / ``image_encoder``, then the released weights from
+``<pretrained_model_name_or_path>/{unet,vae,image_encoder}`` when the
+config names the directory).  It runs on one card: no mesh.
+
 ``load_models(mesh=...)`` registers the mesh for the model code
 (``parallel.activation``) and the ``ring_attention`` key (``ops/ring.py``),
 and, when several ranks run, broadcasts rank 0's weights (and fp32
@@ -36,9 +43,11 @@ import torch
 
 from ..config import Config
 from ..io.pretrained import (convert_clip_text, convert_fstext,
-                             convert_seer_unet, convert_vae)
+                             convert_seer_unet, convert_svd, convert_vae)
 from ..io.state_dict import load_state_dict
 from ..models.clip_text import CLIPTextConfig
+from ..models.clip_vision import VIT_H14_CONFIG, CLIPVisionConfig
+from ..models.svd_unet import SVDUNetConfig
 from ..models.unet3d import SeerUNetConfig
 from ..models.vae import VAEConfig
 from ..ops.ring import set_ring_enabled
@@ -49,6 +58,7 @@ from ..parallel.mesh import describe
 from ..parallel.sharding import shard_tensor_parallel
 from ..utils.device import DTYPES
 from ..utils.tokenizer import build_tokenizer
+from .image_video import SVDModels
 from .text_video import SeerModels
 
 
@@ -142,6 +152,39 @@ def initialize_models(cfg: Config, device=None,
         remat=(cfg.remat or bool(cfg.gradient_checkpointing))
         if trainable_scope else False)
     load_pretrained(models, cfg)
+    return models
+
+
+def load_svd_models(cfg: Config, device=None,
+                    init: Optional[bool] = None) -> SVDModels:
+    """SVD-XT's models for ``cfg`` on ``device`` (``model: svd_xt``).
+    Random weights from ``cfg.seed`` unless ``init`` is False or the
+    released weights are read (every tensor strictly): then none."""
+    if cfg.mesh_shape and any(int(v) > 1 for v in dict(cfg.mesh_shape).values()):
+        raise ValueError("model: svd_xt runs on one card (no mesh_shape)")
+    over = cfg.model_overrides or {}
+    fields = lambda key: {k: tuple(v) if isinstance(v, list) else v  # noqa: E731
+                          for k, v in (over.get(key) or {}).items()}
+    image = (CLIPVisionConfig(**fields("image_encoder"))
+             if "image_encoder" in over else VIT_H14_CONFIG)
+    root = cfg.pretrained_model_name_or_path
+    models = SVDModels.initialize(
+        unet_config=SVDUNetConfig(**fields("svd_unet")),
+        vae_config=VAEConfig(**fields("vae")), image_config=image,
+        dtype=compute_dtype(cfg), device=device, seed=int(cfg.seed),
+        init=not root if init is None else init)
+    if root:
+        if not os.path.isdir(root):
+            raise FileNotFoundError(f"pretrained_model_name_or_path {root!r} "
+                                    "is not a directory")
+        sub = lambda d, *names: load_state_dict(  # noqa: E731
+            _find_weights(os.path.join(root, d), *names))
+        convert_svd(sub("unet", "diffusion_pytorch_model.safetensors",
+                        "diffusion_pytorch_model.bin"),
+                    sub("vae", "diffusion_pytorch_model.safetensors",
+                        "diffusion_pytorch_model.bin"),
+                    sub("image_encoder", "model.safetensors",
+                        "pytorch_model.bin"), models)
     return models
 
 

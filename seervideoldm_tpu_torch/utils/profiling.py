@@ -41,6 +41,15 @@ bounded ring (``RING_SIZE``, oldest evicted first).  While the current
 CUDA stream is capturing a graph, nothing records or queries an event or
 synchronises.
 
+Stable Video Diffusion (``pipelines/image_video.py``, ``models/svd_unet.py``)
+adds the always-on ``pipe.svd`` record (counts ``unet.calls``,
+``svd.frames``, ``svd.steps``) and detailed spans with CUDA events:
+``pipe.svd_call``, ``pipe.encode_image``, ``pipe.vae_encode``,
+``pipe.sample``, ``pipe.vae_decode``, ``euler.step``, ``unet.call``,
+``site.temporal_resnet``, ``site.temporal_block``, ``site.blend`` and
+``site.attn.<kind>`` (``spatial_self``, ``spatial_cross``,
+``temporal_self``, ``temporal_cross``; ids: the attention's shape).
+
 **Model sites** (``site``, a decorator of a site's forward): ``site.resnet``,
 ``site.attn``, ``site.ff``, the outermost of a kind only (a feed-forward
 inside a fused FF site is part of it).  While the detailed tier is on and
@@ -97,7 +106,8 @@ import torch.nn as nn
 RING_SIZE = 1 << 15
 # the prefixes of the program's span names (``idle_gaps`` labels a gap
 # with the innermost of these)
-PREFIXES = ("serve.", "pipe.", "ddim.", "dpm.", "unet.", "site.", "train.")
+PREFIXES = ("serve.", "pipe.", "ddim.", "dpm.", "euler.", "unet.", "site.",
+            "train.")
 
 _ring: deque = deque(maxlen=RING_SIZE)
 _counts: dict = {}

@@ -187,6 +187,55 @@ def test_bf16_step_is_one_ulp_along_the_number_line(value):
     assert int(K._bf16_key(t) - K._bf16_key(down)) == 1
 
 
+@pytest.mark.parametrize("chunk", [1 << 26, 97])
+@pytest.mark.parametrize("silu", [False, True])
+def test_card_check_in_slices_reads_the_plain_halves_clean(monkeypatch, chunk,
+                                                           silu):
+    """``check_against_plain``'s arithmetic on the CPU, the kernels stood in
+    by their plain halves: nothing outside one ulp, the apply bit for bit,
+    the fp64 moments of its slices ``var_mean``'s, whole or in slices of
+    97 elements (rows not a multiple of a slice); a value one ulp off is
+    still in, one a hundred ulps off is not."""
+    def plain(x, groups, eps, weight, bias, silu=False, moments=None):
+        m, r = moments or norms.group_norm_moments_plain(x, groups, eps)
+        return norms.group_norm_apply_plain(x, m, r, weight, bias, silu)
+
+    monkeypatch.setattr(K, "group_norm", plain)
+    monkeypatch.setattr(K, "group_norm_moments",
+                        norms.group_norm_moments_plain)
+    monkeypatch.setattr(K, "CHECK_CHUNK", chunk)
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn((2, 3, 5, 7, 64), generator=g) + 0.5).to(torch.bfloat16)
+    w, b = 1 + 0.1 * torch.randn(64, generator=g), 0.1 * torch.randn(64,
+                                                                     generator=g)
+    row = K.check_against_plain(x, 8, 1e-6, w, b, silu)
+    assert row["checks_ok"] and row["outside_one_ulp"] == 0
+    assert row["apply_ulps_on_kernel_moments"] == 0
+    var, mean = K._moments64(x, 8)
+    want_var, want_mean = torch.var_mean(x.double().reshape(2, -1, 8, 8),
+                                         dim=(1, 3), unbiased=False)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-12, atol=0)
+    torch.testing.assert_close(var, want_var, rtol=1e-12, atol=0)
+
+    def off(steps):
+        """The whole path with one normalised value ``steps`` ulps off
+        before the SiLU; the apply on given moments left exact."""
+        def shifted(x, groups, eps, weight, bias, silu=False, moments=None):
+            if moments is not None:
+                return plain(x, groups, eps, weight, bias, silu, moments)
+            flat = plain(x, groups, eps, weight, bias).reshape(-1).clone()
+            flat[5] = K._bf16_step(flat[5:6], steps)[0]
+            y = flat.reshape(x.shape)
+            return F.silu(y) if silu else y
+        return shifted
+
+    monkeypatch.setattr(K, "group_norm", off(1))
+    assert K.check_against_plain(x, 8, 1e-6, w, b, silu)["checks_ok"]
+    monkeypatch.setattr(K, "group_norm", off(100))
+    row = K.check_against_plain(x, 8, 1e-6, w, b, silu)
+    assert not row["checks_ok"] and row["outside_one_ulp"] == 1
+
+
 def test_wrapper_takes_only_cuda_tensors():
     x = torch.zeros(2, 4, 4, 32)
     with pytest.raises(ValueError, match="unsupported device"):
